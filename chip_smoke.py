@@ -7,27 +7,46 @@ Run from the root of a checkout; it needs one CUDA card, nvcc and nothing
 of JAX or `iltpu`. Phases, each printing its results:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: both kernels from `iltpu_torch/csrc/`, one nvcc each, in parallel;
-3. kernels: each kernel against its plain PyTorch version on the card, one
-   step and a 5-step chain, at the main path's shapes (pointmass: state 5,
-   action 2) and at hopper's (state 12, action 3), batch 256, width 256,
-   discriminator width 64; SAC with min_alpha 0 and 0.05, GAIL with the
+2. build: the four kernels from `iltpu_torch/csrc/` (sac_update,
+   gail_update, kblock_update, gaussian_rowsum), one nvcc each, in
+   parallel; each one's `-Xptxas -v` register line, and the cooperative
+   grid the K-blocked kernel's occupancy allows;
+3. kernels: each per-update kernel against its plain PyTorch version on the
+   card, one step and a 5-step chain, at the main path's shapes (pointmass:
+   state 5, action 2) and at hopper's (state 12, action 3), batch 256, width
+   256, discriminator width 64; SAC with min_alpha 0 and 0.05, GAIL with the
    bench configuration (BCE, spectral norm, AIRL, penalty 1, weight decay
    10, lr 3e-5) and the tuned one (Mixup, entropy 0.0248, AIRL). Tolerance:
    |kernel - plain| <= atol + rtol |plain| with rtol 2e-5 / atol 2e-6 for one
    step and 1e-4 / 1e-5 for the chain (fp32, summed in another order). Times
    are CUDA-event medians of 60 calls;
+3b. the K-blocked kernel at K=16 against 16 calls of the two per-update
+   kernels (the same arithmetic: reported bit-identical or not, held at the
+   one-step tolerance) and at K=5 against its plain version (the chain
+   tolerance), at both shapes, for both GAIL configurations x min_alpha 0
+   and 0.05; times per launch and per micro-update beside the plain
+   version's and the 16 per-update calls';
+3c. the row-sum kernel against its plain version at GMMIL's 256 x 256
+   (D = 7 and 15) and at 256 x 10,001 expert rows (the y loop and a ragged
+   edge), at rtol 1e-5 / atol 1e-6 (the sums run in another order);
 4. reference: the port's transition_core on the card against the same code
    on the CPU (plain versions), same state and draws, 3 iterations x 8
-   updates, at 1e-4 / 1e-5;
+   updates, at 1e-4 / 1e-5: GAIL per update, GAIL with update_block=4 (two
+   K-blocked launches an iteration) and GMMIL;
 5. trainer: a GAIL-pointmass run through `iltpu_torch.trainer.Trainer` with
-   512 envs, 4096 steps and ~3k updates at the default widths, with both
+   512 envs, 4096 steps and ~3k updates at the default widths, with the
    launch counters set to 0 just before and checked against the update
-   count just after; prints the steady env-steps/s.
+   count just after; prints the steady env-steps/s;
+5b. the same with training.update_block=16: the K-blocked kernel runs the
+   iterations whose update count 16 divides, the per-update kernels the
+   rest;
+5c. GMMIL-pointmass at the same size: two row sums and one SAC launch per
+   update, no GAIL launch.
 
-Then one `kernels` JSON line, the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero, and
-without CUDA or without the package beside it the script exits 1 at once.
+Then the three steady rates with the nvidia-smi line, one `kernels` JSON
+line, the nvidia-smi line, and as the last line {"ok": true, "device":
+{...}}. Any failure raises and exits non-zero, and without CUDA or without
+the package beside it the script exits 1 at once.
 """
 
 import json
@@ -187,24 +206,38 @@ def check_sac(S, A, min_alpha, dev):
     return worst, ms, plain_ms
 
 
-def sac_bound_ms(S, A, B, H):
-    """The products (2 FLOP a multiply-add; the elementwise work is under 1%
-    of them) over the fp32 rate, against each input read and each output
-    written once over the memory rate."""
+def bound_ms(flops, nbytes):
+    """The least time for the work: operations over the fp32 rate against
+    bytes over the memory rate, the larger; and which one it is."""
+    t_ops, t_bytes = flops / FP32_RATE, nbytes / MEM_RATE
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def sac_flops(S, A, B, H):
+    """The products of one update (2 FLOP a multiply-add; the elementwise
+    work is under 1% of them)."""
     X, O = S + A, 2 * A
     actor_fwd = 2 * B * (S * H + H * H + H * O)
     twin_fwd = 2 * 2 * B * (X * H + H * H + H)
     critic_bwd = 2 * 2 * (H * B + B * H + H * H * B + B * H * H + X * H * B)
     input_grad = 2 * 2 * (B * H + B * H * H + B * A * H)
     actor_bwd = 2 * (H * O * B + B * H * O + H * H * B + B * H * H + S * H * B)
-    flops = 2 * actor_fwd + 3 * twin_fwd + critic_bwd + input_grad + actor_bwd
+    return 2 * actor_fwd + 3 * twin_fwd + critic_bwd + input_grad + actor_bwd
+
+
+def sac_bound_ms(S, A, B, H):
+    """The products over the fp32 rate, against each input read and each
+    output written once over the memory rate."""
+    X, O = S + A, 2 * A
     actor = S * H + H + H * H + H + H * O + O
     critic = 2 * (X * H + H + H * H + H + H + 1)
     state = 3 * actor + 4 * critic + 6
     batch = B * (2 * S + A + 4) + 2 * B * A
-    nbytes = 4 * (2 * state + batch + 2 * B + 1)
-    t_ops, t_bytes = flops / FP32_RATE, nbytes / MEM_RATE
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return bound_ms(sac_flops(S, A, B, H), 4 * (2 * state + batch + 2 * B + 1))
+
+
+def numel(ts):
+    return sum(t.numel() for t in ts)
 
 
 def gail_case(S, A, B, bce, seed, dev):
@@ -254,14 +287,13 @@ def check_gail(S, A, bce, dev):
     return worst, ms, plain_ms, (hyper, st, args, mix)
 
 
-def gail_bound_ms(S, A, B, Hd, case):
-    """The products over the fp32 rate (the penalty's W~1^T g product only
-    for the hidden units this data switches on), against each input read
-    and each output written once over the memory rate."""
+def gail_flops(B, Hd, st, args, mix):
+    """The products of one step (the penalty's W~1^T g product only for the
+    hidden units this data switches on)."""
     import torch
 
-    hyper, st, (e_s, e_a, e_w, p_s, p_a, p_w, eps_gp), mix = case
-    D = S + A
+    e_s, e_a, e_w, p_s, p_a, p_w, eps_gp = args
+    D = e_s.shape[1] + e_a.shape[1]
     R = 2 * B if mix is None else B
     W1, b1 = st["p"][0], st["p"][1]
     gx = eps_gp[:, None] * torch.cat([e_s, e_a], 1) + (1 - eps_gp[:, None]) * torch.cat([p_s, p_a], 1)
@@ -269,17 +301,149 @@ def gail_bound_ms(S, A, B, Hd, case):
     flops = 2 * R * (D * Hd + Hd)  # loss rows
     flops += 2 * B * D * Hd * (2 + active)  # penalty rows: forward, g, W~1^T g
     flops += 2 * (R + B) * (D * Hd + Hd)  # weight gradients
-    flops += 2 * B * (D * Hd + Hd) + 4 * D * Hd  # reward rows, power iteration
+    return flops + 2 * B * (D * Hd + Hd) + 4 * D * Hd  # reward rows, power iteration
+
+
+def gail_bound_ms(S, A, B, Hd, case):
+    """The products over the fp32 rate, against each input read and each
+    output written once over the memory rate."""
+    hyper, st, args, mix = case
+    D = S + A
     params = D * Hd + 2 * Hd + 1
     state = 3 * params + (2 * Hd + D + 1 if st["sn"] else 0) + 1
     batch = 2 * B * (D + 1) + B + (0 if mix is None else B)
-    nbytes = 4 * (2 * state + batch + B + 1)
-    t_ops, t_bytes = flops / FP32_RATE, nbytes / MEM_RATE
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return bound_ms(gail_flops(B, Hd, st, args, mix), 4 * (2 * state + batch + B + 1))
 
 
-def check_against_cpu(dev):
-    """transition_core on the card (kernels) against the CPU (plain)."""
+def kblock_case(S, A, K, bce, min_alpha, dev):
+    """Full-width SAC and GAIL states and K-stacked batches and noise."""
+    import torch
+
+    B = 256
+    sac_hyper, sac_st, _ = sac_case(S, A, B, 256, min_alpha, 1 + S, dev)
+    gail_hyper, disc_st, _ = gail_case(S, A, B, bce, 7 + S, dev)
+    g = torch.Generator(device=dev).manual_seed(31 + S + K)
+    r = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    u = lambda *shape: torch.rand(*shape, generator=g, device=dev)
+    absorbing = (u(K, B) < 0.1).float()
+    states = r(K, B, S)
+    states[..., -1] = absorbing
+    batches = {"states": states, "actions": torch.tanh(r(K, B, A)), "next_states": r(K, B, S),
+               "terminals": (u(K, B) < 0.05).float(), "weights": 1 + 0.5 * u(K, B),
+               "absorbing": absorbing}
+    expert = {"states": r(K, B, S), "actions": torch.tanh(r(K, B, A)), "weights": 1 + 0.5 * u(K, B)}
+    noise = {"eps_gp": u(K, B), "eps2": r(K, B, A), "eps_new": r(K, B, A)}
+    if not bce:
+        noise["mix"] = u(K, B)
+    return sac_hyper, gail_hyper, sac_st, disc_st, batches, expert, noise
+
+
+def per_update_calls(sac_hyper, gail_hyper, sac_st, disc_st, batches, expert, noise):
+    """K calls of the two per-update kernels, in order; the last aux."""
+    from iltpu_torch.ops.gail_update import gail_update
+    from iltpu_torch.ops.sac_update import sac_update
+
+    mix = noise.get("mix")
+    for k in range(batches["states"].shape[0]):
+        tb = {key: v[k] for key, v in batches.items()}
+        loss, tb["rewards"] = gail_update(
+            gail_hyper, disc_st, expert["states"][k], expert["actions"][k], expert["weights"][k],
+            tb["states"], tb["actions"], tb["weights"], noise["eps_gp"][k],
+            None if mix is None else mix[k])
+        aux = sac_update(sac_hyper, sac_st, tb, noise["eps2"][k], noise["eps_new"][k])
+    return {"loss": loss, "rewards": tb["rewards"], **aux}
+
+
+def check_kblock(S, A, bce, min_alpha, dev, timed):
+    """K=16 against 16 per-update calls (bit-identical?) and K=5 against the
+    plain version; with `timed`, the times and the bound at K=16."""
+    import torch
+    from iltpu_torch.ops import gail_update as gu
+    from iltpu_torch.ops import sac_update as su
+    from iltpu_torch.ops.kblock_update import _batch_operands, kblock_update, kblock_update_plain
+
+    name = f"kblock S={S} A={A} {'BCE' if bce else 'Mixup'} min_alpha={min_alpha}"
+    worst, same, out = (0.0, 0.0), None, None
+    for K, tol, reference in ((16, TOL_STEP, per_update_calls), (5, TOL_CHAIN, kblock_update_plain)):
+        sh, gh, sac_st, disc_st, batches, expert, noise = kblock_case(S, A, K, bce, min_alpha, dev)
+        k_sac, k_disc, r_sac, r_disc = clone(sac_st), clone(disc_st), clone(sac_st), clone(disc_st)
+        ka = kblock_update(sh, gh, k_sac, k_disc, batches, expert, noise)
+        ra = reference(sh, gh, r_sac, r_disc, batches, expert, noise)
+        torch.cuda.synchronize()
+        what = f"{name} K={K} vs {reference.__name__}"
+        for part in (compare(f"{what} sac", leaves(k_sac), leaves(r_sac), tol, k_sac, r_sac),
+                     compare(f"{what} disc", leaves(k_disc), leaves(r_disc), tol, k_disc, r_disc),
+                     compare(f"{what} aux", ka.items(), ra.items(), tol)):
+            worst = worse(worst, part)
+        if K == 16:
+            got = [t for _, t in (*leaves(k_sac), *leaves(k_disc), *ka.items())]
+            want = [t for _, t in (*leaves(r_sac), *leaves(r_disc), *ra.items())]
+            names = [n for n, _ in (*leaves(k_sac), *leaves(k_disc), *ka.items())]
+            diff = [n for n, a, b in zip(names, got, want) if not torch.equal(a, b)]
+            same = not diff
+            if diff:
+                print(f"{what}: not bit-identical in {len(diff)} of {len(names)} tensors: "
+                      f"{', '.join(diff[:12])}")
+            if timed:
+                args = (sh, gh, clone(sac_st), clone(disc_st), batches, expert, noise)
+                ms = median_ms(lambda: kblock_update(*args), n=20)
+                per_ms = median_ms(lambda: per_update_calls(*args), n=20)
+                plain_ms = median_ms(lambda: kblock_update_plain(*args), n=10)
+                flops = K * sac_flops(S, A, 256, 256) + sum(
+                    gail_flops(256, 64, disc_st, [expert["states"][k], expert["actions"][k],
+                                                 expert["weights"][k], batches["states"][k],
+                                                 batches["actions"][k], batches["weights"][k],
+                                                 noise["eps_gp"][k]],
+                               None if bce else noise["mix"][k]) for k in range(K))
+                state = su.state_tensors(sac_st) + gu.state_tensors(disc_st)
+                nbytes = 4 * (2 * numel(state) + numel(_batch_operands(batches, expert, noise))
+                              + 3 * 256 + 2)
+                out = (ms, per_ms, plain_ms, *bound_ms(flops, nbytes))
+    return worst, same, out
+
+
+def check_rowsum(dev):
+    """The row-sum kernel against its plain version on centred inputs;
+    times and the bound at each size."""
+    import torch
+    from iltpu_torch.ops import build
+    from iltpu_torch.ops import gaussian_rowsum as gr
+    from iltpu_torch.ops.pairwise import centre
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    lib = gr._bind(build.load("gaussian_rowsum"))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    results = {}
+    for nx, ny, D in ((256, 256, 7), (256, 256, 15), (256, 10001, 7)):
+        x = torch.randn(nx, D, generator=g, device=dev)
+        y = 1.5 * torch.randn(ny, D, generator=g, device=dev) + 0.3
+        w = 1 + torch.rand(ny, generator=g, device=dev)
+        w = w / w.sum()
+        g1, g2 = torch.full((1,), 0.8, device=dev), torch.full((1,), 3.1, device=dev)
+        got = gr.gaussian_rowsum(x, y, w, g1, g2)
+        want = gr.gaussian_rowsum_plain(x, y, w, g1, g2)
+        err = compare(f"gaussian_rowsum {nx}x{ny} D={D}", [("out", got)], [("out", want)],
+                      (1e-5, 1e-6))
+        xc, yc = centre(x, y)
+        ms = median_ms(lambda: gr.launch(lib, xc, yc, w, g1, g2, stream))
+        plain_ms = median_ms(lambda: gr.rowsums_plain(xc, yc, w, g1, g2))
+        # a pair: the cross product, d2, two scaled exps (one operation
+        # each), the weighted sum; each input read and the output written once
+        flops = nx * ny * (2 * D + 10) + 2 * (nx + ny) * D
+        bound, by = bound_ms(flops, 4 * (nx * D + ny * D + ny + 2 + nx))
+        results[(nx, ny, D)] = (err[0], ms, plain_ms, bound, by)
+        print(f"kernel gaussian_rowsum {nx}x{ny} D={D}: max_abs_err {err[0]:.3g}, max_rel_err "
+              f"{err[1]:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound:.6f} ms by {by})")
+    return results
+
+
+GMMIL_ARGS = ["algorithm=GMMIL", "training.disc_pallas=false", "training.fused_update_scan=false"]
+
+
+def check_against_cpu(dev, extra=()):
+    """transition_core on the card (kernels) against the CPU (plain), 3
+    iterations x 8 updates; returns the worst error and the launches the
+    card's run made."""
     import torch
     from iltpu_torch import convert
     from iltpu_torch.config import load_config
@@ -287,15 +451,18 @@ def check_against_cpu(dev):
 
     args = [a for a in TRAINER_ARGS if not a.startswith(("num_envs", "steps", "memory"))]
     args += ["num_envs=4", "steps=300", "memory.size=1000", "training.batch_size=16",
-             f"output_dir={os.path.join(REPO, 'outputs', 'chip_smoke')}"]
+             f"output_dir={os.path.join(REPO, 'outputs', 'chip_smoke')}", *extra]
     out = os.path.join(REPO, "outputs", "chip_smoke")
     gpu = Trainer(load_config(args), out_dir=out)
     cpu = Trainer(load_config(args + ["platform=cpu"]), out_dir=out)
+    gmmil = gpu.algorithm == "GMMIL"
     convert.load_sac_tree_(cpu.sac, convert.sac_tree(gpu.sac))
-    convert.load_disc_tree_(cpu.disc_state, convert.disc_tree(gpu.disc_state))
+    if not gmmil:
+        convert.load_disc_tree_(cpu.disc_state, convert.disc_tree(gpu.disc_state))
     g = torch.Generator().manual_seed(11)
     S, A, n = cpu.state_size, cpu.action_size, 4
     worst = (0.0, 0.0)
+    before = counts()
     for it in range(3):
         data = [torch.randn(n, S, generator=g), torch.tanh(torch.randn(n, A, generator=g)),
                 torch.randn(n, generator=g), torch.randn(n, S, generator=g),
@@ -306,15 +473,97 @@ def check_against_cpu(dev):
         c_aux = cpu.transition_core(it * n, *data, 8, noise=noise)
         g_aux = gpu.transition_core(it * n, *[x.to(dev) for x in data], 8,
                                     noise={k: v.to(dev) for k, v in noise.items()})
-        name = f"transition_core iteration {it}"
+        name = f"transition_core {' '.join(extra) or 'GAIL'} iteration {it}"
+        if gmmil:
+            disc = compare(f"{name} gmmil", gmmil_leaves(gpu.disc_state),
+                           gmmil_leaves(cpu.disc_state), TOL_CHAIN)
+        else:
+            disc = compare(f"{name} disc", leaves(gpu.disc_state), leaves(cpu.disc_state),
+                           TOL_CHAIN, gpu.disc_state, cpu.disc_state)
         for part in (
             compare(f"{name} sac", leaves(gpu.sac), leaves(cpu.sac), TOL_CHAIN, gpu.sac, cpu.sac),
-            compare(f"{name} disc", leaves(gpu.disc_state), leaves(cpu.disc_state), TOL_CHAIN,
-                    gpu.disc_state, cpu.disc_state),
+            disc,
             compare(f"{name} aux", g_aux.items(), c_aux.items(), TOL_CHAIN),
         ):
             worst = worse(worst, part)
-    return worst
+    return worst, {k: v - before[k] for k, v in counts().items()}
+
+
+def gmmil_leaves(st):
+    return [("gamma_1", st.gamma_1), ("gamma_2", st.gamma_2), ("initialized", st.initialized.float())]
+
+
+def counts():
+    from iltpu_torch.ops.gail_update import gail_update
+    from iltpu_torch.ops.gaussian_rowsum import gaussian_rowsum
+    from iltpu_torch.ops.kblock_update import kblock_update
+    from iltpu_torch.ops.sac_update import sac_update
+
+    return {f.__name__: f.launches for f in (sac_update, gail_update, kblock_update, gaussian_rowsum)}
+
+
+def reset_counts():
+    from iltpu_torch.ops.gail_update import gail_update
+    from iltpu_torch.ops.gaussian_rowsum import gaussian_rowsum
+    from iltpu_torch.ops.kblock_update import kblock_update
+    from iltpu_torch.ops.sac_update import sac_update
+
+    for f in (sac_update, gail_update, kblock_update, gaussian_rowsum):
+        f.launches = 0
+
+
+def schedule(cfg, K):
+    """(updates in iterations K divides, the other updates), as the host
+    loop counts them (n_updates of each iteration)."""
+    t = cfg.training
+    blocked = other = done = 0
+    for new_step in range(cfg.num_envs, cfg.steps + cfg.num_envs, cfg.num_envs):
+        if new_step >= t.start:
+            target = (new_step - t.start) // t.interval + 1
+            n, done = target - done, target
+            if n and K > 1 and n % K == 0:
+                blocked += n
+            else:
+                other += n
+    return blocked, other
+
+
+def run_trainer(name, extra, expect):
+    """One full-width trainer run through its normal entry, counters set to
+    0 just before and read just after; `expect(trainer)` gives the counts
+    it must show. Returns (counts, steady env-steps/s)."""
+    import numpy as np
+    import torch
+    from iltpu_torch.config import load_config
+    from iltpu_torch.trainer import Trainer
+
+    out_dir = os.path.join(REPO, "outputs", "chip_smoke", name)
+    trainer = Trainer(load_config(TRAINER_ARGS + list(extra) + [f"output_dir={out_dir}"]),
+                      out_dir=out_dir)
+    reset_counts()
+    t0 = time.time()
+    score = trainer.run()
+    wall = time.time() - t0
+    launches = counts()
+    n = trainer.updates_done
+    want = expect(trainer)
+    if launches != want or n == 0:
+        raise AssertionError(f"{name}: launch counters {launches} != {want} ({n} updates)")
+    m = trainer.metrics
+    if not np.isfinite(score) or not all(np.isfinite(r).all() for r in m["test_returns"]):
+        raise AssertionError(f"{name}: non-finite score {score} or returns {m['test_returns']}")
+    state = [*leaves(trainer.sac)]
+    state += gmmil_leaves(trainer.disc_state) if trainer.algorithm == "GMMIL" else [*leaves(trainer.disc_state)]
+    for path, t in state:
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: non-finite trainer state {path}")
+    marks = m["steady_marks"]
+    windows = [(b[0] - a[0]) / (b[1] - a[1]) for a, b in zip(marks, marks[1:])]
+    steady = m["steady_env_steps"] / m["steady_time"]
+    print(f"trainer {name}: {trainer.step_done} env steps, {n} updates, {launches}, {wall:.2f} s "
+          f"wall, score {score:.4f}, eval returns {[round(r, 3) for r in m['test_returns'][-1]]}")
+    print(f"trainer {name}: steady {steady:.1f} env-steps/s (windows {[round(w, 1) for w in windows]})")
+    return launches, steady
 
 
 def main():
@@ -342,17 +591,19 @@ def main():
 
     # 2. build
     from iltpu_torch.ops import build
+    from iltpu_torch.ops import kblock_update as kb
 
     secs = build.build_all()
-    print(f"build: both kernels in {secs:.2f} s (one nvcc each, in parallel)")
+    print(f"build: {', '.join(build.NAMES)} in {secs:.2f} s (one nvcc each, in parallel)")
     for name in build.NAMES:
         regs = [l.split(":", 1)[1].strip() for l in build.build_log(name).splitlines() if "Used" in l]
         print(f"build {name}: {'; '.join(regs)}")
+    for D in (7, 15):
+        per_sm, sms = kb.grid(build.load("kblock_update"), D, 64)
+        print(f"build kblock_update: D={D}: {per_sm} co-resident block(s) of 512 threads per SM x "
+              f"{sms} SMs = a cooperative grid of {per_sm * sms}")
 
     # 3. kernels against their plain versions
-    from iltpu_torch.ops.gail_update import gail_update
-    from iltpu_torch.ops.sac_update import sac_update
-
     results = {}
     for S, A, where in ((5, 2, "pointmass"), (12, 3, "hopper")):
         err, times = (0.0, 0.0), None
@@ -376,45 +627,74 @@ def main():
               f"{err[1]:.3g}, {times[0]:.4f} ms (plain {times[1]:.4f} ms, bound {bound:.5f} ms by {by})")
     torch.cuda.synchronize()
 
-    # 4. the whole update path against the CPU
-    err = check_against_cpu(dev)
-    print(f"reference: transition_core on the card vs the CPU, 3 x 8 updates: "
-          f"max_abs_err {err[0]:.3g}, max_rel_err {err[1]:.3g}")
+    # 3b. the K-blocked kernel
+    for S, A, where in ((5, 2, "pointmass"), (12, 3, "hopper")):
+        err, identical, timed = (0.0, 0.0), [], None
+        for bce in (True, False):
+            for min_alpha in (0.0, 0.05):
+                e, same, out = check_kblock(S, A, bce, min_alpha, dev, timed=bce and not min_alpha)
+                err = worse(err, e)
+                identical.append(same)
+                timed = timed or out
+        ms, per_ms, plain_ms, bound, by = timed
+        results[("kblock", where)] = (err[0], ms, plain_ms, bound, by)
+        print(f"kernel kblock_update {where} S={S} A={A}: max_abs_err {err[0]:.3g}, max_rel_err "
+              f"{err[1]:.3g}, bit-identical to 16 per-update calls in {sum(identical)} of "
+              f"{len(identical)} configurations; K=16: {ms:.4f} ms a launch, {ms / 16:.4f} ms a "
+              f"micro-update (16 per-update calls {per_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound:.5f} ms by {by})")
 
-    # 5. the trainer, through its normal entry
-    import numpy as np
-    from iltpu_torch.config import load_config
-    from iltpu_torch.trainer import Trainer
+    # 3c. the row-sum kernel
+    rowsum = check_rowsum(dev)
+    results[("rowsum", "pointmass")] = rowsum[(256, 256, 7)]
+    torch.cuda.synchronize()
 
-    out_dir = os.path.join(REPO, "outputs", "chip_smoke", "trainer")
-    trainer = Trainer(load_config(TRAINER_ARGS + [f"output_dir={out_dir}"]), out_dir=out_dir)
-    sac_update.launches = gail_update.launches = 0
-    t0 = time.time()
-    score = trainer.run()
-    wall = time.time() - t0
-    launches = {"sac_update": sac_update.launches, "gail_update": gail_update.launches}
-    n = trainer.updates_done
-    if launches != {"sac_update": n, "gail_update": n} or n == 0:
-        raise AssertionError(f"launch counters {launches} != updates run {n}")
-    m = trainer.metrics
-    if not np.isfinite(score) or not all(np.isfinite(r).all() for r in m["test_returns"]):
-        raise AssertionError(f"non-finite score {score} or returns {m['test_returns']}")
-    for path, t in [*leaves(trainer.sac), *leaves(trainer.disc_state)]:
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"non-finite trainer state {path}")
-    marks = m["steady_marks"]
-    windows = [(b[0] - a[0]) / (b[1] - a[1]) for a, b in zip(marks, marks[1:])]
-    steady = m["steady_env_steps"] / m["steady_time"]
-    print(f"trainer: {trainer.step_done} env steps, {n} updates, {launches}, {wall:.2f} s wall, "
-          f"score {score:.4f}, eval returns {[round(r, 3) for r in m['test_returns'][-1]]}")
-    print(f"trainer: steady {steady:.1f} env-steps/s (windows {[round(w, 1) for w in windows]}) "
-          f"on {smi}")
+    # 4. the whole update path against the CPU, on each of the three paths
+    for extra, want in (
+        ((), {"sac_update": 24, "gail_update": 24, "kblock_update": 0, "gaussian_rowsum": 0}),
+        (("training.update_block=4",),
+         {"sac_update": 0, "gail_update": 0, "kblock_update": 6, "gaussian_rowsum": 0}),
+        (tuple(GMMIL_ARGS), {"sac_update": 24, "gail_update": 0, "kblock_update": 0, "gaussian_rowsum": 48}),
+    ):
+        err, launched = check_against_cpu(dev, extra)
+        if launched != want:
+            raise AssertionError(f"reference {extra}: launches {launched} != {want}")
+        print(f"reference: transition_core {' '.join(extra) or 'GAIL'} on the card vs the CPU, "
+              f"3 x 8 updates: max_abs_err {err[0]:.3g}, max_rel_err {err[1]:.3g}, launches {launched}")
 
-    # the kernels line: main-path shapes (pointmass), launches from step 5
+    # 5. the trainer, through its normal entry, on each path
+    def per_update(t):
+        n = t.updates_done
+        return {"sac_update": n, "gail_update": n, "kblock_update": 0, "gaussian_rowsum": 0}
+
+    def blocked(t):
+        k, rest = schedule(t.cfg, 16)
+        return {"sac_update": rest, "gail_update": rest, "kblock_update": k // 16, "gaussian_rowsum": 0}
+
+    def gmmil(t):
+        n = t.updates_done
+        return {"sac_update": n, "gail_update": 0, "kblock_update": 0, "gaussian_rowsum": 2 * n}
+
+    launches, rates = {}, {}
+    for name, extra, expect, kernels in (
+        ("gail", (), per_update, ("sac_update", "gail_update")),
+        ("gail_kblock16", ("training.update_block=16",), blocked, ("kblock_update",)),
+        ("gmmil", tuple(GMMIL_ARGS), gmmil, ("gaussian_rowsum",)),
+    ):
+        counted, rates[name] = run_trainer(name, extra, expect)
+        launches.update({k: counted[k] for k in kernels})
+    print("trainer steady env-steps/s: " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + f" on {smi}")
+
+    # the kernels line: main-path shapes (pointmass), launches from each kernel's path
     rows = []
-    for name, replaces in (("sac_update", "iltpu/ops/pallas_sac.py:564"),
-                           ("gail_update", "iltpu/ops/pallas_gail.py:319")):
-        err, ms, plain_ms, bound, by = results[(name.split("_")[0], "pointmass")]
+    for name, key, replaces in (
+        ("sac_update", "sac", "iltpu/ops/pallas_sac.py:564"),
+        ("gail_update", "gail", "iltpu/ops/pallas_gail.py:319"),
+        ("kblock_update", "kblock", "iltpu/ops/pallas_fused_block.py:241"),
+        ("gaussian_rowsum", "rowsum", "iltpu/ops/pallas_pairwise.py:101"),
+    ):
+        err, ms, plain_ms, bound, by = results[(key, "pointmass")]
         rows.append({
             "name": name, "route": "cuda", "source": f"iltpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name], "max_abs_err": err,

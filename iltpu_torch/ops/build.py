@@ -20,7 +20,7 @@ from typing import Dict, List, Optional
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-NAMES = ("sac_update", "gail_update")
+NAMES = ("sac_update", "gail_update", "kblock_update", "gaussian_rowsum")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -30,12 +30,12 @@ The state is a dict of tensors updated IN PLACE:
 """
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from iltpu_torch.models.distributions import softplus
-from iltpu_torch.ops import build
+from iltpu_torch.ops import build, operands
 from iltpu_torch.ops.sac_update import adam_step_
 
 REWARD_FUNCTIONS = ("GAIL", "AIRL", "FAIRL")
@@ -167,6 +167,30 @@ def _bind(lib):
     return lib
 
 
+def state_tensors(st: Dict) -> List[torch.Tensor]:
+    return list(st["p"]) + list(st["sn"]) + list(st["m"]) + list(st["v"]) + [st["t"]]
+
+
+def state_shapes(D: int, Hd: int, sn: bool) -> List[tuple]:
+    shapes = [(D, Hd), (Hd,), (Hd, 1), (1,)]
+    return shapes + ([(Hd,), (D,), (1,), (Hd,)] if sn else []) + shapes * 2 + [(1,)]
+
+
+def state_pointers(st: Dict) -> List[int]:
+    """The 17 state pointers of the C entries (null u, v without spectral
+    norm)."""
+    ptrs = [t.data_ptr() for t in st["p"]]
+    ptrs += [t.data_ptr() for t in st["sn"]] if st["sn"] else [0] * 4
+    return ptrs + [t.data_ptr() for t in list(st["m"]) + list(st["v"]) + [st["t"]]]
+
+
+def check_hyper(h: GAILHyper, mix: Optional[torch.Tensor]) -> None:
+    if h.loss_function not in LOSS_FUNCTIONS or h.reward_function not in REWARD_FUNCTIONS:
+        raise ValueError(f"unsupported GAIL configuration {h}")
+    if (mix is None) != (h.loss_function == "BCE"):
+        raise ValueError("mix must be given exactly for the Mixup loss")
+
+
 def gail_update(
     h: GAILHyper, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -174,35 +198,18 @@ def gail_update(
     tensors, the plain version on CPU tensors. `mix` is the Mixup draw
     (Beta(alpha, alpha), (B,)) and must be given exactly when the loss is
     Mixup. Returns (loss (1,), rewards (B,))."""
-    if h.loss_function not in LOSS_FUNCTIONS or h.reward_function not in REWARD_FUNCTIONS:
-        raise ValueError(f"unsupported GAIL configuration {h}")
-    if (mix is None) != (h.loss_function == "BCE"):
-        raise ValueError("mix must be given exactly for the Mixup loss")
+    check_hyper(h, mix)
     batch = [e_s, e_a, e_w, p_s, p_a, p_w, eps_gp] + ([mix] if mix is not None else [])
-    state = list(st["p"]) + list(st["sn"]) + list(st["m"]) + list(st["v"]) + [st["t"]]
-    ops = state + batch
-    devices = {t.device.type for t in ops}
-    if devices == {"cpu"}:
+    ops = state_tensors(st) + batch
+    if operands.placement("gail_update", ops) == "cpu":
         return gail_update_plain(h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix)
-    if devices != {"cuda"} or len({t.device for t in ops}) != 1:
-        raise ValueError(f"gail_update operands must share one device, got {devices}")
     B, S = p_s.shape
     A = p_a.shape[1]
     D, Hd = st["p"][0].shape
-    sn = bool(st["sn"])
-    shapes = [(D, Hd), (Hd,), (Hd, 1), (1,)]
-    want = (
-        shapes + ([(Hd,), (D,), (1,), (Hd,)] if sn else []) + shapes * 2 + [(1,)]
-        + [(B, S), (B, A), (B,)] * 2 + [(B,)] + ([(B,)] if mix is not None else [])
-    )
     if D != S + A:
         raise ValueError(f"discriminator input {D} != state {S} + action {A}")
-    for i, (t, shape) in enumerate(zip(ops, want)):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"gail_update operand {i}: want contiguous float32 {shape}, "
-                f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
-            )
+    operands.check("gail_update", ops, state_shapes(D, Hd, bool(st["sn"])) + [
+        (B, S), (B, A), (B,), (B, S), (B, A), (B,), (B,)] + ([(B,)] if mix is not None else []))
     out = launch(_bind(build.load("gail_update")), h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp,
                  mix, torch.cuda.current_stream(p_s.device).cuda_stream)
     gail_update.launches += 1
@@ -215,19 +222,15 @@ def launch(lib, h: GAILHyper, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mi
     B, S = p_s.shape
     A = p_a.shape[1]
     D, Hd = st["p"][0].shape
-    sn = bool(st["sn"])
     bce = int(mix is None)
     dev = p_s.device
     loss = torch.empty(1, device=dev)
     rewards = torch.empty(B, device=dev)
     scratch = torch.empty(lib.iltpu_gail_scratch_floats(B, D, Hd, bce), device=dev)
-    ptrs = [t.data_ptr() for t in st["p"]]
-    ptrs += [t.data_ptr() for t in st["sn"]] if sn else [0] * 4
-    ptrs += [t.data_ptr() for t in list(st["m"]) + list(st["v"]) + [st["t"]]]
-    ptrs += [t.data_ptr() for t in (e_s, e_a, e_w, p_s, p_a, p_w, eps_gp)]
+    ptrs = state_pointers(st) + [t.data_ptr() for t in (e_s, e_a, e_w, p_s, p_a, p_w, eps_gp)]
     ptrs += [0 if mix is None else mix.data_ptr(), loss.data_ptr(), rewards.data_ptr()]
     rc = lib.iltpu_gail_update(
-        (ctypes.c_void_p * len(ptrs))(*ptrs), B, S, A, Hd, int(sn), bce,
+        (ctypes.c_void_p * len(ptrs))(*ptrs), B, S, A, Hd, int(bool(st["sn"])), bce,
         REWARD_FUNCTIONS.index(h.reward_function),
         h.grad_penalty, h.lr, h.weight_decay, h.entropy_bonus, scratch.data_ptr(), stream,
     )

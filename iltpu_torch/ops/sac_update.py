@@ -32,7 +32,7 @@ from typing import Dict, List, NamedTuple
 import torch
 
 from iltpu_torch.models.distributions import LOG2, LOG2PI, softplus
-from iltpu_torch.ops import build
+from iltpu_torch.ops import build, operands
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 LOG_B1, LOG_B2 = math.log(ADAM_B1), math.log(ADAM_B2)
@@ -200,23 +200,27 @@ def _bind(lib):
     return lib
 
 
-def _operands(st, batch, eps2, eps_new) -> List[torch.Tensor]:
+def state_tensors(st: Dict) -> List[torch.Tensor]:
+    """The 48 state tensors in the C entries' pointer order."""
     ops = []
     for k in STATE_KEYS:
         ops += list(st[k])
-    ops += [st[k] for k in SCALAR_KEYS]
-    ops += [batch[k] for k in BATCH_KEYS]
-    return ops + [eps2, eps_new]
+    return ops + [st[k] for k in SCALAR_KEYS]
 
 
-def expected_shapes(S: int, A: int, H: int, B: int) -> List[tuple]:
+def _operands(st, batch, eps2, eps_new) -> List[torch.Tensor]:
+    return state_tensors(st) + [batch[k] for k in BATCH_KEYS] + [eps2, eps_new]
+
+
+def state_shapes(S: int, A: int, H: int) -> List[tuple]:
     X = S + A
     actor = [(S, H), (H,), (H, H), (H,), (H, 2 * A), (2 * A,)]
     critic = [(2, X, H), (2, H), (2, H, H), (2, H), (2, H, 1), (2, 1)]
-    return (
-        actor * 3 + critic * 4 + [(1,)] * 6
-        + [(B, S), (B, A), (B,), (B, S), (B,), (B,), (B,), (B, A), (B, A)]
-    )
+    return actor * 3 + critic * 4 + [(1,)] * 6
+
+
+def expected_shapes(S: int, A: int, H: int, B: int) -> List[tuple]:
+    return state_shapes(S, A, H) + [(B, S), (B, A), (B,), (B, S), (B,), (B,), (B,), (B, A), (B, A)]
 
 
 def sac_update(
@@ -225,20 +229,12 @@ def sac_update(
     """One SAC update in place: the kernel on CUDA tensors, the plain
     version on CPU tensors. Returns (log_probs, Q_values, alpha)."""
     ops = _operands(st, batch, eps2, eps_new)
-    devices = {t.device.type for t in ops}
-    if devices == {"cpu"}:
+    if operands.placement("sac_update", ops) == "cpu":
         return sac_update_plain(h, st, batch, eps2, eps_new)
-    if devices != {"cuda"} or len({t.device for t in ops}) != 1:
-        raise ValueError(f"sac_update operands must share one device, got {devices}")
     B, S = batch["states"].shape
     A = eps2.shape[1]
     H = st["a"][0].shape[1]
-    for i, (t, shape) in enumerate(zip(ops, expected_shapes(S, A, H, B))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"sac_update operand {i}: want contiguous float32 {shape}, "
-                f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
-            )
+    operands.check("sac_update", ops, expected_shapes(S, A, H, B))
     aux = launch(_bind(build.load("sac_update")), h, st, batch, eps2, eps_new,
                  torch.cuda.current_stream(ops[0].device).cuda_stream)
     sac_update.launches += 1

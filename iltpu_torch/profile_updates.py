@@ -1,0 +1,114 @@
+"""Where an update's time goes on the card, for each training path.
+
+    python -m iltpu_torch.profile_updates
+
+Needs one CUDA card. For the GAIL per-update, GAIL update_block=16 and
+GMMIL paths it builds a trainer at full width (chip_smoke's configuration:
+pointmass, batch 256, widths 256 and 64), fills the replay with 4 x 512
+transitions, runs one warm-up iteration of 16 updates, then:
+
+- times three iterations of 128 updates on the host clock, each twice:
+  when `transition_core` returns (the host's issue time) and after a
+  synchronise (the wall time), and reports the medians; issue close to
+  wall means the host, not the card, sets the pace;
+- traces one iteration of 64 updates with torch.profiler and reports the
+  card's busy share (the union of its kernel intervals over the window from
+  the first host event to the last kernel's end) and the kernels with the
+  most device time.
+
+Prints one JSON line per path and the card's name and power limit.
+"""
+
+import json
+import os
+import subprocess
+import time
+
+import torch
+
+from iltpu_torch.config import load_config
+from iltpu_torch.trainer import Trainer
+
+OUT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "outputs",
+                       "profile_updates")
+BASE = [
+    "env=pointmass", "env_backend=jax", "num_envs=512", "training.sac_pallas=true",
+    "memory.size=100000", "imitation.trajectories=5", "expert_data.source=synthetic",
+]
+PATHS = {
+    "gail": ["algorithm=GAIL", "training.disc_pallas=true", "training.fused_update_scan=true"],
+    "gail_kblock16": ["algorithm=GAIL", "training.disc_pallas=true",
+                      "training.fused_update_scan=true", "training.update_block=16"],
+    "gmmil": ["algorithm=GMMIL"],
+}
+
+
+def _busy(prof):
+    """(busy ms, window ms) of the card over the profiled window."""
+    events = list(prof.events())
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type.name == "CUDA")
+    start = min(e.time_range.start for e in events)
+    busy, lo, hi = 0.0, kernels[0][0], kernels[0][1]
+    for s, e in kernels[1:]:
+        if s > hi:
+            busy, lo, hi = busy + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    busy += hi - lo
+    return busy / 1e3, (kernels[-1][1] - start) / 1e3
+
+
+def profile(name, extra, out_dir):
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    dev = torch.device("cuda")
+    t = Trainer(load_config(BASE + extra + [f"output_dir={out_dir}"]), out_dir=out_dir)
+    S, A, N = t.state_size, t.action_size, t.cfg.num_envs
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def step_data():
+        r = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+        return [r(N, S), torch.tanh(r(N, A)), r(N), r(N, S), torch.zeros(N, device=dev),
+                torch.zeros(N, device=dev)]
+
+    step = 0
+    for n in (0, 0, 0, 0, 16):
+        t.transition_core(step, *step_data(), n)
+        step += N
+    torch.cuda.synchronize()
+    data = step_data()
+    issue, wall = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        t.transition_core(step, *data, 128)
+        issue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t.transition_core(step + N, *data, 64)
+        torch.cuda.synchronize()
+    busy, window = _busy(prof)
+    top = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:6]
+    return {
+        "path": name, "issue_ms_per_update": 1e3 * sorted(issue)[1] / 128,
+        "wall_ms_per_update": 1e3 * sorted(wall)[1] / 128,
+        "traced_busy_share": busy / window, "traced_device_ms_per_update": busy / 64,
+        "top_kernels": [{"name": e.key[:60], "calls_per_update": e.count / 64,
+                         "device_ms_per_update": e.self_device_time_total / 1e3 / 64} for e in top],
+    }
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_updates: CUDA is not available; it measures the card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    for name, extra in PATHS.items():
+        print(json.dumps(profile(name, extra, OUT_DIR)), flush=True)
+    print(smi)
+
+
+if __name__ == "__main__":
+    main()

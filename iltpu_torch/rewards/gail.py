@@ -46,7 +46,7 @@ class GAILDiscriminator(nn.Module):
         if todo:
             raise NotImplementedError(
                 f"GAILDiscriminator {', '.join(todo)} is not ported yet: "
-                "ROADMAP.md, 'Other algorithms and GAIL options'"
+                "ROADMAP.md, 'GAIL options'"
             )
         self.reward_function = reward_function
         self.g = MLP(

@@ -1,21 +1,30 @@
 """Training orchestrator: the port of `iltpu/trainer.py` for the GAIL
-fused-update path.
+fused-update path (per update or K-blocked) and GMMIL on the SAC kernel.
 
 One iteration steps `num_envs` array envs on the device, appends the step to
 the replay ring (absorbing wrap inline), takes ONE bulk sample of
 n_updates x batch rows from the replay and from the expert buffer, then
-runs n_updates x (GAIL kernel -> reward -> SAC kernel) on the flat update
-states, and samples the next actions from the freshly updated actor. Every
-tensor stays on the device; the host reads only the episode ends once per
-iteration. On the card the two updates are the hand-written kernels of
-`iltpu_torch/csrc/`; on the CPU (platform=cpu) their plain versions.
+runs n_updates x (reward -> SAC kernel) on the flat update states, and
+samples the next actions from the freshly updated actor. Every tensor stays
+on the device; the host reads only the episode ends once per iteration. On
+the card the updates are the hand-written kernels of `iltpu_torch/csrc/`;
+on the CPU (platform=cpu) their plain versions. The reward is:
+
+- GAIL: the GAIL kernel's discriminator step + reward head. With
+  `training.update_block=K > 1`, an iteration whose n_updates K divides
+  runs n_updates / K launches of the K-blocked kernel (K x GAIL -> SAC in
+  one launch); the others run the per-update kernels, as iltpu does.
+- GMMIL: the MMD witness reward through the row-sum kernel, with the
+  bandwidths set on the first update.
 
 Entry points run on the card (`platform` null or gpu) and raise when CUDA
 is missing; `platform=cpu` selects the CPU. This slice supports exactly the
-kernel path: training.sac_pallas, disc_pallas and fused_update_scan true,
-update_block 1, no pipeline or host acting, env_backend=jax, and the BCE or
-Mixup (alpha 1) GAIL configuration. Anything else raises
-NotImplementedError naming the ROADMAP.md item that will bring it.
+kernel paths: training.sac_pallas true; for GAIL also disc_pallas and
+fused_update_scan true and the BCE or Mixup (alpha 1) configuration; for
+GMMIL disc_pallas and fused_update_scan false (iltpu refuses both, with a
+ValueError); no pipeline or host acting, env_backend=jax, no expert mixing
+or bc_aux_loss. Anything else raises NotImplementedError naming the
+ROADMAP.md item that will bring it.
 """
 
 import os
@@ -39,8 +48,9 @@ from iltpu_torch.data import (
 from iltpu_torch.envs import make_env
 from iltpu_torch.models import SoftActor, TwinCritic
 from iltpu_torch.ops.gail_update import GAILHyper, gail_update
+from iltpu_torch.ops.kblock_update import kblock_update
 from iltpu_torch.ops.sac_update import sac_update
-from iltpu_torch.rewards import GAILDiscriminator
+from iltpu_torch.rewards import GAILDiscriminator, GMMILDiscriminator
 from iltpu_torch.updates import SACLearner
 
 
@@ -65,37 +75,53 @@ def _not_ported(what: str, item: str):
 
 
 def check_supported(cfg: DotDict) -> None:
-    """Raise NotImplementedError for anything off this slice's path."""
+    """Raise for anything off this slice's paths: ValueError where iltpu
+    refuses the configuration too, NotImplementedError otherwise."""
     t, icfg, rcfg = cfg.training, cfg.imitation, cfg.reinforcement
-    d = icfg.get("discriminator") or {}
+    alg = cfg.algorithm
+    if alg == "GMMIL" and t.get("fused_update_scan"):
+        raise ValueError(
+            "training.fused_update_scan=true requires algorithm=GAIL with training.sac_pallas "
+            "and training.disc_pallas, no bc_aux_loss, and a single-device (mesh-free) run"
+        )
+    if alg == "GMMIL" and t.get("disc_pallas"):
+        raise ValueError(
+            "training.disc_pallas=true supports the BCE and Mixup GAIL configurations; "
+            f"got algorithm={alg}"
+        )
     checks = [
-        (cfg.algorithm == "GAIL", f"algorithm={cfg.algorithm}", "Other algorithms and GAIL options"),
-        (t.get("sac_pallas") is True and t.get("disc_pallas") is True,
-         "training.sac_pallas/disc_pallas=false", "Autograd updates"),
-        (t.get("fused_update_scan") is True, "training.fused_update_scan=false", "Autograd updates"),
-        (int(t.get("update_block", 1) or 1) == 1, "training.update_block>1", "_kblock_kernel"),
+        (alg in ("GAIL", "GMMIL"), f"algorithm={alg}", "Other algorithms"),
+        (t.get("sac_pallas") is True, "training.sac_pallas=false", "Autograd updates"),
         (not t.get("pipeline") and not t.get("host_acting"),
          "training.pipeline/host_acting", "Pipelined and host acting"),
         (not t.get("on_device_loop"), "training.on_device_loop", "On-device loop"),
         (cfg.env_backend == "jax", f"env_backend={cfg.env_backend}", "Native hopper env"),
-        (icfg.get("loss_function") in ("BCE", "Mixup"),
-         f"imitation.loss_function={icfg.get('loss_function')}", "Other algorithms and GAIL options"),
-        (icfg.get("loss_function") != "Mixup" or icfg.get("mixup_alpha") == 1,
-         "imitation.mixup_alpha != 1", "Other algorithms and GAIL options"),
-        (not d.get("reward_shaping") and not d.get("subtract_log_policy")
-         and not icfg.get("state_only") and icfg.get("mix_expert_data") == "none"
-         and not icfg.get("bc_aux_loss"),
-         "GAIL shaping/log-pi/state-only/expert mixing/bc_aux_loss", "Other algorithms and GAIL options"),
-        (d.get("depth") == 1 and d.get("activation") == "relu",
-         "a discriminator other than depth-1 relu", "Other algorithms and GAIL options"),
+        (icfg.get("mix_expert_data") == "none" and not icfg.get("bc_aux_loss"),
+         "expert mixing/bc_aux_loss", "Other algorithms"),
         (all(rcfg[n]["depth"] == 2 and rcfg[n]["activation"] == "relu" for n in ("actor", "critic")),
          "actor/critic other than depth-2 relu", "Autograd updates"),
-        (cfg.bc_pretraining.iterations == 0, "bc_pretraining", "Other algorithms and GAIL options"),
+        (cfg.bc_pretraining.iterations == 0, "bc_pretraining", "Other algorithms"),
         (cfg.parallel.get("data_axis") is None, "parallel.data_axis", "Data parallel"),
         (cfg.checkpointing.interval == 0 and cfg.checkpointing.resume is None,
          "checkpointing", "Checkpoint and resume"),
         (not (cfg.get("profiling") or {}).get("trace_dir"), "profiling.trace_dir", "Tooling"),
     ]
+    if alg == "GAIL":
+        d = icfg.get("discriminator") or {}
+        checks += [
+            (t.get("disc_pallas") is True, "training.disc_pallas=false", "Autograd updates"),
+            (t.get("fused_update_scan") is True, "training.fused_update_scan=false",
+             "Autograd updates"),
+            (icfg.get("loss_function") in ("BCE", "Mixup"),
+             f"imitation.loss_function={icfg.get('loss_function')}", "GAIL options"),
+            (icfg.get("loss_function") != "Mixup" or icfg.get("mixup_alpha") == 1,
+             "imitation.mixup_alpha != 1", "GAIL options"),
+            (not d.get("reward_shaping") and not d.get("subtract_log_policy")
+             and not icfg.get("state_only"),
+             "GAIL shaping/log-pi/state-only", "GAIL options"),
+            (d.get("depth") == 1 and d.get("activation") == "relu",
+             "a discriminator other than depth-1 relu", "GAIL options"),
+        ]
     for ok, what, item in checks:
         if not ok:
             raise _not_ported(what, item)
@@ -167,25 +193,32 @@ class Trainer:
         self.sac = self.learner.init(self.gen)
         self.replay = replay_init(cfg.memory.size, S, A, icfg.absorbing, dev)
 
-        d = icfg.discriminator
-        self.disc = GAILDiscriminator(
-            S, A,
-            reward_function=d.reward_function,
-            hidden_size=d.hidden_size,
-            depth=d.depth,
-            activation=d.activation,
-            spectral_norm=icfg.spectral_norm,
-            device=dev,
-        )
-        self.disc_state = self.disc.init(self.gen)
-        self.disc_hyper = GAILHyper(
-            grad_penalty=float(icfg.grad_penalty),
-            lr=float(icfg.learning_rate),
-            weight_decay=float(icfg.weight_decay),
-            reward_function=d.reward_function,
-            loss_function=icfg.loss_function,
-            entropy_bonus=float(icfg.entropy_bonus),
-        )
+        self.algorithm = cfg.algorithm
+        self.update_block = int(cfg.training.get("update_block", 1) or 1)
+        self.disc_hyper = None
+        if self.algorithm == "GMMIL":
+            self.disc = GMMILDiscriminator(S, A, state_only=icfg.state_only)
+            self.disc_state = self.disc.init(dev)
+        else:
+            d = icfg.discriminator
+            self.disc = GAILDiscriminator(
+                S, A,
+                reward_function=d.reward_function,
+                hidden_size=d.hidden_size,
+                depth=d.depth,
+                activation=d.activation,
+                spectral_norm=icfg.spectral_norm,
+                device=dev,
+            )
+            self.disc_state = self.disc.init(self.gen)
+            self.disc_hyper = GAILHyper(
+                grad_penalty=float(icfg.grad_penalty),
+                lr=float(icfg.learning_rate),
+                weight_decay=float(icfg.weight_decay),
+                reward_function=d.reward_function,
+                loss_function=icfg.loss_function,
+                entropy_bonus=float(icfg.entropy_bonus),
+            )
 
         self.metrics = dict(
             train_steps=[], train_returns=[], test_steps=[], test_returns=[],
@@ -202,22 +235,22 @@ class Trainer:
         generator (the replay and expert sample integers are drawn by
         replay_sample when absent)."""
         B, A, g, dev = self.cfg.training.batch_size, self.action_size, self.gen, self.device
-        noise = {
-            "eps_gp": torch.rand((n_updates, B), generator=g, device=dev),
-            "eps2": torch.randn((n_updates, B, A), generator=g, device=dev),
-            "eps_new": torch.randn((n_updates, B, A), generator=g, device=dev),
-        }
-        if self.disc_hyper.loss_function == "Mixup":  # Beta(1, 1) == Uniform(0, 1)
-            noise["mix"] = torch.rand((n_updates, B), generator=g, device=dev)
+        noise = {}
+        if self.disc_hyper is not None:
+            noise["eps_gp"] = torch.rand((n_updates, B), generator=g, device=dev)
+        noise["eps2"] = torch.randn((n_updates, B, A), generator=g, device=dev)
+        noise["eps_new"] = torch.randn((n_updates, B, A), generator=g, device=dev)
+        if self.disc_hyper is not None and self.disc_hyper.loss_function == "Mixup":
+            noise["mix"] = torch.rand((n_updates, B), generator=g, device=dev)  # Beta(1, 1)
         return noise
 
     def transition_core(
         self, step: int, obs, actions, rewards, next_obs, terminals, timeouts,
         n_updates: int, noise: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Ring append, then n_updates x (GAIL step -> reward -> SAC step) on
-        one bulk sample. `noise` injects eps_gp, eps2, eps_new, mix and the
-        raw replay and expert sample integers (`replay`, `expert`)."""
+        """Ring append, then n_updates x (reward -> SAC step) on one bulk
+        sample. `noise` injects eps_gp, eps2, eps_new, mix and the raw
+        replay and expert sample integers (`replay`, `expert`)."""
         n = obs.shape[0]
         step_ids = torch.full((n,), float(step + 1), device=self.device)
         replay_append_batch(self.replay, step_ids, obs, actions, rewards, next_obs,
@@ -234,25 +267,44 @@ class Trainer:
 
         batches = bulk(self.replay, noise.get("replay"))
         expert_batches = bulk(self.expert, noise.get("expert"))
-        mix = noise.get("mix")
         hyper = self.learner.hyper
-        for i in range(n_updates):
-            tb = {k: v[i] for k, v in batches.items()}
-            eb = {k: v[i] for k, v in expert_batches.items()}
-            d_loss, tb["rewards"] = gail_update(
-                self.disc_hyper, self.disc_state,
-                eb["states"], eb["actions"], eb["weights"],
-                tb["states"], tb["actions"], tb["weights"],
-                noise["eps_gp"][i], None if mix is None else mix[i],
-            )
-            sac_aux = sac_update(hyper, self.sac, tb, noise["eps2"][i], noise["eps_new"][i])
-        return {
-            "discriminator_loss": d_loss[0],
-            "predicted_rewards": tb["rewards"],
-            "alphas": sac_aux["alpha"],
-            "entropies": -sac_aux["log_probs"],
-            "Q_values": sac_aux["Q_values"],
-        }
+        K = self.update_block
+        if self.algorithm == "GAIL" and K > 1 and n_updates % K == 0:
+            def chunks(d):
+                return {k: v.reshape((n_updates // K, K) + v.shape[1:]) for k, v in d.items()}
+
+            pb, eb = chunks(batches), chunks(expert_batches)
+            nz = chunks({k: v for k, v in noise.items() if k not in ("replay", "expert")})
+            for c in range(n_updates // K):
+                out = kblock_update(
+                    hyper, self.disc_hyper, self.sac, self.disc_state,
+                    {k: v[c] for k, v in pb.items()}, {k: v[c] for k, v in eb.items()},
+                    {k: v[c] for k, v in nz.items()},
+                )
+            aux = {"discriminator_loss": out["loss"][0], "predicted_rewards": out["rewards"]}
+        else:
+            mix = noise.get("mix")
+            aux = {}
+            for i in range(n_updates):
+                tb = {k: v[i] for k, v in batches.items()}
+                eb = {k: v[i] for k, v in expert_batches.items()}
+                if self.algorithm == "GMMIL":
+                    self.disc_state, tb["rewards"] = self.disc.predict_reward(
+                        self.disc_state, tb["states"], tb["actions"], eb["states"],
+                        eb["actions"], tb["weights"], eb["weights"],
+                    )
+                else:
+                    d_loss, tb["rewards"] = gail_update(
+                        self.disc_hyper, self.disc_state,
+                        eb["states"], eb["actions"], eb["weights"],
+                        tb["states"], tb["actions"], tb["weights"],
+                        noise["eps_gp"][i], None if mix is None else mix[i],
+                    )
+                    aux["discriminator_loss"] = d_loss[0]
+                out = sac_update(hyper, self.sac, tb, noise["eps2"][i], noise["eps_new"][i])
+            aux["predicted_rewards"] = tb["rewards"]
+        aux.update(alphas=out["alpha"], entropies=-out["log_probs"], Q_values=out["Q_values"])
+        return aux
 
     def post_step(self, step, obs, actions, rewards, next_obs, terminals, timeouts,
                   next_policy_obs, n_updates):
@@ -315,8 +367,9 @@ class Trainer:
         agent = {k: tree[k] for k in ("actor_params", "critic_params", "log_alpha")}
         with open(pre + "agent.pkl", "wb") as f:
             pickle.dump(agent, f)
-        with open(pre + "discriminator.pkl", "wb") as f:
-            pickle.dump(convert.disc_tree(self.disc_state)["params"], f)
+        if self.algorithm == "GAIL":  # iltpu saves no GMMIL discriminator
+            with open(pre + "discriminator.pkl", "wb") as f:
+                pickle.dump(convert.disc_tree(self.disc_state)["params"], f)
         with open(pre + "metrics.pkl", "wb") as f:
             pickle.dump(self.metrics, f)
 

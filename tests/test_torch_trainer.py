@@ -1,7 +1,8 @@
 """The port's trainer (iltpu_torch/trainer.py) against iltpu's on the fused
 update path: `transition_core` against iltpu's `_transition_core` in the
-setup of tests/test_fused_scan.py (3 iterations x 8 updates, with iltpu's
-own draws reproduced here from its key derivation and handed across); a
+setup of tests/test_fused_scan.py (3 iterations x 8 updates, per update and
+K-blocked with update_block=4, with iltpu's own draws reproduced here from
+its key derivation and handed across); a
 short GAIL-pointmass run through the CLI on the CPU; the package imports
 neither JAX nor iltpu; and without platform=cpu and without CUDA the entry
 point raises."""
@@ -96,9 +97,15 @@ def _iltpu_noise(state, base_key, step, n_updates, B, A, mixup):
     return {k: torch.from_numpy(np.array(v)) for k, v in noise.items()}
 
 
-@pytest.mark.parametrize("extra", [(), TUNEDLIKE], ids=["bce_sn", "mixup_airl"])
-def test_transition_core_matches_iltpu(tmp_path, extra):
-    args = BASE + list(extra)
+@pytest.mark.parametrize(
+    "extra,block",
+    [((), 1), (TUNEDLIKE, 1), ((), 4), (TUNEDLIKE, 4)],
+    ids=["bce_sn", "mixup_airl", "bce_sn-kblock4", "mixup_airl-kblock4"],
+)
+def test_transition_core_matches_iltpu(tmp_path, extra, block):
+    """update_block=4 takes iltpu's K-blocked kernel (two launches of 4 per
+    iteration) and the port's kblock_update."""
+    args = BASE + list(extra) + [f"training.update_block={block}"]
     jt = JaxTrainer(jax_load_config(args), out_dir=str(tmp_path / "jax"))
     tt = Trainer(load_config(args + ["platform=cpu"]), out_dir=str(tmp_path / "torch"))
     state = jt.state
