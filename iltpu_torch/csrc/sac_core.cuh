@@ -3,23 +3,32 @@
 // so both run one copy of the math, as the TPU's `_sac_core` is shared by
 // pallas_sac.py and pallas_fused_block.py.
 //
+// What bounds an update on the H100: at the main path's shapes (batch 256,
+// width 256) it is ~0.55 GFLOP of fp32 products, under 10 us at 67 TFLOP/s,
+// spread over 29 dependent phases of 64 to 128 output tiles each: one wave
+// on 132 SMs, so a phase costs the latency of its slowest tile plus a grid
+// barrier, and a tile must not make a dependent trip to L2 per step of k.
+// So a tile copies its whole-depth panels into shared memory at once (one
+// trip, cp.async), then runs the 256-long fmaf chains from shared memory
+// with 4x2 outputs on each of 128 threads, so that shared-memory reads and
+// fmaf issue balance.
+//
 // What lives here:
 //  - `gemm_tile<NT>`: one 32x32 output tile of a strided fp32 product, run
-//    by the NT threads of a block (2 columns and 32*16/NT rows a thread).
-//    Every output is one fmaf chain over k in order, whatever NT is, so the
-//    256-thread and 512-thread instances give the same bits;
+//    by a block of NT >= 128 threads. Every output is one fmaf chain over k
+//    in ascending order, so any instance gives the same bits;
 //  - elementwise functors, each `operator()(int i)` for one item (a batch
 //    row, a column, a parameter element), and the single-block temperature
 //    step, whose reduction has a fixed logical width RED whatever the block;
 //  - `sac_step<Exec>`: the update as a sequence of phases. `Exec` runs a
-//    phase's jobs (`gemm`, `rows`, `block`) and `sync()` separates phases
-//    that depend on each other: launches in stream order on the host
-//    (sac_update.cu), grid-stride loops and grid barriers inside one
-//    cooperative kernel (kblock_update.cu). Jobs within a phase are
-//    independent of each other.
+//    phase's jobs (`gemm`, `rows`, `block`) as grid-stride loops over a
+//    range of blocks, `sync()` is a barrier over that range between phases
+//    that depend on each other, and `await_rewards()` waits, just before the
+//    TD target, for the rewards of another block's GAIL step where there is
+//    one (grid_exec.cuh). Jobs within a phase are independent of each other.
 //
-// Nothing reads a tensor through __ldg or `const __restrict__`: in the
-// persistent kernel another block wrote it in an earlier phase.
+// Nothing reads a tensor through __ldg or `const __restrict__`: another
+// block wrote it in an earlier phase. Panels are copied with .cg (L2) loads.
 
 #pragma once
 
@@ -31,7 +40,6 @@ namespace sac {
 typedef long long ll;
 
 constexpr int TILE = 32;
-constexpr int KT = 16;
 constexpr int RED = 256;  // logical width of the temperature reduction
 
 constexpr float B1 = 0.9f;
@@ -56,47 +64,213 @@ struct Gemm {
   int m, n, k, relu;
 };
 
-// Output tile (tm, tn) of twin z, by all NT threads of the block.
+// ---- the GEMM tile: whole-depth panels in dynamic shared memory ----------
+//
+// A tile's A panel (32 rows x depth) and B panel (depth x 32 columns) are
+// copied into shared memory at once (16-byte cp.async.cg where the source
+// is contiguous and aligned, 4-byte L2 loads elsewhere), then 128 threads
+// run the fmaf chains from shared memory, 4 rows x 2 columns a thread. A
+// depth past KWHOLE goes in KRING-deep chunks through a ring of two stages,
+// the next chunk copied while this one is computed. The k padding of a
+// panel is zero, and fmaf(0, 0, acc) == acc (acc starts at +0 and is never
+// -0), so each output is the same chain over k as without padding.
+//
+// A panel is stored k-major (element (o, k) at k * TILE + o) when its source
+// is contiguous along the outer index, else outer-major (at o * ld + k, ld =
+// the depth rounded up to 8, plus 4, so the float4 reads of 8 neighbouring
+// rows hit distinct banks).
+
+constexpr int GEMM_THREADS = 128;  // the threads that compute; all copy
+constexpr int KWHOLE = 512;        // deepest product held whole
+constexpr int KRING = 128;         // chunk depth past KWHOLE
+
+__host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
+
+// Floats of one panel of depth kc in either layout.
+__host__ __device__ inline int panel_floats(int kc) { return TILE * (round_up(kc, 8) + 4); }
+
+// The chunk depth for products up to kmax deep: the whole depth if it fits.
+__host__ __device__ inline int gemm_chunk(int kmax) {
+  return kmax <= KWHOLE ? round_up(kmax, 4) : KRING;
+}
+
+// Dynamic shared memory of the GEMM for products up to kmax deep: one stage
+// of two panels, or a ring of two stages.
+__host__ __device__ inline size_t gemm_smem_bytes(int kmax) {
+  return sizeof(float) * (kmax <= KWHOLE ? 1 : 2) * 2 * (size_t)panel_floats(gemm_chunk(kmax));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// Elements [0, n) of a 4-byte copy, NT threads, 8 loads a thread in flight
+// before their 8 stores: f(e, true, _) loads element e, f(e, false, v)
+// stores it. Loads interleaved with stores through a pointer the compiler
+// cannot tell from global memory would each wait for the last.
+template <int NT, class F>
+__device__ __forceinline__ void for_batched(int n, const F& f) {
+  constexpr int U = 8;
+  for (int e0 = threadIdx.x; e0 < n; e0 += U * NT) {
+    float v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = e0 + u * NT < n ? f(e0 + u * NT, true, 0.f) : 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (e0 + u * NT < n) f(e0 + u * NT, false, v[u]);
+  }
+}
+
+// Copy rows [o0, o0 + TILE) x depth [k0, k0 + kc) of a source with `no`
+// rows and `nk` deep (strides so, sk) into panel s; zeros outside.
 template <int NT>
-__device__ void gemm_tile(const Gemm& g, int z, int tm, int tn) {
-  constexpr int RM = TILE * 16 / NT;  // rows a thread owns
-  static_assert(RM >= 1 && RM * NT == TILE * 16, "NT must be 256 or 512");
-  __shared__ float as[KT][TILE + 1];
-  __shared__ float bs[KT][TILE + 1];
+__device__ void load_panel(float* s, const float* src, ll so, ll sk, int o0, int no, int k0, int nk,
+                           int kc) {
+  const bool om = sk == 1 && so != 1;  // outer-major
+  const int ld = round_up(kc, 8) + 4;
+  const bool aligned = ((unsigned long long)src & 15) == 0 && (k0 & 3) == 0;
+  if (om) {
+    if (aligned && so % 4 == 0) {
+      const int q = kc / 4;
+      for (int e = threadIdx.x; e < TILE * q; e += NT) {
+        const int r = e / q, kk = 4 * (e % q);
+        const int go = o0 + r, gk = k0 + kk;
+        float* d = s + r * ld + kk;
+        if (go < no && gk + 3 < nk) {
+          cp_async16(d, src + go * so + gk);
+        } else {
+          for (int j = 0; j < 4; ++j) d[j] = (go < no && gk + j < nk) ? __ldcg(src + go * so + gk + j) : 0.f;
+        }
+      }
+    } else {
+      for_batched<NT>(TILE * kc, [&](int e, bool load, float v) {
+        const int r = e / kc, kk = e % kc;
+        const int go = o0 + r, gk = k0 + kk;
+        if (load) return (go < no && gk < nk) ? __ldcg(src + go * so + gk) : 0.f;
+        s[r * ld + kk] = v;
+        return 0.f;
+      });
+    }
+  } else {
+    if (aligned && so == 1 && sk % 4 == 0) {
+      for (int e = threadIdx.x; e < kc * (TILE / 4); e += NT) {
+        const int kk = e / (TILE / 4), r = 4 * (e % (TILE / 4));
+        const int go = o0 + r, gk = k0 + kk;
+        float* d = s + kk * TILE + r;
+        if (gk < nk && go + 3 < no) {
+          cp_async16(d, src + go + gk * sk);
+        } else {
+          for (int j = 0; j < 4; ++j) d[j] = (gk < nk && go + j < no) ? __ldcg(src + go + j + gk * sk) : 0.f;
+        }
+      }
+    } else {
+      for_batched<NT>(kc * TILE, [&](int e, bool load, float v) {
+        const int kk = e / TILE, r = e % TILE;
+        const int go = o0 + r, gk = k0 + kk;
+        if (load) return (go < no && gk < nk) ? __ldcg(src + go * so + gk * sk) : 0.f;
+        s[kk * TILE + r] = v;
+        return 0.f;
+      });
+    }
+  }
+}
+
+// acc[i][j] += sum over the kc-deep chunk of A(4 ty + i, k) B(k, tx + 16 j),
+// in ascending k; AOM / BOM: the panel is outer-major.
+template <bool AOM, bool BOM>
+__device__ __forceinline__ void chunk_fma(const float* as, const float* bs, int kc, float (&acc)[4][2]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int ld = round_up(kc, 8) + 4;
+  for (int k0 = 0; k0 < kc; k0 += 4) {
+    float a[4][4], b[2][4];
+    if (AOM) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(as + (4 * ty + i) * ld + k0);
+        a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(as + (k0 + q) * TILE + 4 * ty);
+        a[0][q] = v.x; a[1][q] = v.y; a[2][q] = v.z; a[3][q] = v.w;
+      }
+    }
+    if (BOM) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(bs + (tx + 16 * j) * ld + k0);
+        b[j][0] = v.x; b[j][1] = v.y; b[j][2] = v.z; b[j][3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        b[0][q] = bs[(k0 + q) * TILE + tx];
+        b[1][q] = bs[(k0 + q) * TILE + tx + 16];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) acc[i][j] = fmaf(a[i][q], b[j][q], acc[i][j]);
+  }
+}
+
+// Output tile (tm, tn) of twin z, by the NT threads of a block; the block's
+// dynamic shared memory holds gemm_smem_bytes(kmax) for a chunk depth kc =
+// gemm_chunk(kmax). It is reached through an extern __shared__ array, not
+// a pointer handed in, so the compiler keeps shared-memory loads (LDS)
+// rather than generic ones, which run the tile at about half speed. Ends
+// with the block synchronised, so the panels can be reused.
+template <int NT>
+__device__ void gemm_tile(const Gemm& g, int z, int tm, int tn, int kc) {
+  static_assert(NT >= GEMM_THREADS && NT % 32 == 0, "too few threads for the GEMM tile");
+  extern __shared__ __align__(16) float smem[];
   const int m0 = tm * TILE;
   const int n0 = tn * TILE;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
   const float* A = g.a + z * g.a_z;
   const float* Bm = g.b + z * g.b_z;
-  float acc[RM][2] = {};
-  for (int k0 = 0; k0 < g.k; k0 += KT) {
-    for (int e = threadIdx.x; e < KT * TILE; e += NT) {
-      const int kk = e / TILE;
-      const int r = e % TILE;
-      const int gk = k0 + kk;
-      const int gm = m0 + r;
-      const int gn = n0 + r;
-      as[kk][r] = (gm < g.m && gk < g.k) ? A[gm * g.a_m + gk * g.a_k] : 0.f;
-      bs[kk][r] = (gn < g.n && gk < g.k) ? Bm[gk * g.b_k + gn * g.b_n] : 0.f;
+  const bool aom = g.a_k == 1 && g.a_m != 1;
+  const bool bom = g.b_k == 1 && g.b_n != 1;
+  const int nch = cdiv(g.k, kc);
+  const int c = nch == 1 ? round_up(g.k, 4) : kc;  // this product's chunk depth
+  const int pf = panel_floats(kc);
+  const int stage = 2 * pf;
+  auto load = [&](int ch) {
+    float* st = smem + (ch & 1) * stage;
+    load_panel<NT>(st, A, g.a_m, g.a_k, m0, g.m, ch * c, g.k, c);
+    load_panel<NT>(st + pf, Bm, g.b_n, g.b_k, n0, g.n, ch * c, g.k, c);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  float acc[4][2] = {};
+  load(0);
+  for (int ch = 0; ch < nch; ++ch) {
+    if (ch + 1 < nch) {
+      load(ch + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      const float b0 = bs[kk][2 * tx], b1 = bs[kk][2 * tx + 1];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float a = as[kk][RM * ty + i];
-        acc[i][0] = fmaf(a, b0, acc[i][0]);
-        acc[i][1] = fmaf(a, b1, acc[i][1]);
-      }
+    if (threadIdx.x < GEMM_THREADS) {
+      const float* as = smem + (ch & 1) * stage;
+      const float* bs = as + pf;
+      if (aom && bom) chunk_fma<true, true>(as, bs, c, acc);
+      else if (aom) chunk_fma<true, false>(as, bs, c, acc);
+      else if (bom) chunk_fma<false, true>(as, bs, c, acc);
+      else chunk_fma<false, false>(as, bs, c, acc);
     }
     __syncthreads();
   }
-  for (int i = 0; i < RM; ++i) {
+  if (threadIdx.x >= GEMM_THREADS) return;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  for (int i = 0; i < 4; ++i) {
     for (int j = 0; j < 2; ++j) {
-      const int gm = m0 + RM * ty + i;
-      const int gn = n0 + 2 * tx + j;
+      const int gm = m0 + 4 * ty + i;
+      const int gn = n0 + tx + 16 * j;
       if (gm >= g.m || gn >= g.n) continue;
       float v = acc[i][j];
       if (g.bias) v += g.bias[z * g.bias_z + gn];
@@ -105,6 +279,15 @@ __device__ void gemm_tile(const Gemm& g, int z, int tm, int tn) {
       g.c[z * g.c_z + gm * g.c_m + gn * g.c_n] = v;
     }
   }
+}
+
+// The deepest product of an update: k is S, X or H forward, B for the
+// weight gradients, H, 1 or 2A for the input gradients.
+__host__ __device__ inline int gemm_depth(int B, int S, int A, int H) {
+  const int X = S + A;
+  int k = B > H ? B : H;
+  k = k > X ? k : X;
+  return k > 2 * A ? k : 2 * A;
 }
 
 // out[z] (M, N) = x[z] (M, K) @ W[z] (K, N) + b[z] (relu); row-major.
@@ -268,63 +451,36 @@ struct Colsum {
     const int z = e / cols, n = e % cols;
     const float* xz = x + (ll)z * rows * cols;
     float acc = 0.f;
+#pragma unroll 16
     for (int r = 0; r < rows; ++r) acc += xz[(ll)r * cols + n];
     out[(ll)z * cols + n] = acc;
   }
 };
 
-constexpr int MAX_TENSORS = 6;
-
-struct AdamArgs {
-  float* p[MAX_TENSORS];
-  const float* g[MAX_TENSORS];
-  float* m[MAX_TENSORS];
-  float* v[MAX_TENSORS];
-  float* target[MAX_TENSORS];  // Polyak target, or null
-  ll end[MAX_TENSORS];         // running element counts
-  int n;
-};
-
-__host__ __device__ inline AdamArgs adam_args(float* const* p, float* const* g, float* const* m,
-                                              float* const* v, float* const* target,
-                                              const ll* sizes) {
-  AdamArgs a = {};
-  a.n = 6;
-  ll total = 0;
-  for (int i = 0; i < 6; ++i) {
-    a.p[i] = p[i]; a.g[i] = g[i]; a.m[i] = m[i]; a.v[i] = v[i];
-    a.target[i] = target ? target[i] : nullptr;
-    total += sizes[i];
-    a.end[i] = total;
-  }
-  return a;
-}
-
-// AdamW over several tensors, element e of their concatenation (and
-// Polyak when targets are given); the step clock is read here and
-// advanced by Temperature.
+// AdamW on one tensor, element j (and Polyak when a target is given); the
+// step clock is read here and advanced by Temperature. One job per tensor,
+// so no pointer is picked by a run-time index (which put the pointer tables
+// in local memory).
 struct Adam {
-  AdamArgs args;
+  float* p;
+  const float* g;
+  float *m, *v, *target;
   const float* count;
   float lr, wd, polyak;
-  __device__ void operator()(int e) const {
-    int i = 0;
-    while (e >= args.end[i]) ++i;
-    const ll j = e - (i ? args.end[i - 1] : 0);
+  __device__ void operator()(int j) const {
     const float t = count[0] + 1.f;
-    const float g = args.g[i][j];
-    const float m = B1 * args.m[i][j] + OMB1 * g;
-    const float v = B2 * args.v[i][j] + OMB2 * g * g;
-    const float mh = m / (1.f - expf(t * LOG_B1));
-    const float vh = v / (1.f - expf(t * LOG_B2));
-    const float p = args.p[i][j];
-    const float np = p - lr * (mh / (sqrtf(vh) + ADAM_EPS) + wd * p);
-    args.m[i][j] = m;
-    args.v[i][j] = v;
-    args.p[i][j] = np;
-    if (args.target[i]) args.target[i][j] = polyak * args.target[i][j] + (1.f - polyak) * np;
+    const float gj = g[j];
+    const float mm = B1 * m[j] + OMB1 * gj;
+    const float vv = B2 * v[j] + OMB2 * gj * gj;
+    const float mh = mm / (1.f - expf(t * LOG_B1));
+    const float vh = vv / (1.f - expf(t * LOG_B2));
+    const float pj = p[j];
+    const float np = pj - lr * (mh / (sqrtf(vh) + ADAM_EPS) + wd * pj);
+    m[j] = mm;
+    v[j] = vv;
+    p[j] = np;
+    if (target) target[j] = polyak * target[j] + (1.f - polyak) * np;
   }
-  __host__ __device__ int size() const { return (int)args.end[args.n - 1]; }
 };
 
 // Temperature, one block of at least RED threads: plain Adam on log_alpha
@@ -401,12 +557,14 @@ inline Ptrs unpack(void* const* ptr) {
   return p;
 }
 
+// Buffers start on 16-byte boundaries, so the GEMM copies them 16 bytes at
+// a time.
 struct Scratch {
   float* base;
   ll used = 0;
   float* take(ll n) {
     float* p = base ? base + used : nullptr;
-    used += n;
+    used += (n + 3) / 4 * 4;
     return p;
   }
 };
@@ -451,9 +609,8 @@ inline ll scratch_floats(int B, int S, int A, int H) {
 //   its own AdamW; critic forward, backward, AdamW + Polyak; the UPDATED
 //   critic's action gradient; the actor backward and AdamW; last the
 //   temperature, which alone advances the three Adam clocks.
-#pragma nv_exec_check_disable
 template <class Exec>
-__host__ __device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int B, int S, int A,
+__device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int B, int S, int A,
                                   int H, const Hyper& h) {
   const int X = S + A, O = 2 * A;
   const ll BH = (ll)B * H;
@@ -479,6 +636,7 @@ __host__ __device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int
   ex.sync();
   ex.gemm(linear(f.th2, BH, p.tw[4], p.tw[5], f.tq, B, H, 1, false), 2);
   ex.sync();
+  ex.await_rewards();  // the first phase that reads p.r
   ex.rows(B, Td{f.tq, p.r, p.term, p.ab, f.lp2, p.la, h.min_alpha, h.discount, p.s, p.a, B, S, A,
                 f.td, f.x});
   ex.sync();
@@ -493,19 +651,20 @@ __host__ __device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int
   ex.rows(B, CriticDq{f.cq, f.td, p.w, B, f.dq, p.minq_out});
   ex.sync();
   ex.gemm(weight_grad(f.ch2, BH, f.dq, f.gc[4], B, H, 1), 2);
-  ex.rows(2, Colsum{f.dq, B, 1, f.gc[5]});
+  ex.cols(2, Colsum{f.dq, B, 1, f.gc[5]});
   ex.gemm(input_grad(f.dq, p.cw[4], H, f.ch2, f.dz2, H, B, H, 1), 2);
   ex.sync();
   ex.gemm(weight_grad(f.ch1, BH, f.dz2, f.gc[2], B, H, H), 2);
-  ex.rows(2 * H, Colsum{f.dz2, B, H, f.gc[3]});
+  ex.cols(2 * H, Colsum{f.dz2, B, H, f.gc[3]});
   ex.gemm(input_grad(f.dz2, p.cw[2], (ll)H * H, f.ch1, f.dz1, H, B, H, H), 2);
   ex.sync();
   ex.gemm(weight_grad(f.x, 0, f.dz1, f.gc[0], B, X, H), 2);
-  ex.rows(2 * H, Colsum{f.dz1, B, H, f.gc[1]});
+  ex.cols(2 * H, Colsum{f.dz1, B, H, f.gc[1]});
   ex.sync();
   const ll csz[6] = {2LL * X * H, 2LL * H, 2LL * H * H, 2LL * H, 2LL * H, 2};
-  const Adam critic_adam{adam_args(p.cw, f.gc, p.cm, p.cv, p.tw, csz), p.tc, h.lr, h.wd, h.polyak};
-  ex.rows(critic_adam.size(), critic_adam);
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+    ex.rows((int)csz[i], Adam{p.cw[i], f.gc[i], p.cm[i], p.cv[i], p.tw[i], p.tc, h.lr, h.wd, h.polyak});
   ex.sync();
 
   // ---- the UPDATED critic's action gradient at [s, tanh(z)] ---------------
@@ -529,19 +688,20 @@ __host__ __device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int
   ex.rows(B, HeadBackward{f.bo, p.eps_new, f.da, p.w, p.ab, p.la, h.min_alpha, B, A, f.dout});
   ex.sync();
   ex.gemm(weight_grad(f.bh2, 0, f.dout, f.ga[4], B, H, O), 1);
-  ex.rows(O, Colsum{f.dout, B, O, f.ga[5]});
+  ex.cols(O, Colsum{f.dout, B, O, f.ga[5]});
   ex.gemm(input_grad(f.dout, p.aw[4], 0, f.bh2, f.adz2, H, B, H, O), 1);
   ex.sync();
   ex.gemm(weight_grad(f.bh1, 0, f.adz2, f.ga[2], B, H, H), 1);
-  ex.rows(H, Colsum{f.adz2, B, H, f.ga[3]});
+  ex.cols(H, Colsum{f.adz2, B, H, f.ga[3]});
   ex.gemm(input_grad(f.adz2, p.aw[2], 0, f.bh1, f.adz1, H, B, H, H), 1);
   ex.sync();
   ex.gemm(weight_grad(p.s, 0, f.adz1, f.ga[0], B, S, H), 1);
-  ex.rows(H, Colsum{f.adz1, B, H, f.ga[1]});
+  ex.cols(H, Colsum{f.adz1, B, H, f.ga[1]});
   ex.sync();
   const ll asz[6] = {(ll)S * H, H, (ll)H * H, H, (ll)H * O, O};
-  const Adam actor_adam{adam_args(p.aw, f.ga, p.am, p.av, nullptr, asz), p.ta, h.lr, h.wd, 0.f};
-  ex.rows(actor_adam.size(), actor_adam);
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+    ex.rows((int)asz[i], Adam{p.aw[i], f.ga[i], p.am[i], p.av[i], nullptr, p.ta, h.lr, h.wd, 0.f});
   ex.sync();
 
   // ---- temperature, clocks, aux alpha -------------------------------------

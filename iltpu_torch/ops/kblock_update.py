@@ -7,7 +7,8 @@
 
 `kblock_update` is the entry. On CUDA tensors it makes ONE cooperative,
 persistent launch of `csrc/kblock_update.cu` (built by nvcc at first use),
-which runs the arithmetic of the two per-update kernels (`csrc/*.cuh`), and
+which runs the arithmetic of the two per-update kernels (`csrc/*.cuh`), the
+GAIL steps on one block beside the SAC steps on the others, and
 raises if the launch fails or the grid is refused; on CPU tensors it runs
 `kblock_update_plain`, the two plain updates K times in order.
 
@@ -62,9 +63,9 @@ def _bind(lib):
             + [ctypes.c_void_p] * 2
         )
         lib.iltpu_kblock_update.restype = ctypes.c_int
-        lib.iltpu_kblock_scratch_floats.argtypes = [ctypes.c_int] * 6
+        lib.iltpu_kblock_scratch_floats.argtypes = [ctypes.c_int] * 7
         lib.iltpu_kblock_scratch_floats.restype = ctypes.c_longlong
-        lib.iltpu_kblock_grid.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        lib.iltpu_kblock_grid.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
         lib.iltpu_kblock_grid.restype = ctypes.c_int
         lib.iltpu_kblock_error.argtypes = [ctypes.c_int]
         lib.iltpu_kblock_error.restype = ctypes.c_char_p
@@ -115,13 +116,15 @@ def kblock_update(
     return aux
 
 
-def grid(lib, D: int, Hd: int):
-    """(co-resident blocks per SM, SMs): the launch's grid is their product."""
-    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
-    rc = _bind(lib).iltpu_kblock_grid(D, Hd, ctypes.byref(per_sm), ctypes.byref(sms))
+def grid(lib, B: int, S: int, A: int, H: int, Hd: int):
+    """(co-resident blocks per SM, SMs, dynamic shared memory bytes): the
+    launch's grid is the product of the first two."""
+    per_sm, sms, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0)
+    rc = _bind(lib).iltpu_kblock_grid(B, S, A, H, Hd, ctypes.byref(per_sm), ctypes.byref(sms),
+                                      ctypes.byref(smem))
     if rc != 0:
         raise RuntimeError(f"kblock_update occupancy query failed: {_error(lib, rc)}")
-    return per_sm.value, sms.value
+    return per_sm.value, sms.value, smem.value
 
 
 def _error(lib, rc: int) -> str:
@@ -143,7 +146,7 @@ def launch(lib, sac_hyper, gail_hyper, sac_st, disc_st, batches, expert_batches,
     dev = batches["states"].device
     loss, alpha = torch.empty(1, device=dev), torch.empty(1, device=dev)
     rewards, lp, min_q = (torch.empty(B, device=dev) for _ in range(3))
-    scratch = torch.empty(lib.iltpu_kblock_scratch_floats(B, S, A, H, Hd, bce), device=dev)
+    scratch = torch.empty(lib.iltpu_kblock_scratch_floats(K, B, S, A, H, Hd, bce), device=dev)
     tb, eb = batches, expert_batches
     sac_ptrs = [t.data_ptr() for t in su.state_tensors(sac_st)] + [
         t.data_ptr() for t in (tb["states"], tb["actions"], rewards, tb["next_states"],

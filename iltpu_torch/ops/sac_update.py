@@ -4,9 +4,9 @@
   backward + AdamW -> actor forward, input-gradient of the UPDATED critic,
   hand-derived tanh-Gaussian backward + AdamW -> temperature Adam -> Polyak.
 
-`sac_update` is the entry. On CUDA tensors it launches the hand-written
-kernel sequence of `csrc/sac_update.cu` (built by nvcc at first use) and
-raises if the launch fails; on CPU tensors it runs `sac_update_plain`, the
+`sac_update` is the entry. On CUDA tensors it makes ONE cooperative launch
+of the hand-written kernel of `csrc/sac_update.cu` (built by nvcc at first
+use) and raises if the launch fails or the grid is refused; on CPU tensors it runs `sac_update_plain`, the
 same explicit formulas in PyTorch (no autograd), which the CPU tests pin to
 iltpu. Twin critics stay (2, ...)-stacked: no block-diagonal layout.
 
@@ -196,6 +196,10 @@ def _bind(lib):
         lib.iltpu_sac_update.restype = ctypes.c_int
         lib.iltpu_sac_scratch_floats.argtypes = [ctypes.c_int] * 4
         lib.iltpu_sac_scratch_floats.restype = ctypes.c_longlong
+        lib.iltpu_sac_grid.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+        lib.iltpu_sac_grid.restype = ctypes.c_int
+        lib.iltpu_sac_error.argtypes = [ctypes.c_int]
+        lib.iltpu_sac_error.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
@@ -241,9 +245,25 @@ def sac_update(
     return aux
 
 
+def grid(lib, B: int, S: int, A: int, H: int):
+    """(co-resident blocks per SM, SMs, dynamic shared memory bytes): the
+    launch's grid is the product of the first two."""
+    per_sm, sms, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0)
+    rc = _bind(lib).iltpu_sac_grid(B, S, A, H, ctypes.byref(per_sm), ctypes.byref(sms),
+                                   ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"sac_update occupancy query failed: {_error(lib, rc)}")
+    return per_sm.value, sms.value, smem.value
+
+
+def _error(lib, rc: int) -> str:
+    return f"CUDA error {rc} ({lib.iltpu_sac_error(rc).decode()})"
+
+
 def launch(lib, h: SACHyper, st: Dict, batch: Dict[str, torch.Tensor], eps2, eps_new, stream: int):
-    """Pack the operands and call the library's C entry on `stream`;
-    raises if a launch failed. Outputs and scratch come from torch.empty."""
+    """Pack the operands and call the library's C entry on `stream`: one
+    cooperative launch; raises if it failed or was refused. Outputs and
+    scratch come from torch.empty."""
     ops = _operands(st, batch, eps2, eps_new)
     B, S = batch["states"].shape
     A = eps2.shape[1]
@@ -262,7 +282,7 @@ def launch(lib, h: SACHyper, st: Dict, batch: Dict[str, torch.Tensor], eps2, eps
         scratch.data_ptr(), stream,
     )
     if rc != 0:
-        raise RuntimeError(f"sac_update kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"sac_update kernel launch failed: {_error(lib, rc)}")
     return {"log_probs": lp, "Q_values": min_q, "alpha": alpha[0]}
 
 

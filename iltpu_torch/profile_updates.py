@@ -13,10 +13,19 @@ transitions, runs one warm-up iteration of 16 updates, then:
   wall means the host, not the card, sets the pace;
 - traces one iteration of 64 updates with torch.profiler and reports the
   card's busy share (the union of its kernel intervals over the window from
-  the first host event to the last kernel's end) and the kernels with the
-  most device time.
+  the first host event to the last kernel's end), the CUDA kernels launched
+  per update summed over every kernel (memsets and copies counted apart),
+  and the kernels with the most device time.
 
-Prints one JSON line per path and the card's name and power limit.
+For the K-blocked path it also reports the GAIL step's share of a
+micro-update. The trace cannot split the two: GAIL runs on one block of
+the same kernel, beside SAC on the others. So the share is derived: the
+per-update GAIL kernel's device time (from the GAIL path's trace) over the
+K-blocked kernel's device time per micro-update; near 1, GAIL sets the
+pace.
+
+Prints one JSON line per path, then the share, then the card's name and
+power limit.
 """
 
 import json
@@ -89,15 +98,31 @@ def profile(name, extra, out_dir):
         t.transition_core(step + N, *data, 64)
         torch.cuda.synchronize()
     busy, window = _busy(prof)
-    top = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
-                 key=lambda e: -e.self_device_time_total)[:6]
+    device = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
+    counts = {"kernels": 0, "memsets": 0, "copies": 0}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            kind = ("memsets" if e.name.startswith("Memset") else
+                    "copies" if e.name.startswith("Memcpy") else "kernels")
+            counts[kind] += 1
     return {
         "path": name, "issue_ms_per_update": 1e3 * sorted(issue)[1] / 128,
         "wall_ms_per_update": 1e3 * sorted(wall)[1] / 128,
         "traced_busy_share": busy / window, "traced_device_ms_per_update": busy / 64,
+        **{f"{k}_per_update": v / 64 for k, v in counts.items()},
         "top_kernels": [{"name": e.key[:60], "calls_per_update": e.count / 64,
+                         "device_ms_per_call": e.self_device_time_total / 1e3 / e.count,
                          "device_ms_per_update": e.self_device_time_total / 1e3 / 64} for e in top],
     }
+
+
+def _ms_per_call(result, kernel):
+    """Device ms per call of the traced kernel whose name holds `kernel`."""
+    for e in result["top_kernels"]:
+        if kernel in e["name"]:
+            return e["device_ms_per_call"]
+    raise RuntimeError(f"profile_updates: no {kernel} among {result['path']}'s top kernels")
 
 
 def main():
@@ -105,8 +130,18 @@ def main():
         raise SystemExit("profile_updates: CUDA is not available; it measures the card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    results = {}
     for name, extra in PATHS.items():
-        print(json.dumps(profile(name, extra, OUT_DIR)), flush=True)
+        results[name] = profile(name, extra, OUT_DIR)
+        print(json.dumps(results[name]), flush=True)
+    gail_ms = _ms_per_call(results["gail"], "gail_kernel")
+    kblock_ms = _ms_per_call(results["gail_kblock16"], "kblock_kernel") / 16
+    print(json.dumps({
+        "gail_step_ms": gail_ms, "kblock_ms_per_micro_update": kblock_ms,
+        "gail_share_of_micro_update": gail_ms / kblock_ms,
+        "derived": "per-update GAIL kernel time over K-blocked time per micro-update; "
+                   "the trace cannot split the K-blocked kernel",
+    }))
     print(smi)
 
 

@@ -33,6 +33,9 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K, B, S, A, H = 4, 16, 5, 2, 32  # pointmass: state 4 + absorbing bit, action 2
+# K=1: no micro-update hands rewards to a later one; K=4 and odd K=5: the
+# last micro-update's rewards must end in the `rewards` output
+KS = (1, 4, 5)
 LR, WD = 3e-5, 10.0
 
 CONFIGS = {
@@ -42,7 +45,7 @@ CONFIGS = {
 }
 
 
-def _inputs(seed):
+def _inputs(seed, K=K):
     rng = np.random.default_rng(seed)
     f32 = lambda x: np.asarray(x, np.float32)
     policy = {
@@ -85,11 +88,12 @@ def _torch(d):
     return {k: torch.from_numpy(v) for k, v in d.items()}
 
 
+@pytest.mark.parametrize("K", KS)
 @pytest.mark.parametrize("name", list(CONFIGS))
-def test_kblock_matches_iltpu(name):
+def test_kblock_matches_iltpu(name, K):
     cfg = CONFIGS[name]
     learner, sac, disc, params, opt = _setup(cfg)
-    policy, expert, noise = _inputs(3)
+    policy, expert, noise = _inputs(3, K)
     if cfg["loss"] == "BCE":
         noise.pop("mix")
         tgt = np.stack([
