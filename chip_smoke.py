@@ -9,14 +9,18 @@ of JAX or `iltpu`. Phases, each printing its results:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the four kernels from `iltpu_torch/csrc/` (sac_update,
    gail_update, kblock_update, gaussian_rowsum), one nvcc each, in
-   parallel; each one's `-Xptxas -v` register line, and the cooperative
-   grid and dynamic shared memory of the SAC and K-blocked kernels;
+   parallel; each one's `-Xptxas -v` register lines (and any spills), the
+   GAIL step's shared memory at both shapes, and the cooperative grid
+   (blocks per SM) and dynamic shared memory of the SAC and K-blocked
+   kernels;
 3. kernels: each per-update kernel against its plain PyTorch version on the
    card, one step and a 5-step chain, at the main path's shapes (pointmass:
    state 5, action 2) and at hopper's (state 12, action 3), batch 256, width
    256, discriminator width 64; SAC with min_alpha 0 and 0.05, GAIL with the
    bench configuration (BCE, spectral norm, AIRL, penalty 1, weight decay
-   10, lr 3e-5) and the tuned one (Mixup, entropy 0.0248, AIRL). Tolerance:
+   10, lr 3e-5) and the tuned one (Mixup, entropy 0.0248, AIRL), and the
+   GAIL step's other variants (inputs up to 32, widths 16 to 128, a ragged
+   batch) for one step and the chain. Tolerance:
    |kernel - plain| <= atol + rtol |plain| with rtol 2e-5 / atol 2e-6 for one
    step and 1e-4 / 1e-5 for the chain (fp32, summed in another order); SAC
    also at batch 1024, past the GEMM's whole-depth panels. Each kernel is
@@ -30,7 +34,8 @@ of JAX or `iltpu`. Phases, each printing its results:
    both GAIL configurations x min_alpha 0 and 0.05; times per launch and
    per micro-update at K=16 beside the plain version's and the 16
    per-update calls';
-3c. the row-sum kernel against its plain version at GMMIL's 256 x 256
+3c. the row-sum kernel: one row sum (centred outside) and GMMIL's fused
+   reward (one launch) against their plain versions at GMMIL's 256 x 256
    (D = 7 and 15) and at 256 x 10,001 expert rows (the y loop and a ragged
    edge), at rtol 1e-5 / atol 1e-6 (the sums run in another order);
 4. reference: the port's transition_core on the card against the same code
@@ -44,8 +49,8 @@ of JAX or `iltpu`. Phases, each printing its results:
 5b. the same with training.update_block=16: the K-blocked kernel runs the
    iterations whose update count 16 divides, the per-update kernels the
    rest;
-5c. GMMIL-pointmass at the same size: two row sums and one SAC launch per
-   update, no GAIL launch.
+5c. GMMIL-pointmass at the same size: one fused reward launch and one SAC
+   launch per update, no GAIL launch and no single row-sum launch.
 
 Then the three steady rates with the nvidia-smi line, one `kernels` JSON
 line, the nvidia-smi line, and as the last line {"ok": true, "device":
@@ -55,6 +60,7 @@ the package beside it the script exits 1 at once.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -297,7 +303,9 @@ def numel(ts):
     return sum(t.numel() for t in ts)
 
 
-def gail_case(S, A, B, bce, seed, dev):
+def gail_case(S, A, B, bce, seed, dev, Hd=64, sn=None, **changes):
+    """The bench configuration (bce) or the tuned one, with `changes` to
+    the hyperparameters and `sn` to the spectral norm where given."""
     import torch
     from iltpu_torch.ops.gail_update import GAILHyper
     from iltpu_torch.rewards import GAILDiscriminator
@@ -305,11 +313,12 @@ def gail_case(S, A, B, bce, seed, dev):
     g = torch.Generator(device=dev).manual_seed(seed)
     if bce:  # the bench configuration (algorithms.yaml GAIL)
         hyper = GAILHyper(1.0, 3e-5, 10.0, "AIRL", "BCE", 0.0)
-        sn = True
     else:  # the tuned GAIL@10 configuration
         hyper = GAILHyper(0.436, 1.3089e-4, 0.687, "AIRL", "Mixup", 0.0248)
-        sn = False
-    disc = GAILDiscriminator(S, A, hidden_size=64, spectral_norm=sn, reward_function="AIRL", device=dev)
+    hyper = hyper._replace(**changes)
+    sn = bce if sn is None else sn
+    disc = GAILDiscriminator(S, A, hidden_size=Hd, spectral_norm=sn,
+                             reward_function=hyper.reward_function, device=dev)
     st = disc.init(g)
 
     def step():
@@ -322,10 +331,10 @@ def gail_case(S, A, B, bce, seed, dev):
     return hyper, st, [step() for _ in range(5)]
 
 
-def check_gail(S, A, bce, dev):
+def check_gail(S, A, bce, dev, B=256, Hd=64, timed=True, **case):
     from iltpu_torch.ops.gail_update import gail_update, gail_update_plain
 
-    hyper, st, steps = gail_case(S, A, 256, bce, 7 + S, dev)
+    hyper, st, steps = gail_case(S, A, B, bce, 7 + S, dev, Hd, **case)
     worst = (0.0, 0.0)
     for n, tol in ((1, TOL_STEP), (5, TOL_CHAIN)):
         k_st, p_st = clone(st), clone(st)
@@ -333,16 +342,30 @@ def check_gail(S, A, bce, dev):
             args, mix = steps[i]
             kl, kr = gail_update(hyper, k_st, *args, mix)
             pl, pr = gail_update_plain(hyper, p_st, *args, mix)
-        worst = worse(worst, compare(f"gail S={S} A={A} {hyper.loss_function} {n}-step",
-                                   [*leaves(k_st), ("loss", kl), ("rewards", kr)],
-                                   [*leaves(p_st), ("loss", pl), ("rewards", pr)], tol,
-                                   k_st, p_st))
+        worst = worse(worst, compare(
+            f"gail S={S} A={A} B={B} Hd={Hd} {hyper} sn={bool(st['sn'])} {n}-step",
+            [*leaves(k_st), ("loss", kl), ("rewards", kr)],
+            [*leaves(p_st), ("loss", pl), ("rewards", pr)], tol, k_st, p_st))
+    if not timed:
+        return worst, None, None
     args, mix = steps[0]
     k_st, p_st = clone(st), clone(st)
     ms = device_ms(lambda: gail_update(hyper, k_st, *args, mix))
     paced_ms = median_ms(lambda: gail_update(hyper, k_st, *args, mix))
     plain_ms = median_ms(lambda: gail_update_plain(hyper, p_st, *args, mix))
     return worst, (ms, paced_ms, plain_ms), (hyper, st, args, mix)
+
+
+# The GAIL step's other variants (inputs padded to 8, 16 or 32 features,
+# widths to 1, 2 or 4 warps' lanes; W~1 from shared memory where both are
+# large), a ragged batch, the GAIL and FAIRL heads, no penalty, and Mixup
+# with spectral norm: (S, A, B, Hd, bce, changes to gail_case).
+GAIL_VARIANTS = (
+    (3, 1, 256, 16, True, {"grad_penalty": 0.0, "reward_function": "GAIL"}),
+    (5, 2, 256, 128, False, {"sn": True, "reward_function": "FAIRL"}),
+    (12, 3, 256, 32, True, {}), (12, 3, 256, 128, True, {}), (21, 7, 256, 32, False, {}),
+    (18, 6, 256, 64, True, {}), (12, 3, 100, 64, False, {}),
+)
 
 
 def gail_flops(B, Hd, st, args, mix):
@@ -464,9 +487,19 @@ def check_kblock(S, A, bce, min_alpha, dev, timed):
     return worst, same, out
 
 
+def rowsum_bound(nx, ny, D, fused):
+    """A pair: the cross product, d2, two scaled exps (one operation each),
+    the weighted sum; the fused reward adds the nx x nx self sum, the means
+    and the weight sums. Each input read and the output written once."""
+    pairs = nx * ny + (nx * nx if fused else 0)
+    flops = pairs * (2 * D + 10) + 2 * (nx + ny) * D + (2 * (nx + ny) + 3 * nx if fused else 0)
+    return bound_ms(flops, 4 * (nx * D + ny * D + ny + 2 + nx + (nx if fused else 0)))
+
+
 def check_rowsum(dev):
-    """The row-sum kernel against its plain version on centred inputs;
-    times and the bound at each size."""
+    """One row sum (centred outside) and GMMIL's fused reward against their
+    plain versions; times and the bound at each size. Returns
+    {(entry, nx, ny, D): (err, ms, paced_ms, plain_ms, bound, by)}."""
     import torch
     from iltpu_torch.ops import build
     from iltpu_torch.ops import gaussian_rowsum as gr
@@ -480,24 +513,31 @@ def check_rowsum(dev):
         x = torch.randn(nx, D, generator=g, device=dev)
         y = 1.5 * torch.randn(ny, D, generator=g, device=dev) + 0.3
         w = 1 + torch.rand(ny, generator=g, device=dev)
-        w = w / w.sum()
+        wx = 1 + torch.rand(nx, generator=g, device=dev)
         g1, g2 = torch.full((1,), 0.8, device=dev), torch.full((1,), 3.1, device=dev)
-        got = gr.gaussian_rowsum(x, y, w, g1, g2)
-        want = gr.gaussian_rowsum_plain(x, y, w, g1, g2)
-        err = compare(f"gaussian_rowsum {nx}x{ny} D={D}", [("out", got)], [("out", want)],
-                      (1e-5, 1e-6))
+        wn = w / w.sum()
         xc, yc = centre(x, y)
-        ms = device_ms(lambda: gr.launch(lib, xc, yc, w, g1, g2, stream))
-        paced_ms = median_ms(lambda: gr.launch(lib, xc, yc, w, g1, g2, stream))
-        plain_ms = median_ms(lambda: gr.rowsums_plain(xc, yc, w, g1, g2))
-        # a pair: the cross product, d2, two scaled exps (one operation
-        # each), the weighted sum; each input read and the output written once
-        flops = nx * ny * (2 * D + 10) + 2 * (nx + ny) * D
-        bound, by = bound_ms(flops, 4 * (nx * D + ny * D + ny + 2 + nx))
-        results[(nx, ny, D)] = (err[0], ms, paced_ms, plain_ms, bound, by)
-        print(f"kernel gaussian_rowsum {nx}x{ny} D={D}: max_abs_err {err[0]:.3g}, max_rel_err "
-              f"{err[1]:.3g}, {ms:.4f} ms on the device ({paced_ms:.4f} ms host-paced; plain "
-              f"{plain_ms:.4f} ms, bound {bound:.6f} ms by {by})")
+        for entry, got, want, kernel, plain in (
+            ("gaussian_rowsum", gr.gaussian_rowsum(x, y, wn, g1, g2),
+             gr.gaussian_rowsum_plain(x, y, wn, g1, g2),
+             lambda: gr.launch(lib, xc, yc, wn, g1, g2, stream),
+             lambda: gr.rowsums_plain(xc, yc, wn, g1, g2)),
+            ("gmmil_witness_reward", gr.gmmil_witness_reward(x, y, wx, w, g1, g2),
+             gr.gmmil_witness_reward_plain(x, y, wx, w, g1, g2),
+             lambda: gr.launch_reward(lib, x, y, wx, w, g1, g2, stream),
+             lambda: gr.gmmil_witness_reward_plain(x, y, wx, w, g1, g2)),
+        ):
+            err = compare(f"{entry} {nx}x{ny} D={D}", [("out", got)], [("out", want)], (1e-5, 1e-6))
+            ms, paced_ms, plain_ms = device_ms(kernel), median_ms(kernel), median_ms(plain)
+            bound, by = rowsum_bound(nx, ny, D, entry == "gmmil_witness_reward")
+            results[(entry, nx, ny, D)] = (err[0], ms, paced_ms, plain_ms, bound, by)
+            print(f"kernel {entry} {nx}x{ny} D={D}: max_abs_err {err[0]:.3g}, max_rel_err "
+                  f"{err[1]:.3g}, {ms:.4f} ms on the device ({paced_ms:.4f} ms host-paced; plain "
+                  f"{plain_ms:.4f} ms, bound {bound:.6f} ms by {by})")
+    single = results[("gaussian_rowsum", 256, 10001, 7)]
+    if single[1] >= single[3]:
+        raise AssertionError(f"gaussian_rowsum 256x10001: {single[1]:.4f} ms on the device, not "
+                             f"faster than its plain version's {single[3]:.4f} ms")
     return results
 
 
@@ -557,23 +597,28 @@ def gmmil_leaves(st):
     return [("gamma_1", st.gamma_1), ("gamma_2", st.gamma_2), ("initialized", st.initialized.float())]
 
 
-def counts():
+def wrappers():
+    """Every kernel wrapper with a launch counter."""
     from iltpu_torch.ops.gail_update import gail_update
-    from iltpu_torch.ops.gaussian_rowsum import gaussian_rowsum
+    from iltpu_torch.ops.gaussian_rowsum import gaussian_rowsum, gmmil_witness_reward
     from iltpu_torch.ops.kblock_update import kblock_update
     from iltpu_torch.ops.sac_update import sac_update
 
-    return {f.__name__: f.launches for f in (sac_update, gail_update, kblock_update, gaussian_rowsum)}
+    return sac_update, gail_update, kblock_update, gaussian_rowsum, gmmil_witness_reward
+
+
+def counts():
+    return {f.__name__: f.launches for f in wrappers()}
 
 
 def reset_counts():
-    from iltpu_torch.ops.gail_update import gail_update
-    from iltpu_torch.ops.gaussian_rowsum import gaussian_rowsum
-    from iltpu_torch.ops.kblock_update import kblock_update
-    from iltpu_torch.ops.sac_update import sac_update
-
-    for f in (sac_update, gail_update, kblock_update, gaussian_rowsum):
+    for f in wrappers():
         f.launches = 0
+
+
+def launches_of(**nonzero):
+    """The counter of every wrapper, 0 unless given."""
+    return {f.__name__: nonzero.get(f.__name__, 0) for f in wrappers()}
 
 
 def schedule(cfg, K):
@@ -630,6 +675,20 @@ def run_trainer(name, extra, expect):
     return launches, steady
 
 
+def ptxas_report(log):
+    """The `-Xptxas -v` register lines of a build log, and every function
+    with spills."""
+    out, fn = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("for", 1)[1].strip()
+        elif "Used" in line:
+            out.append(line.split(":", 1)[1].strip())
+        elif fn and re.search(r"[1-9]\d* bytes spill (stores|loads)", line):
+            out.append(f"{fn[:80]}: {line.strip()}")
+    return "; ".join(out)
+
+
 def main():
     try:
         import torch
@@ -658,12 +717,15 @@ def main():
     from iltpu_torch.ops import kblock_update as kb
     from iltpu_torch.ops import sac_update as su
 
+    from iltpu_torch.ops import gail_update as gu
+
     secs = build.build_all()
     print(f"build: {', '.join(build.NAMES)} in {secs:.2f} s (one nvcc each, in parallel)")
     for name in build.NAMES:
-        regs = [l.split(":", 1)[1].strip() for l in build.build_log(name).splitlines() if "Used" in l]
-        print(f"build {name}: {'; '.join(regs)}")
+        print(f"build {name}: {ptxas_report(build.build_log(name))}")
     for S, A in ((5, 2), (12, 3)):
+        print(f"build gail_update: S={S} A={A}: {gu.smem_bytes(256, S + A, 64)} bytes of dynamic "
+              f"shared memory (batch 256, width 64)")
         for name, (per_sm, sms, smem) in (
             ("sac_update", su.grid(build.load("sac_update"), 256, S, A, 256)),
             ("kblock_update", kb.grid(build.load("kblock_update"), 256, S, A, 256, 64)),
@@ -696,6 +758,11 @@ def main():
         results[("gail", where)] = (err[0], *times)
         print(f"kernel gail_update {where} S={S} A={A}: max_abs_err {err[0]:.3g}, max_rel_err "
               f"{err[1]:.3g}, {timing(times)}")
+    for S, A, B, Hd, bce, case in GAIL_VARIANTS:
+        err, _, _ = check_gail(S, A, bce, dev, B=B, Hd=Hd, timed=False, **case)
+        print(f"kernel gail_update variant S={S} A={A} B={B} Hd={Hd} {'BCE' if bce else 'Mixup'} "
+              f"{case}: {gu.smem_bytes(B, S + A, Hd)} bytes of shared memory, max_abs_err "
+              f"{err[0]:.3g}, max_rel_err {err[1]:.3g}")
     # a batch past the GEMM's whole-depth panels: the ring of 128-deep chunks
     err, _ = check_sac(5, 2, 0.0, dev, B=1024, timed=False)
     print(f"kernel sac_update pointmass B=1024 (chunked weight-gradient depth): max_abs_err "
@@ -727,15 +794,15 @@ def main():
 
     # 3c. the row-sum kernel
     rowsum = check_rowsum(dev)
-    results[("rowsum", "pointmass")] = rowsum[(256, 256, 7)]
+    # GMMIL's path launches the kernel through the fused reward
+    results[("rowsum", "pointmass")] = rowsum[("gmmil_witness_reward", 256, 256, 7)]
     torch.cuda.synchronize()
 
     # 4. the whole update path against the CPU, on each of the three paths
     for extra, want in (
-        ((), {"sac_update": 24, "gail_update": 24, "kblock_update": 0, "gaussian_rowsum": 0}),
-        (("training.update_block=4",),
-         {"sac_update": 0, "gail_update": 0, "kblock_update": 6, "gaussian_rowsum": 0}),
-        (tuple(GMMIL_ARGS), {"sac_update": 24, "gail_update": 0, "kblock_update": 0, "gaussian_rowsum": 48}),
+        ((), launches_of(sac_update=24, gail_update=24)),
+        (("training.update_block=4",), launches_of(kblock_update=6)),
+        (tuple(GMMIL_ARGS), launches_of(sac_update=24, gmmil_witness_reward=24)),
     ):
         err, launched = check_against_cpu(dev, extra)
         if launched != want:
@@ -745,25 +812,25 @@ def main():
 
     # 5. the trainer, through its normal entry, on each path
     def per_update(t):
-        n = t.updates_done
-        return {"sac_update": n, "gail_update": n, "kblock_update": 0, "gaussian_rowsum": 0}
+        return launches_of(sac_update=t.updates_done, gail_update=t.updates_done)
 
     def blocked(t):
         k, rest = schedule(t.cfg, 16)
-        return {"sac_update": rest, "gail_update": rest, "kblock_update": k // 16, "gaussian_rowsum": 0}
+        return launches_of(sac_update=rest, gail_update=rest, kblock_update=k // 16)
 
     def gmmil(t):
-        n = t.updates_done
-        return {"sac_update": n, "gail_update": 0, "kblock_update": 0, "gaussian_rowsum": 2 * n}
+        return launches_of(sac_update=t.updates_done, gmmil_witness_reward=t.updates_done)
 
     launches, rates = {}, {}
     for name, extra, expect, kernels in (
         ("gail", (), per_update, ("sac_update", "gail_update")),
         ("gail_kblock16", ("training.update_block=16",), blocked, ("kblock_update",)),
-        ("gmmil", tuple(GMMIL_ARGS), gmmil, ("gaussian_rowsum",)),
+        ("gmmil", tuple(GMMIL_ARGS), gmmil, ("gaussian_rowsum", "gmmil_witness_reward")),
     ):
         counted, rates[name] = run_trainer(name, extra, expect)
         launches.update({k: counted[k] for k in kernels})
+    # the row-sum kernel's launches on its path: both of its entries
+    launches["gaussian_rowsum"] += launches.pop("gmmil_witness_reward")
     print("trainer steady env-steps/s: " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
           + f" on {smi}")
 

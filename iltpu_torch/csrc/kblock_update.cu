@@ -12,7 +12,7 @@
 // a few MFLOP, against about 6 MB of state read and written once plus the
 // K-stacked batch slabs (2 us at 3.35 TB/s): it is bound by operations.
 // Neither sets its time. A micro-update is one GAIL step, which runs on a
-// single block (its block-wide sums follow the block; ~0.27 ms), and 29
+// single block (its block-wide sums follow the block; gail_core.cuh), and 29
 // dependent SAC phases of one wave of small tiles each. The design against
 // that:
 //  - GAIL beside SAC, not before it: block 0 runs the GAIL steps of
@@ -24,8 +24,9 @@
 //    rewards of micro-update k go to slot k of a (K-1, B) slab in scratch
 //    (the last one to the `rewards` output, which so holds the last
 //    micro-update's rewards, as the other aux outputs do), so GAIL never
-//    waits for SAC and no cycle of waits can form. Once GAIL sets the pace,
-//    a launch takes about K GAIL steps plus the SAC phases after the last;
+//    waits for SAC and no cycle of waits can form. A GAIL step is several
+//    times shorter than a SAC step, so SAC sets the pace: a launch takes
+//    about one GAIL step plus K SAC steps;
 //  - a SAC phase is one panel copy, one fmaf chain and one barrier: the
 //    GEMM tile holds its whole-depth panels in dynamic shared memory
 //    (sac_core.cuh);
@@ -33,7 +34,8 @@
 //    resident while others spin; a grid of every block that can be
 //    co-resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SMs),
 //    and a refusal returned. The dynamic shared memory is the larger of the
-//    GAIL step's and the GEMM panels';
+//    GAIL step's working set and the GEMM panels'; the block's registers
+//    already hold it to one block an SM, so GAIL's share costs SAC nothing;
 //  - ONE block size for every phase: 512 threads, the GAIL step's own
 //    (gail::THREADS), because the order of its block-wide sums follows the
 //    block size; the per-update SAC kernel runs the same block size and the
@@ -53,7 +55,7 @@
 // (sac_update.cu's and gail_update.cu's), with the batch and noise pointers
 // at the bases of (K, B, ...) slabs and the SAC rewards pointer at the GAIL
 // rewards output; it updates the state in place. The scratch holds the SAC
-// buffers, the GAIL buffers, the rewards slab, then the sync words.
+// buffers, the rewards slab, then the sync words (GAIL needs none).
 
 #include "gail_core.cuh"
 #include "grid_exec.cuh"
@@ -87,7 +89,6 @@ __shared__ sac::Ptrs sac_ptrs;
 // Block 0: the K GAIL steps, each published when done. Its own function,
 // so its registers are allocated apart from the SAC blocks' code.
 __device__ __noinline__ void gail_block(const KArgs& k) {
-  extern __shared__ __align__(16) float smem[];
   const int B = k.ga.B, S = k.ga.S, A = k.ga.A;
   unsigned* flag = k.words + gx::BARRIER_WORDS;
   for (int i = 0; i < k.K; ++i) {
@@ -102,7 +103,7 @@ __device__ __noinline__ void gail_block(const KArgs& k) {
       gail_args = g;
     }
     __syncthreads();
-    gail::step(gail_args, smem);
+    gail::step(gail_args, gail::NoMarks{});
     gx::publish(flag, (unsigned)(i + 1));  // also keeps gail_args until all are done
   }
 }
@@ -139,8 +140,9 @@ __global__ void __launch_bounds__(THREADS) kblock_kernel(const __grid_constant__
 }
 
 // Dynamic shared memory, co-resident blocks per SM, and SMs.
-cudaError_t config(int D, int Hd, int kmax, size_t* smem, int* per_sm, int* sms) {
-  const size_t gail_bytes = gail::smem_bytes(D, Hd), gemm_bytes = sac::gemm_smem_bytes(kmax);
+cudaError_t config(int B, int D, int Hd, int kmax, size_t* smem, int* per_sm, int* sms) {
+  if (!gail::fits(B, D, Hd)) return cudaErrorInvalidValue;
+  const size_t gail_bytes = gail::smem_bytes(B, D, Hd), gemm_bytes = sac::gemm_smem_bytes(kmax);
   *smem = gail_bytes > gemm_bytes ? gail_bytes : gemm_bytes;
   cudaError_t e = cudaFuncSetAttribute(kblock_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)*smem);
@@ -157,10 +159,10 @@ constexpr int SYNC_WORDS = gx::BARRIER_WORDS + gx::FLAG_WORDS;
 
 }  // namespace
 
-extern "C" long long iltpu_kblock_scratch_floats(int K, int B, int S, int A, int H, int Hd, int bce) {
+extern "C" long long iltpu_kblock_scratch_floats(int K, int B, int S, int A, int H) {
   sac::Scratch ss = {nullptr};
   sac::carve(ss, B, S, A, H);
-  return ss.used + gail::scratch_floats(B, S + A, Hd, bce) + (ll)(K - 1) * B + SYNC_WORDS;
+  return ss.used + (ll)(K - 1) * B + SYNC_WORDS;
 }
 
 extern "C" const char* iltpu_kblock_error(int e) { return cudaGetErrorString((cudaError_t)e); }
@@ -170,7 +172,7 @@ extern "C" const char* iltpu_kblock_error(int e) { return cudaGetErrorString((cu
 extern "C" int iltpu_kblock_grid(int B, int S, int A, int H, int Hd, int* per_sm, int* sms,
                                  long long* smem) {
   size_t bytes = 0;
-  const cudaError_t e = config(S + A, Hd, sac::gemm_depth(B, S, A, H), &bytes, per_sm, sms);
+  const cudaError_t e = config(B, S + A, Hd, sac::gemm_depth(B, S, A, H), &bytes, per_sm, sms);
   *smem = (long long)bytes;
   return (int)e;
 }
@@ -191,14 +193,12 @@ extern "C" int iltpu_kblock_update(void* const* sac_ptr, void* const* gail_ptr, 
   float* base = reinterpret_cast<float*>(scratch);
   sac::Scratch ss = {base};
   k.sf = sac::carve(ss, B, S, A, H);
-  gail::Scratch gs = {base + ss.used};
-  gail::carve(gs, k.ga, B, S + A, Hd, bce);
-  k.slab = base + ss.used + gs.used;
+  k.slab = base + ss.used;
   k.words = reinterpret_cast<unsigned*>(k.slab + (ll)(K - 1) * B);
 
   size_t smem = 0;
   int per_sm = 0, sms = 0;
-  cudaError_t e = config(S + A, Hd, kmax, &smem, &per_sm, &sms);
+  cudaError_t e = config(B, S + A, Hd, kmax, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   if (per_sm * sms < 2) return (int)cudaErrorCooperativeLaunchTooLarge;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);

@@ -7,9 +7,12 @@
   the reward of the policy batch from the UPDATED network.
 
 `gail_update` is the entry. On CUDA tensors it launches the hand-written
-kernel of `csrc/gail_update.cu` (built by nvcc at first use) and raises if
-the launch fails; on CPU tensors it runs `gail_update_plain`, the same
-explicit formulas in PyTorch, which the CPU tests pin to iltpu's autodiff.
+kernel of `csrc/gail_update.cu` (built by nvcc at first use; one block
+whose working set is in shared memory, so it takes inputs of up to 32
+features and widths up to 128, see `smem_bytes`) and raises if the launch
+fails or the shape does not fit; on CPU tensors it runs `gail_update_plain`,
+the same explicit formulas in PyTorch, which the CPU tests pin to iltpu's
+autodiff.
 
 The TPU kernel differentiates the penalty by tracing jax.grad inside the
 kernel; here its parameter gradient is derived by hand. For a row x with
@@ -30,6 +33,7 @@ The state is a dict of tensors updated IN PLACE:
 """
 
 import ctypes
+import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -157,14 +161,33 @@ def _bind(lib):
     """Set the C signatures once, so no pointer is cut to 32 bits."""
     if not hasattr(lib, "_typed"):
         lib.iltpu_gail_update.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
-            + [ctypes.c_void_p, ctypes.c_void_p]
+            [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
         )
         lib.iltpu_gail_update.restype = ctypes.c_int
-        lib.iltpu_gail_scratch_floats.argtypes = [ctypes.c_int] * 4
-        lib.iltpu_gail_scratch_floats.restype = ctypes.c_longlong
+        lib.iltpu_gail_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.iltpu_gail_smem_bytes.restype = ctypes.c_longlong
+        lib.iltpu_gail_smem_limit.argtypes = []
+        lib.iltpu_gail_smem_limit.restype = ctypes.c_longlong
         lib._typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def smem_bytes(B: int, D: int, Hd: int) -> int:
+    """The step's dynamic shared memory on the card (the batch rows, the
+    weights and 16 warps' partial gradients); raises NotImplementedError
+    where the kernel cannot take the shape: input D = S + A above 32, width
+    Hd above 128, D above 16 with Hd above 64, or more than a block's shared
+    memory (the plain version, on CPU tensors, takes any shape)."""
+    lib = _bind(build.load("gail_update"))
+    n, limit = lib.iltpu_gail_smem_bytes(B, D, Hd), lib.iltpu_gail_smem_limit()
+    if n == 0 or n > limit:
+        raise NotImplementedError(
+            f"the gail_update kernel cannot take batch {B}, input {D}, width {Hd}: it has "
+            f"no variant past input 32, width 128, or input 16 with width 64, and a block "
+            f"has {limit} bytes of shared memory (this shape needs {n or 'no variant'}); "
+            "ROADMAP.md, 'GAIL options'")
+    return n
 
 
 def state_tensors(st: Dict) -> List[torch.Tensor]:
@@ -210,6 +233,7 @@ def gail_update(
         raise ValueError(f"discriminator input {D} != state {S} + action {A}")
     operands.check("gail_update", ops, state_shapes(D, Hd, bool(st["sn"])) + [
         (B, S), (B, A), (B,), (B, S), (B, A), (B,), (B,)] + ([(B,)] if mix is not None else []))
+    smem_bytes(B, D, Hd)
     out = launch(_bind(build.load("gail_update")), h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp,
                  mix, torch.cuda.current_stream(p_s.device).cuda_stream)
     gail_update.launches += 1
@@ -218,21 +242,20 @@ def gail_update(
 
 def launch(lib, h: GAILHyper, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix, stream: int):
     """Pack the operands and call the library's C entry on `stream`;
-    raises if the launch failed. Outputs and scratch come from torch.empty."""
+    raises if the launch failed. Outputs come from torch.empty; the step
+    needs no scratch (its working set is in shared memory)."""
     B, S = p_s.shape
     A = p_a.shape[1]
-    D, Hd = st["p"][0].shape
-    bce = int(mix is None)
+    Hd = st["p"][0].shape[1]
     dev = p_s.device
     loss = torch.empty(1, device=dev)
     rewards = torch.empty(B, device=dev)
-    scratch = torch.empty(lib.iltpu_gail_scratch_floats(B, D, Hd, bce), device=dev)
     ptrs = state_pointers(st) + [t.data_ptr() for t in (e_s, e_a, e_w, p_s, p_a, p_w, eps_gp)]
     ptrs += [0 if mix is None else mix.data_ptr(), loss.data_ptr(), rewards.data_ptr()]
     rc = lib.iltpu_gail_update(
-        (ctypes.c_void_p * len(ptrs))(*ptrs), B, S, A, Hd, int(bool(st["sn"])), bce,
+        (ctypes.c_void_p * len(ptrs))(*ptrs), B, S, A, Hd, int(bool(st["sn"])), int(mix is None),
         REWARD_FUNCTIONS.index(h.reward_function),
-        h.grad_penalty, h.lr, h.weight_decay, h.entropy_bonus, scratch.data_ptr(), stream,
+        h.grad_penalty, h.lr, h.weight_decay, h.entropy_bonus, stream,
     )
     if rc != 0:
         raise RuntimeError(f"gail_update kernel launch failed with CUDA error {rc}")

@@ -63,7 +63,7 @@ def _bind(lib):
             + [ctypes.c_void_p] * 2
         )
         lib.iltpu_kblock_update.restype = ctypes.c_int
-        lib.iltpu_kblock_scratch_floats.argtypes = [ctypes.c_int] * 7
+        lib.iltpu_kblock_scratch_floats.argtypes = [ctypes.c_int] * 5
         lib.iltpu_kblock_scratch_floats.restype = ctypes.c_longlong
         lib.iltpu_kblock_grid.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
         lib.iltpu_kblock_grid.restype = ctypes.c_int
@@ -110,6 +110,7 @@ def kblock_update(
     if device == "cpu":
         return kblock_update_plain(sac_hyper, gail_hyper, sac_st, disc_st, batches,
                                    expert_batches, noise)
+    gu.smem_bytes(B, D, Hd)  # raises where the GAIL step cannot take the shape
     aux = launch(_bind(build.load("kblock_update")), sac_hyper, gail_hyper, sac_st, disc_st,
                  batches, expert_batches, noise, torch.cuda.current_stream(ops[0].device).cuda_stream)
     kblock_update.launches += 1
@@ -140,13 +141,13 @@ def launch(lib, sac_hyper, gail_hyper, sac_st, disc_st, batches, expert_batches,
     K, B, S = batches["states"].shape
     A = batches["actions"].shape[2]
     H = sac_st["a"][0].shape[1]
-    D, Hd = disc_st["p"][0].shape
+    Hd = disc_st["p"][0].shape[1]
     mix = noise.get("mix")
     bce = int(mix is None)
     dev = batches["states"].device
     loss, alpha = torch.empty(1, device=dev), torch.empty(1, device=dev)
     rewards, lp, min_q = (torch.empty(B, device=dev) for _ in range(3))
-    scratch = torch.empty(lib.iltpu_kblock_scratch_floats(K, B, S, A, H, Hd, bce), device=dev)
+    scratch = torch.empty(lib.iltpu_kblock_scratch_floats(K, B, S, A, H), device=dev)
     tb, eb = batches, expert_batches
     sac_ptrs = [t.data_ptr() for t in su.state_tensors(sac_st)] + [
         t.data_ptr() for t in (tb["states"], tb["actions"], rewards, tb["next_states"],

@@ -1,25 +1,36 @@
-"""Where the time of one SAC update goes on the card, phase by phase.
+"""Where the time of one SAC update or one GAIL step goes on the card,
+phase by phase.
 
-    python -m iltpu_torch.profile_phases
+    python -m iltpu_torch.profile_phases        # the SAC update
+    python -m iltpu_torch.profile_phases gail   # the GAIL step
 
-Needs one CUDA card. It builds `csrc/sac_phases.cu` (the update of
+Needs one CUDA card. The SAC mode builds `csrc/sac_phases.cu` (the update of
 `csrc/sac_update.cu` with a timestamp after each phase's barrier), runs a
 full-width update (pointmass: state 5, action 2; batch 256, width 256) five
 times on a fresh state, and prints one JSON line: the median microseconds
 of each of the 29 phases (barrier included) and of the whole kernel, and
-the time of one bare barrier crossing over every block, then the card's
-name and power limit.
+the time of one bare barrier crossing over every block. The GAIL mode
+builds `csrc/gail_phases.cu` (the step of `csrc/gail_update.cu` with a
+barrier and a timestamp after each of its six phases) and runs the bench
+configuration (BCE, spectral norm, AIRL, penalty 1; batch 256, width 64) at
+pointmass (state 5, action 2) and hopper (state 12, action 3) shapes, five
+steps each after a warm-up, printing one JSON line per shape: the median
+microseconds of each phase and of the step from its first stamp to its
+last. Both end with the card's name and power limit.
 """
 
 import ctypes
 import json
 import subprocess
+import sys
 
 import torch
 
 from iltpu_torch.models import SoftActor, TwinCritic
 from iltpu_torch.ops import build
+from iltpu_torch.ops import gail_update as gu
 from iltpu_torch.ops import sac_update as su
+from iltpu_torch.rewards import GAILDiscriminator
 from iltpu_torch.updates import SACLearner
 
 PHASES = (
@@ -30,6 +41,14 @@ PHASES = (
     "input grad L2", "action grad", "head backward", "actor grad L3", "actor grad L2",
     "actor grad L1", "actor AdamW", "temperature",
 )
+GAIL_PHASES = (
+    "state and batch to shared memory, sigma", "loss rows", "penalty rows",
+    "weight gradients, through sigma, AdamW", "power iteration", "reward rows",
+)
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
 
 
 def _bind(lib):
@@ -79,8 +98,7 @@ def phases(lib, dev, runs=5):
         t = stamps.tolist()
         rows.append([(t[i + 1] - t[i]) / 1e3 for i in range(len(PHASES))])
     rows = rows[1:]
-    median = lambda xs: sorted(xs)[len(xs) // 2]
-    return [median(col) for col in zip(*rows)], median([sum(r) for r in rows])
+    return [_median(col) for col in zip(*rows)], _median([sum(r) for r in rows])
 
 
 def barrier_us(lib, dev, n=2000):
@@ -100,20 +118,74 @@ def barrier_us(lib, dev, n=2000):
     return 1e3 * a.elapsed_time(b) / n, per_sm * sms
 
 
+def _bind_gail(lib):
+    if not hasattr(lib, "_typed"):
+        lib.iltpu_gail_phases_update.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 2)
+        lib.iltpu_gail_phases_update.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def gail_phases(lib, dev, S, A, B=256, Hd=64, runs=5):
+    """Median us of each phase and of the step over `runs` steps of the bench
+    configuration, each on the state the last one left."""
+    g = torch.Generator(device=dev).manual_seed(S)
+    h = gu.GAILHyper(1.0, 3e-5, 10.0, "AIRL", "BCE", 0.0)
+    st = GAILDiscriminator(S, A, hidden_size=Hd, spectral_norm=True, reward_function="AIRL",
+                           device=dev).init(g)
+    r = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    u = lambda n: torch.rand(n, generator=g, device=dev)
+    batch = [r(B, S), torch.tanh(r(B, A)), 1 + 0.5 * u(B), r(B, S), torch.tanh(r(B, A)),
+             1 + 0.5 * u(B), u(B)]
+    loss, rewards = torch.empty(1, device=dev), torch.empty(B, device=dev)
+    ptrs = gu.state_pointers(st) + [t.data_ptr() for t in batch]
+    ptrs += [0, loss.data_ptr(), rewards.data_ptr()]
+    ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    stamps = torch.zeros(len(GAIL_PHASES) + 1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = []
+    for _ in range(runs + 1):  # the first run warms up
+        rc = lib.iltpu_gail_phases_update(
+            ptrs, B, S, A, Hd, 1, 1, gu.REWARD_FUNCTIONS.index(h.reward_function), h.grad_penalty,
+            h.lr, h.weight_decay, h.entropy_bonus, stamps.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"profile_phases: GAIL launch failed with CUDA error {rc}")
+        torch.cuda.synchronize()
+        t = stamps.tolist()
+        rows.append([(t[i + 1] - t[i]) / 1e3 for i in range(len(GAIL_PHASES))])
+    rows = rows[1:]
+    return [_median(col) for col in zip(*rows)], _median([sum(r) for r in rows])
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_phases: CUDA is not available; it measures the card")
+    mode = sys.argv[1] if len(sys.argv) > 1 else "sac"
+    if mode not in ("sac", "gail"):
+        raise SystemExit(f"profile_phases: unknown mode {mode!r}; use sac or gail")
     dev = torch.device("cuda")
-    lib = _bind(build.load("sac_phases"))
-    per_phase, total = phases(lib, dev)
-    bar, blocks = barrier_us(lib, dev)
+    if mode == "sac":
+        lib = _bind(build.load("sac_phases"))
+        per_phase, total = phases(lib, dev)
+        bar, blocks = barrier_us(lib, dev)
+        print(json.dumps({
+            "update_us": total, "barrier_us": bar, "blocks": blocks,
+            "phases_us": {f"{i + 1:2d} {name}": round(t, 2) for i, (name, t) in
+                          enumerate(zip(PHASES, per_phase))},
+        }))
+    else:
+        lib = _bind_gail(build.load("gail_phases"))
+        for S, A, where in ((5, 2, "pointmass"), (12, 3, "hopper")):
+            per_phase, total = gail_phases(lib, dev, S, A)
+            print(json.dumps({
+                "shape": f"{where} S={S} A={A}", "step_us": total,
+                "smem_bytes": gu.smem_bytes(256, S + A, 64),
+                "phases_us": {f"{i} {name}": round(t, 2) for i, (name, t) in
+                              enumerate(zip(GAIL_PHASES, per_phase))},
+            }))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({
-        "update_us": total, "barrier_us": bar, "blocks": blocks,
-        "phases_us": {f"{i + 1:2d} {name}": round(t, 2) for i, (name, t) in
-                      enumerate(zip(PHASES, per_phase))},
-    }))
     print(smi)
 
 

@@ -4,8 +4,10 @@
 reward = (weighted kernel similarity to the expert batch) - (weighted
 self-similarity), summed over two Gaussian bandwidths that the first call
 sets by the weighted-median heuristic (agent<->expert and expert<->expert
-medians) and later calls keep. The reward goes through the row-sum kernel
-(`ops.gaussian_rowsum`), as iltpu's does on its accelerator.
+medians) and later calls keep. The reward is one launch of the row-sum
+kernel (`ops.gaussian_rowsum.gmmil_witness_reward`, centring and weight
+normalisation included), as iltpu's goes through its kernel on its
+accelerator.
 
 The carry holds the bandwidths and the `initialized` flag as tensors on the
 device. The host never reads the flag: a fresh carry (or one loaded from

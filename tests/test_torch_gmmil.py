@@ -1,7 +1,8 @@
 """The port's GMMIL path against iltpu's: the pairwise primitives
-(iltpu_torch/ops/pairwise.py vs iltpu/ops/pairwise.py), the row sums
-(iltpu_torch/ops/gaussian_rowsum.py, the plain twin of the CUDA kernel, vs
-iltpu's Pallas kernel in interpret mode), `GMMILDiscriminator.predict_reward`
+(iltpu_torch/ops/pairwise.py vs iltpu/ops/pairwise.py), the row sums and
+the fused reward (iltpu_torch/ops/gaussian_rowsum.py, the plain twins of the
+CUDA kernel's two entries, vs iltpu's Pallas kernel in interpret mode and
+vs each other), `GMMILDiscriminator.predict_reward`
 on its first and a later call, the trainer's `transition_core` against
 iltpu's non-fused update scan, and short CLI runs on the CPU. Inputs are
 made with numpy from a seed and handed to both."""
@@ -26,7 +27,8 @@ from iltpu.trainer import Trainer as JaxTrainer
 from iltpu_torch import convert
 from iltpu_torch.config import load_config
 from iltpu_torch.ops import pairwise as tpw
-from iltpu_torch.ops.gaussian_rowsum import gaussian_rowsum, gaussian_rowsum_plain, gmmil_witness_reward
+from iltpu_torch.ops.gaussian_rowsum import (
+    gaussian_rowsum, gaussian_rowsum_plain, gmmil_witness_reward, gmmil_witness_reward_plain)
 from iltpu_torch.rewards import GMMILDiscriminator
 from iltpu_torch.trainer import Trainer
 from test_torch_convert import assert_trees_close, jax_sac_tree
@@ -95,6 +97,42 @@ def test_rowsum_matches_pallas_kernel(nx, ny, d):
     got = gmmil_witness_reward(*_t(sa, esa, ws, ew, g1, g2))
     want = jax_witness(*(jnp.asarray(v) for v in (sa, esa, ws, ew, g1, g2)), interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("nx,ny,S,A,state_only", [
+    (37, 600, 5, 2, False), (5, 129, 2, 1, False), (64, 256, 12, 3, False), (33, 70, 12, 3, True),
+])
+def test_fused_reward_matches_pallas_and_two_calls(nx, ny, S, A, state_only):
+    """The fused entry's plain path (on CPU tensors) against iltpu's reward
+    through its kernel in interpret mode, and against the reward composed
+    from two calls of the single row-sum entry; the atoms are GMMIL's own
+    (state-action, or states alone)."""
+    td = GMMILDiscriminator(S, A, state_only=state_only)
+    s, a = _t(_rows(60, nx, S), _rows(61, nx, A))
+    es, ea = _t(_rows(62, ny, S, 1.5), _rows(63, ny, A, 1.5))
+    sa, esa = td._atoms(s, a), td._atoms(es, ea)
+    w, ew, g1, g2 = _t(_weights(64, nx), _weights(65, ny), np.float32(0.8), np.float32(3.1))
+    before = gmmil_witness_reward.launches
+    got = gmmil_witness_reward(sa, esa, w, ew, g1, g2)
+    assert gmmil_witness_reward.launches == before  # CPU tensors: the plain version
+    want = jax_witness(*(jnp.asarray(v.numpy()) for v in (sa, esa, w, ew, g1, g2)), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    w_norm, ew_norm = w / w.sum(), ew / ew.sum()
+    two_calls = w_norm * (gaussian_rowsum(sa, esa, ew_norm, g1, g2)
+                          - gaussian_rowsum(sa, sa, w_norm, g1, g2))
+    np.testing.assert_allclose(got.numpy(), two_calls.numpy(), **TOL)
+
+
+def test_fused_reward_on_cpu_counts_no_launch_and_refuses_mixed_devices():
+    sa, esa = _t(_rows(70, 16, 4), _rows(71, 24, 4))
+    w, ew = _t(_weights(72, 16), _weights(73, 24))
+    g1, g2 = torch.tensor(0.5), torch.tensor(2.0)
+    before = gmmil_witness_reward.launches
+    got = gmmil_witness_reward(sa, esa, w, ew, g1, g2)
+    assert gmmil_witness_reward.launches == before and got.shape == (16,)
+    assert torch.equal(got, gmmil_witness_reward_plain(sa, esa, w, ew, g1, g2))
+    with pytest.raises(ValueError, match="one device"):
+        gmmil_witness_reward(sa, esa, w, ew, g1.to("meta"), g2)
 
 
 def test_rowsum_refuses_mixed_devices():
