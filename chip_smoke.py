@@ -38,10 +38,27 @@ of JAX or `iltpu`. Phases, each printing its results:
    reward (one launch) against their plain versions at GMMIL's 256 x 256
    (D = 7 and 15) and at 256 x 10,001 expert rows (the y loop and a ragged
    edge), at rtol 1e-5 / atol 1e-6 (the sums run in another order);
+3d. the autograd SAC update (`training.sac_pallas=false`) against the SAC
+   kernel on the same state, batches and noise, at both shapes, min_alpha 0
+   and 0.05, one step and a chain of 8 (the step and chain tolerances, with
+   the named ill-conditioned AdamW elements of `compare`); its time an
+   update on the device (from a torch.profiler trace: `traced_ms`) and
+   host-paced beside the kernel's;
+3e. the autograd discriminator update + the updated discriminator's reward
+   (`training.disc_pallas=false`) against the GAIL kernel, BCE and Mixup,
+   pointmass, one step and a chain of 5; its time a step + reward;
 4. reference: the port's transition_core on the card against the same code
-   on the CPU (plain versions), same state and draws, 3 iterations x 8
-   updates, at 1e-4 / 1e-5: GAIL per update, GAIL with update_block=4 (two
-   K-blocked launches an iteration) and GMMIL;
+   on the CPU (plain versions and autograd), same state and draws, 3
+   iterations x 8 updates, at 1e-4 / 1e-5: GAIL per update, GAIL with
+   update_block=4 (two K-blocked launches an iteration), GMMIL; AdRIL, RED,
+   DRIL and SAC with the autograd SAC update (no launch); AdRIL and DRIL
+   with the SAC kernel (DRIL's BC auxiliary step writes the actor's AdamW
+   state in place just before each launch) and GAIL with the autograd
+   discriminator step (one SAC launch an update each); DRIL and RED
+   pretrained 50 iterations on the card first. A third run on the CPU with
+   the SAC steps in float64 arbitrates the SAC state: an element past the
+   tolerance between card and CPU passes, named, only where each is within
+   it of the float64 value;
 5. trainer: a GAIL-pointmass run through `iltpu_torch.trainer.Trainer` with
    512 envs, 4096 steps and ~3k updates at the default widths, with the
    launch counters set to 0 just before and checked against the update
@@ -50,9 +67,16 @@ of JAX or `iltpu`. Phases, each printing its results:
    iterations whose update count 16 divides, the per-update kernels the
    rest;
 5c. GMMIL-pointmass at the same size: one fused reward launch and one SAC
-   launch per update, no GAIL launch and no single row-sum launch.
+   launch per update, no GAIL launch and no single row-sum launch;
+5d. SQIL, AdRIL, DRIL and RED at the same size on the SAC kernel (DRIL and
+   RED pretrained for 1,000 iterations, cut from iltpu's 100,000): one SAC
+   launch an update and no other; SAC with the autograd update (iltpu's
+   default, `training.sac_pallas=false`, 2,048 steps): no launch; BC with
+   1,000 pretraining iterations (cut from 50,000) and its early exit: no
+   launch. Prints each one's steady env-steps/s and pretraining ms an
+   iteration.
 
-Then the three steady rates with the nvidia-smi line, one `kernels` JSON
+Then the steady rates and the pretraining times with the nvidia-smi line, one `kernels` JSON
 line, the nvidia-smi line, and as the last line {"ok": true, "device":
 {...}}. Any failure raises and exits non-zero, and without CUDA or without
 the package beside it the script exits 1 at once.
@@ -101,17 +125,24 @@ MOMENTS = {"a": ("am", "av", "ta"), "c": ("cm", "cv", "tc"), "la": ("lam", "lav"
 ILL_CONDITIONED = 100 * 1e-8  # sqrt(v_hat) below 100 eps
 
 
-def compare(name, got, want, tol, got_state=None, want_state=None):
+def compare(name, got, want, tol, got_state=None, want_state=None, labels=("kernel", "plain"),
+            reference=None):
     """Raise unless every element is within tol; return the max abs error
     and the max rel error (over elements where |plain| >= 1e-3).
 
-    The one exception is named, not hidden: a parameter element past tol
-    whose AdamW moments m and v agree at tol in both versions and whose
-    sqrt(v_hat) is below 100 eps. There the step m_hat / (sqrt(v_hat) + eps)
-    turns a rounding-level difference of the gradient into a visible
-    fraction of lr (on the first step it is lr sign(g)). At most 8 such
-    elements are allowed per comparison, and each is printed."""
+    Two exceptions are named, not hidden, at most 8 per comparison, each
+    printed:
+    - a parameter element past tol whose AdamW moments m and v agree at tol
+      in both versions and whose sqrt(v_hat) is below 100 eps. There the
+      step m_hat / (sqrt(v_hat) + eps) turns a rounding-level difference of
+      the gradient into a visible fraction of lr (on the first step it is
+      lr sign(g));
+    - given `reference` (the same leaves from a float64 run of the same
+      code from the same state, rounded to float32), an element where each
+      version is within tol of the float64 value: both are right to tol and
+      their roundings went opposite ways."""
     rtol, atol = tol
+    ref = dict(reference or ())
     worst, worst_rel, named, unexplained = 0.0, 0.0, [], []
     for (path, g), (_, w) in zip(got, want):
         if g.numel() == 0:
@@ -124,7 +155,13 @@ def compare(name, got, want, tol, got_state=None, want_state=None):
             worst_rel = max(worst_rel, float((err[big] / w.abs()[big]).max()))
         bad = (err > atol + rtol * w.abs()).flatten().nonzero().flatten().tolist()
         for i in bad:
-            what = f"{path} flat {i}: kernel {float(g.flatten()[i])!r} plain {float(w.flatten()[i])!r}"
+            gi, wi = float(g.flatten()[i]), float(w.flatten()[i])
+            what = f"{path} flat {i}: {labels[0]} {gi!r} {labels[1]} {wi!r}"
+            if path in ref:
+                r = float(ref[path].flatten()[i])
+                if all(abs(x - r) <= atol + rtol * abs(r) for x in (gi, wi)):
+                    named.append(f"{what}, float64 {r!r}: each within tol of it")
+                    continue
             key, _, j = path.rstrip("]").partition("[")
             if got_state is None or key not in MOMENTS:
                 unexplained.append(what)
@@ -137,15 +174,15 @@ def compare(name, got, want, tol, got_state=None, want_state=None):
             t = float(want_state[tk][0])
             sqrt_vhat = (v[1] / (1 - 0.999**t)) ** 0.5
             agree = all(abs(a - b) <= atol + rtol * abs(b) for a, b in (m, v))
-            entry = f"{what}, m {m[0]!r}/{m[1]!r}, sqrt(v_hat) {sqrt_vhat:.3g}"
+            entry = (f"{what}, m {m[0]!r}/{m[1]!r}, sqrt(v_hat) {sqrt_vhat:.3g}: an ill-conditioned "
+                     "AdamW step (moments agree)")
             (named if agree and sqrt_vhat < ILL_CONDITIONED else unexplained).append(entry)
     if unexplained or len(named) > 8:
         raise AssertionError(
             f"{name}: past rtol {rtol} atol {atol}: " + "; ".join((unexplained or named)[:8])
         )
     if named:
-        print(f"{name}: {len(named)} element(s) past rtol {rtol} atol {atol} only through "
-              f"an ill-conditioned AdamW step (moments agree): " + "; ".join(named))
+        print(f"{name}: {len(named)} element(s) past rtol {rtol} atol {atol}, named: " + "; ".join(named))
     return worst, worst_rel
 
 
@@ -196,7 +233,10 @@ def device_ms(fn, n=60):
     host to queue them all, so no pair of events brackets the device waiting
     for the host. (Where the queue of launches fills, the host waits for the
     device instead, and the device then never waits: the pairs still time
-    the device alone.)"""
+    the device alone, as long as a call's launches are few. A call of
+    hundreds of launches fills the queue within a few calls, and once the
+    sleep ends the device drains it and waits for the host: such calls are
+    timed by a trace, `traced_ms`.)"""
     import torch
 
     for _ in range(3):
@@ -218,7 +258,25 @@ def device_ms(fn, n=60):
     return times[n // 2]
 
 
-def sac_case(S, A, B, H, min_alpha, seed, dev):
+def traced_ms(fn, n=10):
+    """Device time of a call from a torch.profiler trace of n calls: the
+    union of its kernels' intervals, per call; and the kernels, memsets and
+    copies a call launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from iltpu_torch.profile_updates import busy_ms
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy, _ = busy_ms(prof)
+    return busy / n, sum(e.device_type.name == "CUDA" for e in prof.events()) / n
+
+
+def sac_case(S, A, B, H, min_alpha, seed, dev, n=5):
     import torch
     from iltpu_torch.models import SoftActor, TwinCritic
     from iltpu_torch.updates import SACLearner
@@ -243,7 +301,7 @@ def sac_case(S, A, B, H, min_alpha, seed, dev):
             "weights": torch.ones(B, device=dev), "absorbing": absorbing,
         }, torch.randn(B, A, generator=g, device=dev), torch.randn(B, A, generator=g, device=dev)
 
-    return learner.hyper, st, [batch() for _ in range(5)]
+    return learner.hyper, st, [batch() for _ in range(n)]
 
 
 def check_sac(S, A, min_alpha, dev, B=256, timed=True):
@@ -354,6 +412,92 @@ def check_gail(S, A, bce, dev, B=256, Hd=64, timed=True, **case):
     paced_ms = median_ms(lambda: gail_update(hyper, k_st, *args, mix))
     plain_ms = median_ms(lambda: gail_update_plain(hyper, p_st, *args, mix))
     return worst, (ms, paced_ms, plain_ms), (hyper, st, args, mix)
+
+
+SAC_AUX = ("log_probs", "Q_values", "alpha")
+
+
+def learner_of(hyper, S, A, H, dev):
+    """A SACLearner with `hyper`'s values, for the autograd update (its
+    modules' own weights are not read: the update takes the state's)."""
+    from iltpu_torch.models import SoftActor, TwinCritic
+    from iltpu_torch.updates import SACLearner
+
+    return SACLearner(SoftActor(S, A, H, device=dev), TwinCritic(S, A, H, device=dev),
+                      learning_rate=hyper.lr, weight_decay=hyper.weight_decay,
+                      discount=hyper.discount, entropy_target=hyper.entropy_target,
+                      polyak_factor=hyper.polyak, min_alpha=hyper.min_alpha)
+
+
+def check_autograd_sac(S, A, min_alpha, dev, timed=True):
+    """3d: the autograd SAC update (training.sac_pallas=false) against the
+    SAC kernel on the same state, batches and noise: one step, then a chain
+    of 8. Returns the worst error and (traced device ms, launches,
+    host-paced ms) an update."""
+    from iltpu_torch.ops.sac_update import sac_update
+
+    hyper, st, steps = sac_case(S, A, 256, 256, min_alpha, 1 + S, dev, n=8)
+    learner = learner_of(hyper, S, A, 256, dev)
+    worst = (0.0, 0.0)
+    for n, tol in ((1, TOL_STEP), (8, TOL_CHAIN)):
+        g_st, k_st = clone(st), clone(st)
+        for i in range(n):
+            b, e2, en = steps[i]
+            ga = learner.update(g_st, b, e2, en)
+            ka = sac_update(hyper, k_st, b, e2, en)
+        worst = worse(worst, compare(
+            f"autograd sac S={S} A={A} min_alpha={min_alpha} {n}-step",
+            [*leaves(g_st), *((k, ga[k]) for k in SAC_AUX)],
+            [*leaves(k_st), *((k, ka[k]) for k in SAC_AUX)], tol, g_st, k_st,
+            labels=("autograd", "kernel")))
+    if not timed:
+        return worst, None
+    b, e2, en = steps[0]
+    g_st = clone(st)
+    return worst, (*traced_ms(lambda: learner.update(g_st, b, e2, en)),
+                   median_ms(lambda: learner.update(g_st, b, e2, en)))
+
+
+def check_autograd_gail(S, A, bce, dev):
+    """3e: the autograd discriminator update (training.disc_pallas=false)
+    and the updated discriminator's reward against the GAIL kernel on the
+    same state, batches and draws: one step, then a chain of 5. Returns the
+    worst error and (traced device ms, launches, host-paced ms) a step +
+    reward."""
+    from iltpu_torch.ops.gail_update import gail_update
+    from iltpu_torch.rewards import GAILDiscriminator
+    from iltpu_torch.updates import AdversarialConfig, adversarial_imitation_update
+
+    hyper, st, steps = gail_case(S, A, 256, bce, 7 + S, dev)
+    disc = GAILDiscriminator(S, A, hidden_size=64, spectral_norm=bool(st["sn"]),
+                             reward_function=hyper.reward_function, device=dev)
+    cfg = AdversarialConfig(loss_function=hyper.loss_function, grad_penalty=hyper.grad_penalty,
+                            entropy_bonus=hyper.entropy_bonus, learning_rate=hyper.lr,
+                            weight_decay=hyper.weight_decay)
+
+    def autograd(g_st, args, mix):
+        e_s, e_a, e_w, p_s, p_a, p_w, eps_gp = args
+        loss = adversarial_imitation_update(
+            disc, g_st, {"states": p_s, "actions": p_a, "weights": p_w},
+            {"states": e_s, "actions": e_a, "weights": e_w}, cfg, eps_gp, mix)
+        return loss.reshape(1), disc.predict_reward(p_s, p_a, g_st)
+
+    worst = (0.0, 0.0)
+    for n, tol in ((1, TOL_STEP), (5, TOL_CHAIN)):
+        g_st, k_st = clone(st), clone(st)
+        for i in range(n):
+            args, mix = steps[i]
+            gl, gr = autograd(g_st, args, mix)
+            kl, kr = gail_update(hyper, k_st, *args, mix)
+        worst = worse(worst, compare(
+            f"autograd gail S={S} A={A} {hyper.loss_function} {n}-step",
+            [*leaves(g_st), ("loss", gl), ("rewards", gr)],
+            [*leaves(k_st), ("loss", kl), ("rewards", kr)], tol, g_st, k_st,
+            labels=("autograd", "kernel")))
+    args, mix = steps[0]
+    g_st = clone(st)
+    return worst, (*traced_ms(lambda: autograd(g_st, args, mix)),
+                   median_ms(lambda: autograd(g_st, args, mix)))
 
 
 # The GAIL step's other variants (inputs padded to 8, 16 or 32 features,
@@ -544,10 +688,65 @@ def check_rowsum(dev):
 GMMIL_ARGS = ["algorithm=GMMIL", "training.disc_pallas=false", "training.fused_update_scan=false"]
 
 
+def alg_args(alg, sac_pallas=True):
+    """The trainer's arguments for `alg` on the per-update body (no GAIL
+    kernel flags), with the SAC kernel or the autograd SAC update."""
+    return [f"algorithm={alg}", "training.disc_pallas=false", "training.fused_update_scan=false",
+            f"training.sac_pallas={str(sac_pallas).lower()}"]
+
+
+def disc_leaves(trainer):
+    """The discriminator state's float tensors, by path."""
+    import torch
+
+    st = trainer.disc_state
+    if trainer.algorithm == "GMMIL":
+        return gmmil_leaves(st)
+    if st is None:
+        return []
+    return [(k, t) for k, t in leaves(st) if t.dtype != torch.bool]
+
+
+def sync_disc(cpu, gpu):
+    """Copy the card trainer's discriminator state (DRIL's threshold and
+    RED's sigma included) to the CPU trainer."""
+    from iltpu_torch import convert
+
+    if gpu.algorithm == "GAIL":
+        convert.load_disc_tree_(cpu.disc_state, convert.disc_tree(gpu.disc_state))
+    elif gpu.algorithm == "DRIL":
+        convert.load_opt_tree_(cpu.disc_state, convert.opt_tree(gpu.disc_state))
+        cpu.dril_threshold = gpu.dril_threshold.cpu()
+    elif gpu.algorithm == "RED":
+        convert.load_red_tree_(cpu.disc_state, convert.red_tree(gpu.disc_state))
+
+
+def float64_sac(learner):
+    """The learner's autograd SAC update computed in float64 on a widened
+    copy of the state, rounded back into it: the arbiter of a difference
+    between the card and the CPU (`compare`'s `reference`)."""
+    update = type(learner).update
+
+    def wide_update(st, batch, eps2, eps_new):
+        wide = {k: [t.double() for t in v] if isinstance(v, list) else v.double()
+                for k, v in st.items()}
+        out = update(learner, wide, {k: v.double() for k, v in batch.items()}, eps2.double(),
+                     eps_new.double())
+        for (_, t), (_, w) in zip(leaves(st), leaves(wide)):
+            t.copy_(w)
+        return {k: out[k].float() for k in SAC_AUX}
+
+    return wide_update
+
+
 def check_against_cpu(dev, extra=()):
-    """transition_core on the card (kernels) against the CPU (plain), 3
-    iterations x 8 updates; returns the worst error and the launches the
-    card's run made."""
+    """transition_core on the card (kernels, or the autograd updates where
+    the flags say so) against the CPU (plain versions, autograd), 3
+    iterations x 8 updates, from one state (DRIL and RED pretrained for 50
+    iterations on the card first), with a third run on the CPU whose SAC
+    steps are computed in float64 as the arbiter of the SAC state (see
+    `compare`); returns the worst error and the launches the card's run
+    made."""
     import torch
     from iltpu_torch import convert
     from iltpu_torch.config import load_config
@@ -555,14 +754,18 @@ def check_against_cpu(dev, extra=()):
 
     args = [a for a in TRAINER_ARGS if not a.startswith(("num_envs", "steps", "memory"))]
     args += ["num_envs=4", "steps=300", "memory.size=1000", "training.batch_size=16",
+             "imitation.pretraining.iterations=50",
              f"output_dir={os.path.join(REPO, 'outputs', 'chip_smoke')}", *extra]
     out = os.path.join(REPO, "outputs", "chip_smoke")
     gpu = Trainer(load_config(args), out_dir=out)
     cpu = Trainer(load_config(args + ["platform=cpu"]), out_dir=out)
-    gmmil = gpu.algorithm == "GMMIL"
-    convert.load_sac_tree_(cpu.sac, convert.sac_tree(gpu.sac))
-    if not gmmil:
-        convert.load_disc_tree_(cpu.disc_state, convert.disc_tree(gpu.disc_state))
+    ref = Trainer(load_config(args + ["platform=cpu"]), out_dir=out)
+    ref.sac_pallas, ref.learner.update = False, float64_sac(ref.learner)
+    if gpu.algorithm in ("DRIL", "RED"):
+        gpu.pretrain_discriminator()
+    for t in (cpu, ref):
+        convert.load_sac_tree_(t.sac, convert.sac_tree(gpu.sac))
+        sync_disc(t, gpu)
     g = torch.Generator().manual_seed(11)
     S, A, n = cpu.state_size, cpu.action_size, 4
     worst = (0.0, 0.0)
@@ -575,20 +778,24 @@ def check_against_cpu(dev, extra=()):
         for key in ("replay", "expert"):  # raw integers, reduced modulo the limit
             noise[key] = torch.randint(0, 2**62, (8 * 16,), generator=g)
         c_aux = cpu.transition_core(it * n, *data, 8, noise=noise)
+        ref.transition_core(it * n, *data, 8, noise=noise)
         g_aux = gpu.transition_core(it * n, *[x.to(dev) for x in data], 8,
                                     noise={k: v.to(dev) for k, v in noise.items()})
         name = f"transition_core {' '.join(extra) or 'GAIL'} iteration {it}"
-        if gmmil:
-            disc = compare(f"{name} gmmil", gmmil_leaves(gpu.disc_state),
-                           gmmil_leaves(cpu.disc_state), TOL_CHAIN)
-        else:
-            disc = compare(f"{name} disc", leaves(gpu.disc_state), leaves(cpu.disc_state),
-                           TOL_CHAIN, gpu.disc_state, cpu.disc_state)
-        for part in (
-            compare(f"{name} sac", leaves(gpu.sac), leaves(cpu.sac), TOL_CHAIN, gpu.sac, cpu.sac),
-            disc,
+        parts = [
+            compare(f"{name} sac", leaves(gpu.sac), leaves(cpu.sac), TOL_CHAIN, gpu.sac, cpu.sac,
+                    reference=leaves(ref.sac)),
             compare(f"{name} aux", g_aux.items(), c_aux.items(), TOL_CHAIN),
-        ):
+        ]
+        if gpu.algorithm == "GMMIL":
+            parts.append(compare(f"{name} gmmil", gmmil_leaves(gpu.disc_state),
+                                 gmmil_leaves(cpu.disc_state), TOL_CHAIN))
+        elif gpu.disc_state is not None:
+            parts.append(compare(f"{name} disc", disc_leaves(gpu), disc_leaves(cpu), TOL_CHAIN,
+                                 gpu.disc_state, cpu.disc_state))
+        if gpu.algorithm == "AdRIL" and bool(gpu.relabel) != bool(cpu.relabel):
+            raise AssertionError(f"{name}: the balanced flip differs")
+        for part in parts:
             worst = worse(worst, part)
     return worst, {k: v - before[k] for k, v in counts().items()}
 
@@ -640,7 +847,8 @@ def schedule(cfg, K):
 def run_trainer(name, extra, expect):
     """One full-width trainer run through its normal entry, counters set to
     0 just before and read just after; `expect(trainer)` gives the counts
-    it must show. Returns (counts, steady env-steps/s)."""
+    it must show. Returns (counts, steady env-steps/s or None for BC's
+    early exit, pretraining ms per iteration or None)."""
     import numpy as np
     import torch
     from iltpu_torch.config import load_config
@@ -656,23 +864,32 @@ def run_trainer(name, extra, expect):
     launches = counts()
     n = trainer.updates_done
     want = expect(trainer)
-    if launches != want or n == 0:
+    bc_exit = trainer.algorithm == "BC"
+    if launches != want or (n == 0) != bc_exit:
         raise AssertionError(f"{name}: launch counters {launches} != {want} ({n} updates)")
     m = trainer.metrics
     if not np.isfinite(score) or not all(np.isfinite(r).all() for r in m["test_returns"]):
         raise AssertionError(f"{name}: non-finite score {score} or returns {m['test_returns']}")
-    state = [*leaves(trainer.sac)]
-    state += gmmil_leaves(trainer.disc_state) if trainer.algorithm == "GMMIL" else [*leaves(trainer.disc_state)]
-    for path, t in state:
+    for path, t in [*leaves(trainer.sac), *disc_leaves(trainer)]:
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{name}: non-finite trainer state {path}")
+    cfg = trainer.cfg
+    iters = cfg.bc_pretraining.iterations if bc_exit else cfg.imitation.get("pretraining", {}).get("iterations")
+    pre_ms = None
+    if "pre_training_time" in m:
+        pre_ms = 1e3 * m["pre_training_time"] / iters
+        print(f"trainer {name}: pretraining {iters} iterations in {m['pre_training_time']:.2f} s, "
+              f"{pre_ms:.4f} ms an iteration" + ("" if bc_exit else
+                                                 " (the threshold or sigma after it included)"))
+    print(f"trainer {name}: {trainer.step_done} env steps, {n} updates, {launches}, {wall:.2f} s "
+          f"wall, score {score:.4f}, eval returns {[round(r, 3) for r in m['test_returns'][-1]]}")
+    if bc_exit:
+        return launches, None, pre_ms
     marks = m["steady_marks"]
     windows = [(b[0] - a[0]) / (b[1] - a[1]) for a, b in zip(marks, marks[1:])]
     steady = m["steady_env_steps"] / m["steady_time"]
-    print(f"trainer {name}: {trainer.step_done} env steps, {n} updates, {launches}, {wall:.2f} s "
-          f"wall, score {score:.4f}, eval returns {[round(r, 3) for r in m['test_returns'][-1]]}")
     print(f"trainer {name}: steady {steady:.1f} env-steps/s (windows {[round(w, 1) for w in windows]})")
-    return launches, steady
+    return launches, steady, pre_ms
 
 
 def ptxas_report(log):
@@ -798,11 +1015,38 @@ def main():
     results[("rowsum", "pointmass")] = rowsum[("gmmil_witness_reward", 256, 256, 7)]
     torch.cuda.synchronize()
 
-    # 4. the whole update path against the CPU, on each of the three paths
+    # 3d. the autograd SAC update against the SAC kernel
+    for S, A, where in ((5, 2, "pointmass"), (12, 3, "hopper")):
+        err, times = (0.0, 0.0), None
+        for min_alpha in (0.0, 0.05):
+            e, t = check_autograd_sac(S, A, min_alpha, dev, timed=not min_alpha)
+            err, times = worse(err, e), times or t
+        print(f"autograd sac {where} S={S} A={A} vs the SAC kernel, 1 step and a chain of 8, "
+              f"min_alpha 0 and 0.05: max_abs_err {err[0]:.3g}, max_rel_err {err[1]:.3g}; "
+              f"{times[0]:.4f} ms an update on the device (traced, {times[1]:.1f} launches), "
+              f"{times[2]:.4f} ms host-paced (the kernel: {results[('sac', where)][1]:.4f} on the "
+              f"device, {results[('sac', where)][2]:.4f} host-paced)")
+    # 3e. the autograd discriminator update + reward against the GAIL kernel
+    for bce in (True, False):
+        err, times = check_autograd_gail(5, 2, bce, dev)
+        print(f"autograd gail pointmass {'BCE' if bce else 'Mixup'} vs the GAIL kernel, 1 step and "
+              f"a chain of 5: max_abs_err {err[0]:.3g}, max_rel_err {err[1]:.3g}; {times[0]:.4f} ms "
+              f"a step + reward on the device (traced, {times[1]:.1f} launches), {times[2]:.4f} ms "
+              f"host-paced")
+    torch.cuda.synchronize()
+
+    # 4. the whole update path against the CPU, on each path
     for extra, want in (
         ((), launches_of(sac_update=24, gail_update=24)),
         (("training.update_block=4",), launches_of(kblock_update=6)),
         (tuple(GMMIL_ARGS), launches_of(sac_update=24, gmmil_witness_reward=24)),
+        (tuple(alg_args("AdRIL", False)), launches_of()),
+        (tuple(alg_args("AdRIL")), launches_of(sac_update=24)),
+        (tuple(alg_args("RED", False)), launches_of()),
+        (tuple(alg_args("DRIL", False)), launches_of()),
+        (tuple(alg_args("SAC", False)), launches_of()),
+        (tuple(alg_args("DRIL")), launches_of(sac_update=24)),  # BC aux in place before the kernel
+        (tuple(alg_args("GAIL")), launches_of(sac_update=24)),  # the autograd GAIL step
     ):
         err, launched = check_against_cpu(dev, extra)
         if launched != want:
@@ -821,18 +1065,34 @@ def main():
     def gmmil(t):
         return launches_of(sac_update=t.updates_done, gmmil_witness_reward=t.updates_done)
 
-    launches, rates = {}, {}
+    def sac_only(t):
+        return launches_of(sac_update=t.updates_done)
+
+    def none(t):
+        return launches_of()
+
+    pretrain = "imitation.pretraining.iterations=1000"
+    launches, rates, pre = {}, {}, {}
     for name, extra, expect, kernels in (
         ("gail", (), per_update, ("sac_update", "gail_update")),
         ("gail_kblock16", ("training.update_block=16",), blocked, ("kblock_update",)),
         ("gmmil", tuple(GMMIL_ARGS), gmmil, ("gaussian_rowsum", "gmmil_witness_reward")),
+        ("sqil", tuple(alg_args("SQIL")), sac_only, ()),
+        ("adril", tuple(alg_args("AdRIL")), sac_only, ()),
+        ("dril", (*alg_args("DRIL"), pretrain), sac_only, ()),
+        ("red", (*alg_args("RED"), pretrain), sac_only, ()),
+        ("sac_autograd", (*alg_args("SAC", False), "steps=2048", "training.timing_skip_steps=1024"),
+         none, ()),
+        ("bc", (*alg_args("BC", False), "bc_pretraining.iterations=1000"), none, ()),
     ):
-        counted, rates[name] = run_trainer(name, extra, expect)
+        counted, rates[name], pre[name] = run_trainer(name, extra, expect)
         launches.update({k: counted[k] for k in kernels})
     # the row-sum kernel's launches on its path: both of its entries
     launches["gaussian_rowsum"] += launches.pop("gmmil_witness_reward")
-    print("trainer steady env-steps/s: " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
-          + f" on {smi}")
+    print("trainer steady env-steps/s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rates.items() if v is not None) + f" on {smi}")
+    print("trainer pretraining ms an iteration: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in pre.items() if v is not None) + f" on {smi}")
 
     # the kernels line: main-path shapes (pointmass), launches from each kernel's path
     rows = []

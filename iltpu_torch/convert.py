@@ -11,6 +11,10 @@ only unravels optax's flat moments (`ravel_pytree`) and reads the counts:
     alpha_count (ints)}
   discriminator tree: {params, mu, nu: {"g": {"layers": ({"w", "b"[, "u",
     "v"]}, ...)}}, count (int)}
+  optimised MLP tree (DRIL's actor-shaped discriminator): {params, mu, nu:
+    {"layers": ({"w", "b"}, ...)}, count (int)}
+  RED tree: the optimised MLP tree of the predictor, plus target:
+    {"layers": ...}, sigma_1 (float32 0-d), sigma_set (bool 0-d)
 
 `load_*_` copy a tree into an existing state in place (so modules that
 share the state's tensors see the values); `*_tree` read a state out.
@@ -100,3 +104,32 @@ def disc_tree(st: Dict) -> Dict:
         "nu": layers(st["v"], st["snv"]),
         "count": int(st["t"][0]),
     }
+
+
+@torch.no_grad()
+def load_opt_tree_(st: Dict, tree: Dict) -> None:
+    for key, name in (("p", "params"), ("m", "mu"), ("v", "nu")):
+        _copy_(st[key], _layers(tree[name]))
+    _copy_([st["t"]], [tree["count"]])
+
+
+def opt_tree(st: Dict) -> Dict:
+    out = {name: _tree([_np(t) for t in st[key]]) for key, name in (("p", "params"), ("m", "mu"), ("v", "nu"))}
+    out["count"] = int(st["t"][0])
+    return out
+
+
+@torch.no_grad()
+def load_red_tree_(st: Dict, tree: Dict) -> None:
+    load_opt_tree_(st, tree)
+    _copy_(st["target"], _layers(tree["target"]))
+    st["sigma_1"].fill_(float(tree["sigma_1"]))
+    st["sigma_set"].fill_(bool(tree["sigma_set"]))
+
+
+def red_tree(st: Dict) -> Dict:
+    out = opt_tree(st)
+    out["target"] = _tree([_np(t) for t in st["target"]])
+    out["sigma_1"] = _np(st["sigma_1"])
+    out["sigma_set"] = bool(st["sigma_set"])
+    return out

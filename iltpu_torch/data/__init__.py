@@ -5,6 +5,7 @@ from iltpu_torch.data.replay import (
     replay_from_transitions,
     replay_init,
     replay_sample,
+    replay_transfer,
 )
 from iltpu_torch.data.synthetic import random_d4rl_dataset
 
@@ -16,4 +17,5 @@ __all__ = [
     "replay_from_transitions",
     "replay_init",
     "replay_sample",
+    "replay_transfer",
 ]

@@ -135,6 +135,25 @@ def replay_append_batch(
     return rs
 
 
+def replay_transfer(dst: ReplayState, src: ReplayState) -> ReplayState:
+    """Prefill: append every row of `src` (an expert buffer, already
+    absorbing-wrapped, so copied verbatim) into `dst` with weight 1, in
+    place; rows past dst's size go to the spare row. Every episode end in
+    src counts as a trajectory."""
+    n = src.size
+    count = min(n, dst.size)
+    offsets = torch.arange(n, device=dst.idx.device)
+    write_idx = torch.where(offsets < count, (dst.idx + offsets) % dst.size, dst.size)
+    for k in COLUMNS:
+        getattr(dst, k)[write_idx] = src.rows(k)
+    dst.weights[write_idx] = 1.0
+    dst.full = dst.full | (dst.idx + count >= dst.size)
+    dst.idx = (dst.idx + count) % dst.size
+    dst.num_trajectories = dst.num_trajectories + (
+        (src.rows("terminals") > 0) | (src.rows("timeouts") > 0)).sum()
+    return dst
+
+
 def sample_limit(rs: ReplayState) -> torch.Tensor:
     """Raw sample integers are uniform on [0, limit)."""
     return torch.where(rs.full, rs.size - 1, torch.clamp_min(rs.idx - 1, 1))

@@ -1,15 +1,16 @@
 """Twin Q-networks: the port of `iltpu/models/critic.py`.
 
 The two critics are held as ONE set of (2, ...)-stacked parameters, as in
-iltpu, so both run as batched products and convert leaf for leaf.
+iltpu, so both run as batched products and convert leaf for leaf. Any
+depth and activation; the SAC kernel takes depth 2 with relu.
 """
 
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from iltpu_torch.models.fcnn import _GAINS, orthogonal
+from iltpu_torch.models.fcnn import _ACTIVATIONS, _GAINS, orthogonal
 
 
 class TwinCritic(nn.Module):
@@ -24,7 +25,7 @@ class TwinCritic(nn.Module):
         device=None,
     ):
         super().__init__()
-        assert activation == "relu", "the port's critic supports relu only"
+        assert activation in _ACTIVATIONS, f"unsupported activation {activation}"
         self.activation = activation
         self.depth = depth
         self.dims = (state_size + action_size, *([hidden_size] * depth), 1)
@@ -55,20 +56,26 @@ class TwinCritic(nn.Module):
             b.zero_()
 
     def forward(
-        self, state: torch.Tensor, action: torch.Tensor
+        self, state: torch.Tensor, action: torch.Tensor,
+        params: Optional[Sequence[torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Both critics on the rows [state, action] -> (q1, q2)."""
+        """Both critics on the rows [state, action] -> (q1, q2), with the
+        stacked leaves `params` (the module's own when None)."""
+        if params is None:
+            params = [p for wb in zip(self.weights, self.biases) for p in wb]
+        act = _ACTIVATIONS[self.activation]
         h = torch.cat([state, action], dim=-1)
-        n = len(self.weights)
+        n = len(params) // 2
         for k in range(n):
-            h = torch.matmul(h, self.weights[k]) + self.biases[k][:, None, :]
+            h = torch.matmul(h, params[2 * k]) + params[2 * k + 1][:, None, :]
             if k < n - 1:
-                h = torch.relu(h)
+                h = act(h)
         return h[0, :, 0], h[1, :, 0]
 
 
 @torch.no_grad()
 def polyak_update(params: List[torch.Tensor], target: List[torch.Tensor], polyak_factor: float) -> None:
-    """target <- rho * target + (1 - rho) * online, in place."""
-    for t, p in zip(target, params):
-        t.copy_(polyak_factor * t + (1.0 - polyak_factor) * p)
+    """target <- rho * target + (1 - rho) * online, in place (multi-tensor
+    ops, the same formula per element)."""
+    torch._foreach_mul_(target, polyak_factor)
+    torch._foreach_add_(target, torch._foreach_mul(params, 1.0 - polyak_factor))

@@ -40,7 +40,7 @@ import torch
 
 from iltpu_torch.models.distributions import softplus
 from iltpu_torch.ops import build, operands
-from iltpu_torch.ops.sac_update import adam_step_
+from iltpu_torch.ops.sac_update import adamw_
 
 REWARD_FUNCTIONS = ("GAIL", "AIRL", "FAIRL")
 LOSS_FUNCTIONS = ("BCE", "Mixup")
@@ -135,10 +135,7 @@ def gail_update_plain(
     else:
         gW1, gW2 = gWt1, gw2t[:, None]
 
-    t = st["t"] + 1.0
-    for p, gr, m, v in zip(st["p"], (gW1, gb1, gW2, gb2), st["m"], st["v"]):
-        adam_step_(p, gr, m, v, t, h.lr, h.weight_decay)
-    st["t"].copy_(t)
+    adamw_(st["p"], [gW1, gb1, gW2, gb2], st["m"], st["v"], st["t"], h.lr, h.weight_decay)
 
     # power iteration on the updated weights, from the old u: v first, then u
     if st["sn"]:

@@ -31,6 +31,7 @@ from typing import Dict, List, NamedTuple
 
 import torch
 
+from iltpu_torch.models.critic import polyak_update
 from iltpu_torch.models.distributions import LOG2, LOG2PI, softplus
 from iltpu_torch.ops import build, operands
 
@@ -56,13 +57,30 @@ class SACHyper(NamedTuple):
 # ---------------------------------------------------------------- plain
 
 
-def adam_step_(p, g, m, v, t, lr, wd):
-    """One AdamW step in place (optax.adamw; b**t as exp(t log b))."""
-    m.copy_(ADAM_B1 * m + (1.0 - ADAM_B1) * g)
-    v.copy_(ADAM_B2 * v + (1.0 - ADAM_B2) * g * g)
-    mh = m / (1.0 - torch.exp(t * LOG_B1))
-    vh = v / (1.0 - torch.exp(t * LOG_B2))
-    p.copy_(p - lr * (mh / (torch.sqrt(vh) + ADAM_EPS) + wd * p))
+@torch.no_grad()
+def adamw_(params, grads, m, v, count, lr, wd):
+    """One AdamW step over lists of leaves in place (optax.flatten(adamw) is
+    the same elementwise math; b**t as exp(t log b)), advancing the (1,)
+    step clock `count`. Multi-tensor ops: a dozen launches whatever the
+    number of leaves, each element computed as
+      m <- b1 m + (1 - b1) g,  v <- b2 v + ((1 - b2) g) g,
+      p <- p - lr (m_hat / (sqrt(v_hat) + eps) + wd p)."""
+    t = count + 1.0
+    bc1 = (1.0 - torch.exp(t * LOG_B1)).reshape(())
+    bc2 = (1.0 - torch.exp(t * LOG_B2)).reshape(())
+    torch._foreach_mul_(m, ADAM_B1)
+    torch._foreach_add_(m, torch._foreach_mul(grads, 1.0 - ADAM_B1))
+    torch._foreach_mul_(v, ADAM_B2)
+    torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(grads, 1.0 - ADAM_B2), grads))
+    denom = torch._foreach_div(v, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, ADAM_EPS)
+    step = torch._foreach_div(torch._foreach_div(m, bc1), denom)
+    if wd:
+        torch._foreach_add_(step, torch._foreach_mul(params, wd))
+    torch._foreach_mul_(step, lr)
+    torch._foreach_sub_(params, step)
+    count.copy_(t)
 
 
 def _log_prob(ls, eps, z):
@@ -142,9 +160,7 @@ def sac_update_plain(
     min_q = torch.minimum(q[0], q[1])
     dq = (2.0 / B) * w[None, :] * (q - td[None, :])
     cg = _twin_bwd(dq, ccache, cw)
-    tc = st["tc"] + 1.0
-    for i in range(6):
-        adam_step_(cw[i], cg[i], st["cm"][i], st["cv"][i], tc, h.lr, h.weight_decay)
+    adamw_(cw, cg, st["cm"], st["cv"], st["tc"], h.lr, h.weight_decay)
 
     # actor step against the UPDATED critic
     o1, acache = _mlp_fwd(s, aw)
@@ -166,20 +182,13 @@ def sac_update_plain(
     g_ls = c_ent * (-1.0 + 2.0 * sg1 * eps_new * tanh_z) + da * sech2 * sg1 * eps_new
     g_ls = g_ls * ((l_raw >= -20.0) & (l_raw <= 2.0))
     ag = _mlp_bwd(torch.cat([g_mu, g_ls], -1), acache, aw)
-    ta = st["ta"] + 1.0
-    for i in range(6):
-        adam_step_(aw[i], ag[i], st["am"][i], st["av"][i], ta, h.lr, h.weight_decay)
+    adamw_(aw, ag, st["am"], st["av"], st["ta"], h.lr, h.weight_decay)
 
     # temperature: plain Adam on the pre-update log_alpha, with the RAW alpha
     g_la = -(w * (1.0 - ab) * (lp1 + h.entropy_target)).sum(0, keepdim=True) / B * alpha_raw
-    tal = st["tal"] + 1.0
-    adam_step_(st["la"], g_la, st["lam"], st["lav"], tal, h.alpha_lr, 0.0)
+    adamw_([st["la"]], [g_la], [st["lam"]], [st["lav"]], st["tal"], h.alpha_lr, 0.0)
 
-    for i in range(6):
-        tw[i].copy_(h.polyak * tw[i] + (1.0 - h.polyak) * cw[i])
-    st["ta"].copy_(ta)
-    st["tc"].copy_(tc)
-    st["tal"].copy_(tal)
+    polyak_update(cw, tw, h.polyak)
     return {"log_probs": lp1, "Q_values": min_q, "alpha": alpha_pre[0]}
 
 

@@ -3,8 +3,10 @@
     python -m iltpu_torch.profile_updates
 
 Needs one CUDA card. For the GAIL per-update, GAIL update_block=16 and
-GMMIL paths it builds a trainer at full width (chip_smoke's configuration:
-pointmass, batch 256, widths 256 and 64), fills the replay with 4 x 512
+GMMIL paths, AdRIL, DRIL and RED on the SAC kernel, and SAC with the
+autograd update (`training.sac_pallas=false`), it builds a trainer at full
+width (chip_smoke's configuration: pointmass, batch 256, widths 256 and 64;
+no pretraining), fills the replay with 4 x 512
 transitions, runs one warm-up iteration of 16 updates, then:
 
 - times three iterations of 128 updates on the host clock, each twice:
@@ -49,10 +51,14 @@ PATHS = {
     "gail_kblock16": ["algorithm=GAIL", "training.disc_pallas=true",
                       "training.fused_update_scan=true", "training.update_block=16"],
     "gmmil": ["algorithm=GMMIL"],
+    "adril": ["algorithm=AdRIL"],
+    "dril": ["algorithm=DRIL"],
+    "red": ["algorithm=RED"],
+    "sac_autograd": ["algorithm=SAC", "training.sac_pallas=false"],
 }
 
 
-def _busy(prof):
+def busy_ms(prof):
     """(busy ms, window ms) of the card over the profiled window."""
     events = list(prof.events())
     kernels = sorted((e.time_range.start, e.time_range.end) for e in events
@@ -97,7 +103,7 @@ def profile(name, extra, out_dir):
     with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t.transition_core(step + N, *data, 64)
         torch.cuda.synchronize()
-    busy, window = _busy(prof)
+    busy, window = busy_ms(prof)
     device = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
     counts = {"kernels": 0, "memsets": 0, "copies": 0}

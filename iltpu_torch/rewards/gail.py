@@ -4,10 +4,14 @@ An MLP over (state, action) with optional spectral norm on every layer, and
 the GAIL -log(1-D), AIRL log D - log(1-D) and FAIRL e^h (-h) reward heads
 with their 1e-6 guard. As in iltpu (and its reference), the discriminator
 takes no dropout, although the GAIL config carries dropout keys. AIRL
-reward shaping, subtracting log pi and state-only input are not ported yet.
+reward shaping, subtracting log pi and state-only input are not ported yet
+(ROADMAP.md, 'GAIL options').
+
+Its state (see ops.gail_update) is shared by both updates: the GAIL kernel
+and the autograd `updates.adversarial.adversarial_imitation_update`.
 """
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -66,9 +70,26 @@ class GAILDiscriminator(nn.Module):
             "snm": zeros(sn), "snv": zeros(sn),
         }
 
-    def forward(self, state: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
-        """Discriminator logit f."""
-        return self.g(torch.cat([state, action], dim=-1))[..., 0]
+    def forward(
+        self, state: torch.Tensor, action: torch.Tensor,
+        params: Optional[Sequence[torch.Tensor]] = None,
+        sn: Optional[Sequence[torch.Tensor]] = None,
+    ) -> torch.Tensor:
+        """Discriminator logit f, with the leaves `params` and spectral-norm
+        vectors `sn` (the module's own, which its `init` state shares, when
+        None)."""
+        return self.g.apply(torch.cat([state, action], dim=-1), params, sn=sn)[..., 0]
 
-    def predict_reward(self, state: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
-        return reward_head(self.forward(state, action), self.reward_function)
+    @torch.no_grad()
+    def predict_reward(self, state: torch.Tensor, action: torch.Tensor,
+                       st: Optional[Dict] = None) -> torch.Tensor:
+        """The reward head on the logits of state `st` (the module's own
+        when None)."""
+        f = self.forward(state, action) if st is None else self.forward(state, action, st["p"], st["sn"])
+        return reward_head(f, self.reward_function)
+
+    def update_sn(self, st: Dict) -> None:
+        """One power iteration on every layer of state `st`, in place (a
+        no-op without spectral norm); once per optimisation step."""
+        if self.g.spectral_norm:
+            self.g.update_spectral_norm(st["p"], st["sn"])

@@ -1,30 +1,42 @@
-"""Training orchestrator: the port of `iltpu/trainer.py` for the GAIL
-fused-update path (per update or K-blocked) and GMMIL on the SAC kernel.
+"""Training orchestrator: the port of `iltpu/trainer.py`.
 
 One iteration steps `num_envs` array envs on the device, appends the step to
 the replay ring (absorbing wrap inline), takes ONE bulk sample of
 n_updates x batch rows from the replay and from the expert buffer, then
-runs n_updates x (reward -> SAC kernel) on the flat update states, and
-samples the next actions from the freshly updated actor. Every tensor stays
-on the device; the host reads only the episode ends once per iteration. On
-the card the updates are the hand-written kernels of `iltpu_torch/csrc/`;
-on the CPU (platform=cpu) their plain versions. The reward is:
+runs n_updates per-update bodies, and samples the next actions from the
+freshly updated actor. Every tensor stays on the device; the host reads
+only the episode ends once per iteration.
 
-- GAIL: the GAIL kernel's discriminator step + reward head. With
-  `training.update_block=K > 1`, an iteration whose n_updates K divides
-  runs n_updates / K launches of the K-blocked kernel (K x GAIL -> SAC in
-  one launch); the others run the per-update kernels, as iltpu does.
-- GMMIL: the MMD witness reward through the row-sum kernel, with the
-  bandwidths set on the first update.
+The per-update body follows iltpu's `update_fn`: the reward by algorithm
+-> optional expert mixing (`mix_expert_data=mixed_batch`, not for AdRIL)
+-> optional BC auxiliary step on the actor's own AdamW state -> the SAC
+step. The reward is:
 
-Entry points run on the card (`platform` null or gpu) and raise when CUDA
-is missing; `platform=cpu` selects the CPU. This slice supports exactly the
-kernel paths: training.sac_pallas true; for GAIL also disc_pallas and
-fused_update_scan true and the BCE or Mixup (alpha 1) configuration; for
-GMMIL disc_pallas and fused_update_scan false (iltpu refuses both, with a
-ValueError); no pipeline or host acting, env_backend=jax, no expert mixing
-or bc_aux_loss. Anything else raises NotImplementedError naming the
-ROADMAP.md item that will bring it.
+- GAIL/AIRL/FAIRL: a discriminator step, then the reward of the UPDATED
+  discriminator: the GAIL kernel (`training.disc_pallas=true`) or the
+  autograd `adversarial_imitation_update` (BCE, PUGAIL, Mixup). With
+  `training.fused_update_scan=true` and `training.update_block=K > 1`, an
+  iteration whose n_updates K divides runs n_updates / K launches of the
+  K-blocked kernel (K x GAIL -> SAC in one launch), as iltpu does.
+- GMMIL: the MMD witness reward through the row-sum kernel.
+- AdRIL/SQIL: the balanced (or half-batch) relabelling.
+- DRIL: +-1 from the dropout ensemble's uncertainty against its threshold.
+- RED: exp(-sigma_1 * the predictor's error).
+- SAC and BC: the env's reward.
+
+The SAC step is the SAC kernel (`training.sac_pallas=true`) or the autograd
+`SACLearner.update`; both update the same flat state. Before the loop:
+BC pretraining (and BC's early exit), DRIL's ensemble and RED's predictor
+pretraining, and the `prefill_memory` transfer, as plain Python loops.
+
+On the card the kernels of `iltpu_torch/csrc/` run; on the CPU
+(platform=cpu) their plain versions. Entry points run on the card
+(`platform` null or gpu) and raise when CUDA is missing. PWIL, the GAIL
+input options (shaping, log-pi, state-only, Mixup with alpha != 1),
+pipelined or host acting, the on-device loop, other env backends, data
+parallelism, checkpointing and the profiler window raise
+NotImplementedError naming the ROADMAP.md item that will bring them;
+kernel flags that iltpu refuses raise iltpu's ValueError.
 """
 
 import os
@@ -44,14 +56,33 @@ from iltpu_torch.data import (
     replay_from_transitions,
     replay_init,
     replay_sample,
+    replay_transfer,
 )
 from iltpu_torch.envs import make_env
 from iltpu_torch.models import SoftActor, TwinCritic
+from iltpu_torch.models.actor import DRIL_ENSEMBLE_SIZE
 from iltpu_torch.ops.gail_update import GAILHyper, gail_update
 from iltpu_torch.ops.kblock_update import kblock_update
 from iltpu_torch.ops.sac_update import sac_update
-from iltpu_torch.rewards import GAILDiscriminator, GMMILDiscriminator
-from iltpu_torch.updates import SACLearner
+from iltpu_torch.rewards import (
+    GAILDiscriminator,
+    GMMILDiscriminator,
+    REDDiscriminator,
+    init_relabeller,
+    mix_expert_agent_transitions,
+    resample_and_relabel,
+)
+from iltpu_torch.rewards.adril import round_of
+from iltpu_torch.updates import (
+    AdversarialConfig,
+    SACLearner,
+    actor_opt_state,
+    adversarial_imitation_update,
+    behavioural_cloning_update,
+    target_estimation_update,
+)
+
+TRAINABLE_DISCRIMINATORS = ("DRIL", "GAIL", "RED")
 
 
 def resolve_device(platform: Optional[str]) -> torch.device:
@@ -75,52 +106,54 @@ def _not_ported(what: str, item: str):
 
 
 def check_supported(cfg: DotDict) -> None:
-    """Raise for anything off this slice's paths: ValueError where iltpu
-    refuses the configuration too, NotImplementedError otherwise."""
+    """Raise for what the port cannot run: ValueError where iltpu refuses
+    the configuration too, NotImplementedError otherwise."""
     t, icfg, rcfg = cfg.training, cfg.imitation, cfg.reinforcement
     alg = cfg.algorithm
-    if alg == "GMMIL" and t.get("fused_update_scan"):
+    d = icfg.get("discriminator") or {}
+    if t.get("sac_pallas") and not all(
+        rcfg[n]["depth"] == 2 and rcfg[n]["activation"] == "relu" for n in ("actor", "critic")
+    ):
+        raise ValueError(
+            "training.sac_pallas=true requires depth-2 relu actor/critic MLPs without dropout "
+            f"or spectral norm (algorithm={alg})"
+        )
+    if t.get("disc_pallas") and not (
+        alg == "GAIL" and icfg.get("loss_function") in ("BCE", "Mixup")
+        and not d.get("reward_shaping") and not d.get("subtract_log_policy")
+        and not icfg.get("state_only") and d.get("depth") == 1 and d.get("activation") == "relu"
+        and icfg.get("mix_expert_data") == "none"
+    ):
+        raise ValueError(
+            "training.disc_pallas=true supports the BCE and Mixup GAIL configurations (depth-1 "
+            f"relu, no shaping/log-pi/state-only/mixing); got algorithm={alg}"
+        )
+    if t.get("fused_update_scan") and not (
+        alg == "GAIL" and t.get("sac_pallas") and t.get("disc_pallas") and not icfg.get("bc_aux_loss")
+        and cfg.parallel.get("data_axis") is None
+    ):
         raise ValueError(
             "training.fused_update_scan=true requires algorithm=GAIL with training.sac_pallas "
             "and training.disc_pallas, no bc_aux_loss, and a single-device (mesh-free) run"
         )
-    if alg == "GMMIL" and t.get("disc_pallas"):
-        raise ValueError(
-            "training.disc_pallas=true supports the BCE and Mixup GAIL configurations; "
-            f"got algorithm={alg}"
-        )
     checks = [
-        (alg in ("GAIL", "GMMIL"), f"algorithm={alg}", "Other algorithms"),
-        (t.get("sac_pallas") is True, "training.sac_pallas=false", "Autograd updates"),
+        (alg != "PWIL", f"algorithm={alg}", "Other algorithms"),
         (not t.get("pipeline") and not t.get("host_acting"),
          "training.pipeline/host_acting", "Pipelined and host acting"),
         (not t.get("on_device_loop"), "training.on_device_loop", "On-device loop"),
         (cfg.env_backend == "jax", f"env_backend={cfg.env_backend}", "Native hopper env"),
-        (icfg.get("mix_expert_data") == "none" and not icfg.get("bc_aux_loss"),
-         "expert mixing/bc_aux_loss", "Other algorithms"),
-        (all(rcfg[n]["depth"] == 2 and rcfg[n]["activation"] == "relu" for n in ("actor", "critic")),
-         "actor/critic other than depth-2 relu", "Autograd updates"),
-        (cfg.bc_pretraining.iterations == 0, "bc_pretraining", "Other algorithms"),
         (cfg.parallel.get("data_axis") is None, "parallel.data_axis", "Data parallel"),
         (cfg.checkpointing.interval == 0 and cfg.checkpointing.resume is None,
          "checkpointing", "Checkpoint and resume"),
         (not (cfg.get("profiling") or {}).get("trace_dir"), "profiling.trace_dir", "Tooling"),
     ]
     if alg == "GAIL":
-        d = icfg.get("discriminator") or {}
         checks += [
-            (t.get("disc_pallas") is True, "training.disc_pallas=false", "Autograd updates"),
-            (t.get("fused_update_scan") is True, "training.fused_update_scan=false",
-             "Autograd updates"),
-            (icfg.get("loss_function") in ("BCE", "Mixup"),
-             f"imitation.loss_function={icfg.get('loss_function')}", "GAIL options"),
             (icfg.get("loss_function") != "Mixup" or icfg.get("mixup_alpha") == 1,
              "imitation.mixup_alpha != 1", "GAIL options"),
             (not d.get("reward_shaping") and not d.get("subtract_log_policy")
              and not icfg.get("state_only"),
              "GAIL shaping/log-pi/state-only", "GAIL options"),
-            (d.get("depth") == 1 and d.get("activation") == "relu",
-             "a discriminator other than depth-1 relu", "GAIL options"),
         ]
     for ok, what, item in checks:
         if not ok:
@@ -193,14 +226,18 @@ class Trainer:
         self.sac = self.learner.init(self.gen)
         self.replay = replay_init(cfg.memory.size, S, A, icfg.absorbing, dev)
 
-        self.algorithm = cfg.algorithm
-        self.update_block = int(cfg.training.get("update_block", 1) or 1)
-        self.disc_hyper = None
-        if self.algorithm == "GMMIL":
+        t = cfg.training
+        self.sac_pallas = bool(t.get("sac_pallas"))
+        self.disc_pallas = bool(t.get("disc_pallas"))
+        self.fused_scan = bool(t.get("fused_update_scan"))
+        self.algorithm = alg = cfg.algorithm
+        self.update_block = int(t.get("update_block", 1) or 1)
+        self.disc = self.disc_state = self.disc_hyper = None
+        d = DotDict(icfg.get("discriminator") or {})
+        if alg == "GMMIL":
             self.disc = GMMILDiscriminator(S, A, state_only=icfg.state_only)
             self.disc_state = self.disc.init(dev)
-        else:
-            d = icfg.discriminator
+        elif alg == "GAIL":
             self.disc = GAILDiscriminator(
                 S, A,
                 reward_function=d.reward_function,
@@ -219,6 +256,34 @@ class Trainer:
                 loss_function=icfg.loss_function,
                 entropy_bonus=float(icfg.entropy_bonus),
             )
+            self.adv_cfg = AdversarialConfig(
+                loss_function=icfg.loss_function,
+                grad_penalty=float(icfg.grad_penalty),
+                entropy_bonus=float(icfg.entropy_bonus),
+                pos_class_prior=float(icfg.pos_class_prior),
+                nonnegative_margin=float(icfg.nonnegative_margin),
+                learning_rate=float(icfg.learning_rate),
+                weight_decay=float(icfg.weight_decay),
+            )
+        elif alg == "DRIL":
+            # the actor-shaped dropout ensemble, with an AdamW state of its own
+            self.disc = SoftActor(S, A, d.hidden_size, d.depth, d.activation,
+                                  input_dropout=d.input_dropout, dropout=d.dropout, device=dev)
+            self.disc.reset_parameters(self.gen)
+            p = self.disc.net.leaves()
+            self.disc_state = {"p": p, "m": [torch.zeros_like(x) for x in p],
+                               "v": [torch.zeros_like(x) for x in p],
+                               "t": torch.zeros(1, device=dev)}
+            self.dril_threshold = torch.zeros((), device=dev)
+        elif alg == "RED":
+            self.disc = REDDiscriminator(
+                S, A, state_only=icfg.state_only, hidden_size=d.hidden_size, depth=d.depth,
+                activation=d.activation, input_dropout=d.input_dropout, dropout=d.dropout,
+                reward_bandwidth_scale=icfg.reward_bandwidth_scale, device=dev,
+            )
+            self.disc_state = self.disc.init(self.gen)
+        elif alg == "AdRIL":
+            self.relabel = init_relabeller(dev)
 
         self.metrics = dict(
             train_steps=[], train_returns=[], test_steps=[], test_returns=[],
@@ -227,29 +292,38 @@ class Trainer:
         )
         self.score = []
         self._log_queue = []
+        self.step_done = self.updates_done = 0
 
     # ------------------------------------------------------------ updates
 
     def draw_noise(self, n_updates: int) -> Dict[str, torch.Tensor]:
         """Every per-update draw of one iteration, in bulk from the trainer's
-        generator (the replay and expert sample integers are drawn by
-        replay_sample when absent)."""
+        generator, each with a leading n_updates axis (the replay and expert
+        sample integers are drawn by replay_sample when absent): GAIL's
+        penalty interpolation `eps_gp` and Mixup draw `mix`, SAC's `eps2` and
+        `eps_new`, and the keep-masks of DRIL's five members for each layer
+        k that drops (`dril_mask<k>`, (n_updates, 5, B, width))."""
         B, A, g, dev = self.cfg.training.batch_size, self.action_size, self.gen, self.device
+        gail = self.algorithm == "GAIL"
         noise = {}
-        if self.disc_hyper is not None:
+        if gail:
             noise["eps_gp"] = torch.rand((n_updates, B), generator=g, device=dev)
         noise["eps2"] = torch.randn((n_updates, B, A), generator=g, device=dev)
         noise["eps_new"] = torch.randn((n_updates, B, A), generator=g, device=dev)
-        if self.disc_hyper is not None and self.disc_hyper.loss_function == "Mixup":
+        if gail and self.cfg.imitation.loss_function == "Mixup":
             noise["mix"] = torch.rand((n_updates, B), generator=g, device=dev)  # Beta(1, 1)
+        if self.algorithm == "DRIL":
+            masks = self.disc.net.draw_masks((n_updates, DRIL_ENSEMBLE_SIZE, B), g)
+            noise.update({f"dril_mask{k}": m for k, m in enumerate(masks) if m is not None})
         return noise
 
+    @torch.no_grad()
     def transition_core(
         self, step: int, obs, actions, rewards, next_obs, terminals, timeouts,
         n_updates: int, noise: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Ring append, then n_updates x (reward -> SAC step) on one bulk
-        sample. `noise` injects eps_gp, eps2, eps_new, mix and the raw
+        """Ring append, then n_updates per-update bodies on one bulk
+        sample. `noise` injects the draws of `draw_noise` and the raw
         replay and expert sample integers (`replay`, `expert`)."""
         n = obs.shape[0]
         step_ids = torch.full((n,), float(step + 1), device=self.device)
@@ -267,43 +341,82 @@ class Trainer:
 
         batches = bulk(self.replay, noise.get("replay"))
         expert_batches = bulk(self.expert, noise.get("expert"))
-        hyper = self.learner.hyper
+        draws = {k: v for k, v in noise.items() if k not in ("replay", "expert")}
         K = self.update_block
-        if self.algorithm == "GAIL" and K > 1 and n_updates % K == 0:
+        if self.algorithm == "GAIL" and self.fused_scan and K > 1 and n_updates % K == 0:
             def chunks(d):
                 return {k: v.reshape((n_updates // K, K) + v.shape[1:]) for k, v in d.items()}
 
-            pb, eb = chunks(batches), chunks(expert_batches)
-            nz = chunks({k: v for k, v in noise.items() if k not in ("replay", "expert")})
+            pb, eb, nz = chunks(batches), chunks(expert_batches), chunks(draws)
             for c in range(n_updates // K):
                 out = kblock_update(
-                    hyper, self.disc_hyper, self.sac, self.disc_state,
+                    self.learner.hyper, self.disc_hyper, self.sac, self.disc_state,
                     {k: v[c] for k, v in pb.items()}, {k: v[c] for k, v in eb.items()},
                     {k: v[c] for k, v in nz.items()},
                 )
-            aux = {"discriminator_loss": out["loss"][0], "predicted_rewards": out["rewards"]}
+            return {"discriminator_loss": out["loss"][0], "predicted_rewards": out["rewards"],
+                    "alphas": out["alpha"], "entropies": -out["log_probs"],
+                    "Q_values": out["Q_values"]}
+        for i in range(n_updates):
+            aux = self.update(
+                step, {k: v[i] for k, v in batches.items()},
+                {k: v[i] for k, v in expert_batches.items()}, {k: v[i] for k, v in draws.items()},
+            )
+        return aux
+
+    def update(self, step: int, tb, eb, nz) -> Dict[str, torch.Tensor]:
+        """One update (iltpu's `update_fn`) on the policy batch `tb`, the
+        expert batch `eb` and this update's draws `nz`: the reward -> mixing
+        -> BC auxiliary step -> SAC step. Returns the aux."""
+        alg, icfg = self.algorithm, self.cfg.imitation
+        aux = {}
+        if alg == "GAIL":
+            if self.disc_pallas:
+                d_loss, gail_rewards = gail_update(
+                    self.disc_hyper, self.disc_state, eb["states"], eb["actions"], eb["weights"],
+                    tb["states"], tb["actions"], tb["weights"], nz["eps_gp"], nz.get("mix"),
+                )
+                aux["discriminator_loss"] = d_loss[0]
+            else:
+                aux["discriminator_loss"] = adversarial_imitation_update(
+                    self.disc, self.disc_state, tb, eb, self.adv_cfg, nz["eps_gp"], nz.get("mix"))
+        if icfg.mix_expert_data == "mixed_batch" and alg != "AdRIL":
+            tb = mix_expert_agent_transitions(tb, eb)
+        tb = dict(tb)
+        if alg == "AdRIL":
+            # diagnostics of the raw policy batch, before the relabelling
+            if icfg.update_freq > 0:
+                stale = round_of(step, icfg.update_freq) > torch.ceil(tb["step"] / icfg.update_freq)
+                aux["diag_adril_stale_frac"] = stale.float().mean()
+            aux["diag_num_trajectories"] = self.replay.num_trajectories.float()
+            self.relabel, tb = resample_and_relabel(
+                self.relabel, tb, eb, step, self.replay.num_trajectories,
+                self.expert.num_trajectories, update_freq=icfg.update_freq, balanced=icfg.balanced,
+            )
+            aux["diag_relabel_reward_mean"] = tb["rewards"].mean()
+        elif alg == "DRIL":
+            masks = [nz.get(f"dril_mask{k}") for k in range(self.disc.net.n_layers)]
+            tb["rewards"] = self.disc.dril_reward(tb["states"], tb["actions"], self.dril_threshold, masks)
+        elif alg == "GAIL":
+            tb["rewards"] = (gail_rewards if self.disc_pallas
+                             else self.disc.predict_reward(tb["states"], tb["actions"], self.disc_state))
+        elif alg == "GMMIL":
+            self.disc_state, tb["rewards"] = self.disc.predict_reward(
+                self.disc_state, tb["states"], tb["actions"], eb["states"], eb["actions"],
+                tb["weights"], eb["weights"],
+            )
+        elif alg == "RED":
+            tb["rewards"] = self.disc.predict_reward(self.disc_state, tb["states"], tb["actions"])
+        if icfg.bc_aux_loss:
+            # on the SAC actor's own AdamW state, in place, before the SAC step reads it
+            behavioural_cloning_update(self.actor, actor_opt_state(self.sac), eb,
+                                       lr=self.learner.lr, weight_decay=self.learner.weight_decay)
+        if self.sac_pallas:
+            out = sac_update(self.learner.hyper, self.sac, tb, nz["eps2"], nz["eps_new"])
         else:
-            mix = noise.get("mix")
-            aux = {}
-            for i in range(n_updates):
-                tb = {k: v[i] for k, v in batches.items()}
-                eb = {k: v[i] for k, v in expert_batches.items()}
-                if self.algorithm == "GMMIL":
-                    self.disc_state, tb["rewards"] = self.disc.predict_reward(
-                        self.disc_state, tb["states"], tb["actions"], eb["states"],
-                        eb["actions"], tb["weights"], eb["weights"],
-                    )
-                else:
-                    d_loss, tb["rewards"] = gail_update(
-                        self.disc_hyper, self.disc_state,
-                        eb["states"], eb["actions"], eb["weights"],
-                        tb["states"], tb["actions"], tb["weights"],
-                        noise["eps_gp"][i], None if mix is None else mix[i],
-                    )
-                    aux["discriminator_loss"] = d_loss[0]
-                out = sac_update(hyper, self.sac, tb, noise["eps2"][i], noise["eps_new"][i])
-            aux["predicted_rewards"] = tb["rewards"]
-        aux.update(alphas=out["alpha"], entropies=-out["log_probs"], Q_values=out["Q_values"])
+            out = self.learner.update(self.sac, tb, nz["eps2"], nz["eps_new"])
+        aux.update(predicted_rewards=tb["rewards"], alphas=out["alpha"],
+                   entropies=-out["log_probs"], Q_values=out["Q_values"])
         return aux
 
     def post_step(self, step, obs, actions, rewards, next_obs, terminals, timeouts,
@@ -341,7 +454,10 @@ class Trainer:
     _LOG_KEYS = ("predicted_rewards", "alphas", "entropies", "Q_values")
 
     def _enqueue_log(self, step: int, aux):
-        self._log_queue.append((step, {k: aux[k].clone() for k in self._LOG_KEYS}))
+        """Keep clones of the aux (and AdRIL's diag_* scalars) without a
+        host read; `_flush_logs` reads them later."""
+        keys = list(self._LOG_KEYS) + [k for k in aux if k.startswith("diag_")]
+        self._log_queue.append((step, {k: aux[k].clone() for k in keys}))
 
     def _flush_logs(self):
         for step, entry in self._log_queue:
@@ -350,6 +466,9 @@ class Trainer:
             self.metrics["alphas"].append(float(entry["alphas"]))
             self.metrics["entropies"].append(entry["entropies"].tolist())
             self.metrics["Q_values"].append(entry["Q_values"].tolist())
+            for k, v in entry.items():
+                if k.startswith("diag_"):
+                    self.metrics.setdefault(k, []).append(float(v))
         self._log_queue.clear()
 
     def _record_eval(self, step: int):
@@ -367,11 +486,56 @@ class Trainer:
         agent = {k: tree[k] for k in ("actor_params", "critic_params", "log_alpha")}
         with open(pre + "agent.pkl", "wb") as f:
             pickle.dump(agent, f)
-        if self.algorithm == "GAIL":  # iltpu saves no GMMIL discriminator
+        if self.algorithm in TRAINABLE_DISCRIMINATORS:  # as iltpu: not GMMIL's
             with open(pre + "discriminator.pkl", "wb") as f:
-                pickle.dump(convert.disc_tree(self.disc_state)["params"], f)
+                pickle.dump(self._disc_params(), f)
         with open(pre + "metrics.pkl", "wb") as f:
             pickle.dump(self.metrics, f)
+
+    def _disc_params(self):
+        """The discriminator's parameters in iltpu's layout (numpy)."""
+        if self.algorithm == "GAIL":
+            return convert.disc_tree(self.disc_state)["params"]
+        if self.algorithm == "DRIL":
+            return convert.opt_tree(self.disc_state)["params"]
+        tree = convert.red_tree(self.disc_state)
+        return {"predictor": tree["params"], "target": tree["target"],
+                "sigma_1": tree["sigma_1"], "sigma_set": tree["sigma_set"]}
+
+    # ------------------------------------------------------- pretraining
+
+    def _expert_batch(self):
+        return replay_sample(self.expert, self.cfg.training.batch_size, self.gen)
+
+    def bc_pretrain(self):
+        """BC pretraining of the SAC actor with a fresh AdamW state of its
+        own (the actor's SAC moments and clock stay untouched)."""
+        cfg = self.cfg.bc_pretraining
+        p = self.sac["a"]
+        st = {"p": p, "m": [torch.zeros_like(x) for x in p], "v": [torch.zeros_like(x) for x in p],
+              "t": torch.zeros(1, device=self.device)}
+        for _ in range(cfg.iterations):
+            behavioural_cloning_update(self.actor, st, self._expert_batch(),
+                                       lr=cfg.learning_rate, weight_decay=cfg.weight_decay)
+
+    def pretrain_discriminator(self):
+        """DRIL: BC of the dropout ensemble, then its threshold over the
+        whole expert buffer; RED: the predictor's regression, then sigma_1
+        from the first batch-size expert rows."""
+        icfg = self.cfg.imitation
+        opt = dict(lr=icfg.learning_rate, weight_decay=icfg.weight_decay, generator=self.gen)
+        states, actions = self.expert.rows("states"), self.expert.rows("actions")
+        if self.algorithm == "DRIL":
+            for _ in range(icfg.pretraining.iterations):
+                behavioural_cloning_update(self.disc, self.disc_state, self._expert_batch(),
+                                           train_dropout=True, **opt)
+            self.dril_threshold = self.disc.uncertainty_threshold(
+                states, actions, icfg.quantile_cutoff, generator=self.gen)
+        else:
+            for _ in range(icfg.pretraining.iterations):
+                target_estimation_update(self.disc, self.disc_state, self._expert_batch(), **opt)
+            B = self.cfg.training.batch_size
+            self.disc.set_sigma(self.disc_state, states[:B], actions[:B])
 
     # ---------------------------------------------------------------- run
 
@@ -379,6 +543,27 @@ class Trainer:
     def run(self) -> float:
         cfg = self.cfg
         start_time = time.time()
+        if cfg.bc_pretraining.iterations > 0:
+            self.bc_pretrain()
+            if self.algorithm == "BC":  # the early exit: evaluate the cloned policy
+                if cfg.check_time_usage:
+                    self._sync()
+                    self.metrics["pre_training_time"] = time.time() - start_time
+                test_returns = self.evaluate()
+                normalized = self._normalized(test_returns)
+                self.metrics["test_steps"] = [0]
+                self.metrics["test_returns"] = [test_returns]
+                self.metrics["test_returns_normalized"] = [normalized]
+                self._save()
+                return float(np.mean(normalized))
+        if self.algorithm in ("DRIL", "RED"):
+            self.pretrain_discriminator()
+            if cfg.check_time_usage:
+                self._sync()
+                self.metrics["pre_training_time"] = time.time() - start_time
+                start_time = time.time()
+        if cfg.imitation.mix_expert_data == "prefill_memory":
+            replay_transfer(self.replay, self.expert)
         self._host_loop()
         if cfg.check_time_usage:
             self.metrics["training_time"] = time.time() - start_time

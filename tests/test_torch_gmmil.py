@@ -240,10 +240,10 @@ def test_kernel_flags_iltpu_refuses_raise_value_error(tmp_path, flag):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("imitation.bc_aux_loss=true", "Other algorithms"),
-    ("imitation.mix_expert_data=mixed_batch", "Other algorithms"),
-    ("reinforcement.actor.depth=3", "Autograd updates"),
-    ("training.sac_pallas=false", "Autograd updates"),
+    ("training.pipeline=true", "Pipelined and host acting"),
+    ("training.on_device_loop=true", "On-device loop"),
+    ("parallel.data_axis=data", "Data parallel"),
+    ("checkpointing.interval=100", "Checkpoint and resume"),
 ])
 def test_refuses_what_is_not_ported(tmp_path, override, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, '{item}'"):

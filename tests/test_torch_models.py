@@ -50,6 +50,28 @@ def test_mlp_forward(activation, spectral_norm):
     np.testing.assert_allclose(got, np.asarray(jm.apply(params, jnp.asarray(x))), **TOL)
 
 
+@pytest.mark.parametrize("activation", ["relu", "tanh"])
+def test_mlp_dropout_with_iltpus_masks(activation):
+    """Input and hidden dropout (inverted scaling, the hidden mask between
+    the linear map and the activation) with iltpu's masks, fold_in(rng, k)
+    for layer k; without masks, the plain forward."""
+    jm = JMLP(6, 24, 2, 3, activation, input_dropout=0.2, dropout=0.3)
+    params = jm.init(jax.random.key(0))
+    x = np.random.default_rng(1).normal(size=(17, 6)).astype(np.float32)
+    m = MLP(6, 24, 2, 3, activation, input_dropout=0.2, dropout=0.3)
+    _load_mlp(m, params)
+    rng = jax.random.key(4)
+    masks = [_t(jax.random.bernoulli(jax.random.fold_in(rng, k), keep, shape)).bool()
+             for k, (keep, shape) in enumerate([(0.8, (17, 6)), (0.7, (17, 24)), (0.7, (17, 24))])]
+    want = jm.apply(params, jnp.asarray(x), rng=rng, train=True)
+    with torch.no_grad():
+        np.testing.assert_allclose(m(_t(x), masks=masks).numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(m(_t(x)).numpy(), np.asarray(jm.apply(params, jnp.asarray(x))), **TOL)
+        drawn = m.draw_masks(17, torch.Generator().manual_seed(0))
+    assert [tuple(t.shape) for t in drawn] == [(17, 6), (17, 24), (17, 24)]
+    assert all(t.dtype == torch.bool for t in drawn)
+
+
 def test_update_spectral_norm():
     jm = JMLP(9, 16, 1, 1, "relu", spectral_norm=True)
     params = jm.init(jax.random.key(3))
