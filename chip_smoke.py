@@ -40,11 +40,15 @@ of JAX or `iltpu`. Phases, each printing its results:
    edge), at rtol 1e-5 / atol 1e-6 (the sums run in another order);
 3f. PWIL's greedy-transport kernel against its plain version: 512 pools of
    the pointmass trainer's expert atoms (d 7) for three env steps, 512 x
-   25,000 atoms of d 15 (PWIL@25 at hopper's size), 64 x 100,000 atoms (past
-   a block's shared memory: the distances in global scratch) and the
-   relabelling of 25,000 rows in 25 segments; the pools must be bit-equal
-   and the rewards within rtol 1e-5 / atol 1e-6; timed on the device alone
-   and host-paced, with its bound from this run's greedy rounds;
+   25,000 atoms of d 15 (PWIL@25 at hopper's size), 64 x 100,000 atoms, the
+   relabelling of 25,000 rows in 25 segments (both on clusters of CTAs a
+   pool), atoms on an integer grid (exact ties across warps and CTAs), pools
+   of tiny masses (more than 32 atoms a row: continuation passes), a cluster
+   whose N no slice divides, and pools that run out; the pools must be
+   bit-equal and the rewards within rtol 1e-5 / atol 1e-6; each case timed
+   on the device alone and host-paced (the relabelling also in us a row),
+   with the bound of any exact method (distances and one comparison an
+   atom a row);
 3d. the autograd SAC update (`training.sac_pallas=false`) against the SAC
    kernel on the same state, batches and noise, at both shapes, min_alpha 0
    and 0.05, one step and a chain of 8 (the step and chain tolerances, with
@@ -706,24 +710,48 @@ def check_rowsum(dev):
     return results
 
 
-def pwil_bound(P, N, d, R, rounds):
-    """Each row: N distances of d features (a subtract, a multiply and an
-    add each, and a root); each greedy round one comparison per atom. Each
-    input read and each output written once (the pools both)."""
-    flops = R * N * (3 * d + 1) + rounds * N
+def pwil_bound(P, N, d, R):
+    """The least work of any exact method: each row's N distances of d
+    features (a subtract, a multiply and an add each, and a root) and one
+    comparison per atom to select; each input read and each output written
+    once (the pools both)."""
+    flops = R * N * (3 * d + 1) + R * N
     return bound_ms(flops, 4 * (N * d + 2 * P * N + R * d + (P + 1) + R) + R)
 
 
-def pwil_case(dev, P, N, d, R, T, segments, seed, atoms=None):
+# 3f's cases: (name, pools, atoms, features, rows, episode length T,
+# segments, steps checked, changes). Changes: `grid` puts atoms and queries
+# on the integers 0 .. grid-1 (many equal distances); `mass` is the atom
+# weight in units of 1/N (below 1: pools of tiny masses, so a row takes
+# many more atoms than 32); `atoms_of` "pointmass" takes the trainer's
+# expert atoms.
+PWIL_CASES = (
+    ("pointmass", 512, None, None, 512, None, False, 3, {"atoms_of": "pointmass"}),
+    ("pwil25_hopper", 512, 25000, 15, 512, 1000, False, 2, {}),
+    ("pools64_100k", 64, 100000, 15, 64, 1000, False, 2, {}),
+    ("relabel", 25, 25000, 15, 25000, 1000, True, 1, {}),
+    ("ties_step", 512, 4000, 3, 512, 100, False, 3, {"grid": 3}),
+    ("ties_cluster", 16, 20000, 4, 16, 1000, False, 3, {"grid": 3}),
+    ("drained", 64, 20000, 15, 64, 1000, False, 2, {"mass": 0.05}),
+    ("ragged_cluster", 20, 30001, 15, 20, 1000, False, 2, {}),
+    ("exhausted", 16, 600, 7, 32, 1000, True, 1, {"mass": 0.0006}),
+)
+
+
+def pwil_case(dev, P, N, d, R, T, segments, seed, atoms=None, grid=None, mass=1.0):
     """Atoms, fresh pools, queries, offsets and resets: one row a pool with
     a 5% reset draw (an env step), or R // P rows a pool reset after its
     last (the relabelling)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    if atoms is None:
-        atoms = torch.randn(N, d, generator=g, device=dev)
-    queries = 1.2 * torch.randn(R, d, generator=g, device=dev)
+    if grid:
+        atoms = torch.randint(0, grid, (N, d), generator=g, device=dev).float()
+        queries = torch.randint(0, grid, (R, d), generator=g, device=dev).float()
+    else:
+        if atoms is None:
+            atoms = torch.randn(N, d, generator=g, device=dev)
+        queries = 1.2 * torch.randn(R, d, generator=g, device=dev)
     if segments:
         L = R // P
         offsets = torch.arange(0, R + 1, L, dtype=torch.int32, device=dev)
@@ -732,66 +760,75 @@ def pwil_case(dev, P, N, d, R, T, segments, seed, atoms=None):
     else:
         offsets = torch.arange(P + 1, dtype=torch.int32, device=dev)
         reset = torch.rand(R, generator=g, device=dev) < 0.05
-    kw = dict(atom_weight=1.0 / N, agent_weight=1.0 / T - 1e-6, bandwidth=5.0 * T / d ** 0.5,
+    kw = dict(atom_weight=mass / N, agent_weight=1.0 / T - 1e-6, bandwidth=5.0 * T / d ** 0.5,
               scale=5.0)
-    return atoms, torch.full((P, N), 1.0 / N, device=dev), queries, offsets, reset, kw
+    return atoms, torch.full((P, N), mass / N, device=dev), queries, offsets, reset, kw
 
 
 def check_pwil(dev):
-    """3f: the transport kernel against its plain version at the trainer's
-    pointmass shapes (512 pools of its expert atoms, d 7, three steps), at
-    PWIL@25's hopper size (512 x 25,000 atoms, d 15), past a block's shared
-    memory (64 x 100,000 atoms: the distances in global scratch) and for a
-    relabelling of 25,000 rows in 25 segments. Pools bit-equal, rewards at
-    rtol 1e-5 / atol 1e-6. The env-step cases are timed on their first
-    step's inputs with every row resetting its pool, so each call does that
-    step's work; the relabelling as checked (it leaves its pools fresh).
+    """3f: the transport kernel against its plain version (PWIL_CASES): the
+    trainer's pointmass shapes (512 pools of its expert atoms, d 7, three
+    steps), PWIL@25's hopper size (512 x 25,000 atoms, d 15), 64 x 100,000
+    atoms and a relabelling of 25,000 rows in 25 segments (clusters of CTAs
+    a pool), atoms on an integer grid (exact ties, within and across CTAs),
+    pools of tiny masses (a row takes more than 32 atoms: the kernel's
+    continuation passes), a cluster whose N no slice or tile divides, and
+    pools that run out. Pools bit-equal, rewards at rtol 1e-5 / atol 1e-6.
+    Each case is timed on its first step's inputs: an env step with every
+    row resetting its pool, so each call does that step's work; a
+    segmented case as checked (it leaves its pools as they started).
     Returns {case: (err, ms, paced_ms, plain_ms, bound, by)}."""
     import torch
     from iltpu_torch.config import load_config
-    from iltpu_torch.ops.pwil_transport import pwil_transport, pwil_transport_plain
+    from iltpu_torch.ops.pwil_transport import cluster_size, pwil_transport, pwil_transport_plain
     from iltpu_torch.trainer import Trainer
 
     out = os.path.join(REPO, "outputs", "chip_smoke", "pwil")
     t = Trainer(load_config(TRAINER_ARGS + alg_args("PWIL") + [f"output_dir={out}"]), out_dir=out)
-    atoms, T = t.disc.expert_atoms, t.env.max_episode_steps
     results = {}
-    for case, P, N, d, R, T, segments, steps in (
-        ("pointmass", 512, atoms.shape[0], atoms.shape[1], 512, T, False, 3),
-        ("pwil25_hopper", 512, 25000, 15, 512, 1000, False, 2),
-        ("global_scratch", 64, 100000, 15, 64, 1000, False, 2),
-        ("relabel", 25, 25000, 15, 25000, 1000, True, 1),
-    ):
-        a, pools, q, off, reset, kw = pwil_case(
-            dev, P, N, d, R, T, segments, N, atoms if case == "pointmass" else None)
-        kp, pp, err, q0 = pools.clone(), pools.clone(), (0.0, 0.0), q
+    for case, P, N, d, R, T, segments, steps, changes in PWIL_CASES:
+        changes = dict(changes)
+        if changes.pop("atoms_of", None):
+            changes["atoms"] = t.disc.expert_atoms
+            (N, d), T = t.disc.expert_atoms.shape, t.env.max_episode_steps
+        a, pools, q, off, reset, kw = pwil_case(dev, P, N, d, R, T, segments, N, **changes)
+        kp, pp, err, q0, k_max = pools.clone(), pools.clone(), (0.0, 0.0), q, 0
         for i in range(steps):
             got = pwil_transport(a, kp, q, off, reset, **kw)
+            before = pp.clone()
             want, rounds = pwil_transport_plain(a, pp, q, off, reset, count_rounds=True, **kw)
             if not torch.equal(kp, pp):
                 n = int((kp != pp).sum())
                 raise AssertionError(f"pwil_transport {case} step {i}: {n} pool entries differ")
             err = worse(err, compare(f"pwil_transport {case} step {i}", [("rewards", got)],
                                      [("rewards", want)], TOL_PWIL))
-            q = 1.2 * torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(i),
-                                  device=dev)
-        fresh, paced_ms, plain_ms = pools.clone(), None, None
-        if segments:  # the relabelling leaves its pools fresh: one timed call is the checked one
-            q, timed = q0, reset
-            ms = median_ms(lambda: pwil_transport(a, fresh, q, off, timed, **kw), n=5)
-        else:  # every row resets its pool, so each call does the first step's work
-            q, timed = q0, torch.ones_like(reset)
+            if not segments:  # atoms a row took: the entries its step changed
+                k_max = max(k_max, int(((before != pp) & ~reset[:, None]).sum(1).max()))
+            if grid := changes.get("grid"):
+                q = torch.randint(0, grid, q.shape, generator=torch.Generator(device=dev).manual_seed(i),
+                                  device=dev).float()
+            else:
+                q = 1.2 * torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(i),
+                                      device=dev)
+        fresh, q = pools.clone(), q0
+        timed = reset if segments else torch.ones_like(reset)
+        if not segments:
             _, rounds = pwil_transport_plain(a, fresh.clone(), q, off, timed, count_rounds=True, **kw)
-            ms = device_ms(lambda: pwil_transport(a, fresh, q, off, timed, **kw))
-            paced_ms = median_ms(lambda: pwil_transport(a, fresh, q, off, timed, **kw))
-            plain_ms = median_ms(lambda: pwil_transport_plain(a, fresh, q, off, timed, **kw), n=5)
-        bound, by = pwil_bound(P, N, d, R, rounds)
+        n = 10 if case == "relabel" else 60
+        ms = device_ms(lambda: pwil_transport(a, fresh, q, off, timed, **kw), n=n)
+        paced_ms = median_ms(lambda: pwil_transport(a, fresh, q, off, timed, **kw), n=n)
+        plain_ms = (None if case == "relabel"  # one call ~9 s
+                    else median_ms(lambda: pwil_transport_plain(a, fresh, q, off, timed, **kw), n=5))
+        bound, by = pwil_bound(P, N, d, R)
         results[case] = (err[0], ms, paced_ms, plain_ms, bound, by)
-        timing = (f"{ms:.4f} ms on the device ({paced_ms:.4f} ms host-paced; plain {plain_ms:.4f} ms"
-                  if paced_ms is not None else f"{ms:.4f} ms a launch (plain not timed")
-        print(f"kernel pwil_transport {case}: {P} pools x {N} atoms, d {d}, {R} rows, {rounds} "
-              f"greedy rounds: pools bit-equal over {steps} step(s), max_abs_err {err[0]:.3g}, "
-              f"max_rel_err {err[1]:.3g}, {timing}, bound {bound:.6f} ms by {by})")
+        per_row = (f", {1e3 * ms / (R // P):.2f} us a row of a segment" if segments else
+                   f", up to {k_max} atoms a row")
+        plain = f"{plain_ms:.4f} ms" if plain_ms is not None else "not timed"
+        print(f"kernel pwil_transport {case}: {P} pools x {N} atoms, d {d}, {R} rows, a cluster "
+              f"of {cluster_size(P, N)} CTA(s) a pool, {rounds} greedy rounds{per_row}: pools "
+              f"bit-equal over {steps} step(s), max_abs_err {err[0]:.3g}, max_rel_err {err[1]:.3g}, "
+              f"{ms:.4f} ms on the device ({paced_ms:.4f} ms host-paced; plain {plain}), bound "
+              f"{bound:.6f} ms by {by}")
     return results
 
 

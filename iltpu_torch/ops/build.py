@@ -12,6 +12,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -36,7 +37,13 @@ def _nvcc() -> str:
 
 
 def _sources(name: str) -> List[str]:
-    return [os.path.join(CSRC, f"{name}.cu")] + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    """The source, the `.cu` files it includes (a measuring variant of a
+    kernel includes the kernel's source) and every header."""
+    main = os.path.join(CSRC, f"{name}.cu")
+    with open(main) as f:
+        included = re.findall(r'^#include "([^"/]+\.cu)"', f.read(), re.M)
+    return ([main] + [os.path.join(CSRC, n) for n in included]
+            + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
 
 
 def library_path(name: str) -> str:

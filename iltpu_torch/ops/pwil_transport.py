@@ -17,13 +17,20 @@ row whose reset flag is set, its pool is refilled with `atom_weight`. The
 pools are updated in place.
 
 On CUDA tensors ONE launch of `csrc/pwil_transport.cu` (built by nvcc at
-first use), one block per pool, counted in `pwil_transport.launches`; it
-raises if the launch fails. On CPU tensors `pwil_transport_plain` runs: the
-same formulas in PyTorch over all pools at once, one round of the greedy
-loop a step, with a host read per round to stop. The weights are float32
-throughout; the distances sum the squared features in order, each product
-and sum rounded on its own, as the kernel does, so both take the same
-nearest atoms and their pools agree bit for bit.
+first use), counted in `pwil_transport.launches`; it raises if the launch
+fails or its thread-block cluster cannot be scheduled. The kernel reads the
+atoms feature-major, (d, N): `feature_major` makes that copy once and keeps
+it on the atoms tensor until the tensor is written. A row's rounds take the
+atoms in ascending (distance, index) order (a fully consumed atom is spent
+exactly; only the last one is left partly consumed), so the kernel selects
+each row's 32 smallest keys in one pass over the atoms and walks them, with
+another pass only where the weight outlasts them. On CPU tensors
+`pwil_transport_plain` runs: the same formulas in PyTorch over all pools at
+once, one round of the greedy loop a step, with a host read per round to
+stop. The weights are float32 throughout; the distances sum the squared
+features in order, each product and sum rounded on its own, as the kernel
+does, so both take the same nearest atoms and their pools agree bit for
+bit.
 """
 
 import ctypes
@@ -100,14 +107,33 @@ def _bind(lib):
     """Set the C signatures once, so no pointer is cut to 32 bits."""
     if not hasattr(lib, "_typed"):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.iltpu_pwil_transport.argtypes = [P] * 7 + [I] * 4 + [F] * 4 + [P]
+        lib.iltpu_pwil_transport.argtypes = [P] * 6 + [I] * 4 + [F] * 4 + [P]
         lib.iltpu_pwil_transport.restype = I
-        lib.iltpu_pwil_scratch_floats.argtypes = [I, I]
-        lib.iltpu_pwil_scratch_floats.restype = ctypes.c_longlong
+        lib.iltpu_pwil_cluster_size.argtypes = [I, I]
+        lib.iltpu_pwil_cluster_size.restype = I
         lib.iltpu_pwil_error.argtypes = [I]
         lib.iltpu_pwil_error.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def feature_major(atoms: torch.Tensor) -> torch.Tensor:
+    """The atoms (N, d) as a contiguous (d, N) copy, made once and kept on
+    the atoms tensor until it is written (its version counter moves)."""
+    kept = getattr(atoms, "_iltpu_feature_major", None)
+    if kept is None or kept[0] != atoms._version:
+        kept = (atoms._version, atoms.t().contiguous())
+        atoms._iltpu_feature_major = kept
+    return kept[1]
+
+
+def cluster_size(P: int, N: int) -> int:
+    """CTAs the kernel gives each of P pools of N atoms (1: no cluster)."""
+    lib = _bind(build.load("pwil_transport"))
+    c = lib.iltpu_pwil_cluster_size(P, N)
+    if c < 1:
+        raise RuntimeError(f"pwil_transport cluster size: {lib.iltpu_pwil_error(c).decode()}")
+    return c
 
 
 def _check(atoms, pools, queries, offsets, reset) -> None:
@@ -141,16 +167,14 @@ def pwil_transport(atoms, pools, queries, offsets, reset, *, atom_weight: float,
 
 def launch(lib, atoms, pools, queries, offsets, reset, *, atom_weight, agent_weight, bandwidth,
            scale, stream: int) -> torch.Tensor:
-    """Call the C entry on checked operands; the rewards and any scratch
-    come from torch.empty."""
+    """Call the C entry on checked operands; the rewards come from
+    torch.empty."""
     (N, d), P, R = atoms.shape, pools.shape[0], queries.shape[0]
     rewards = torch.empty(R, device=atoms.device)
-    n = lib.iltpu_pwil_scratch_floats(P, N)
-    scratch = torch.empty(n, device=atoms.device) if n else None
     rc = lib.iltpu_pwil_transport(
-        atoms.data_ptr(), pools.data_ptr(), queries.data_ptr(), offsets.data_ptr(),
-        reset.data_ptr(), rewards.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
-        P, N, d, R, atom_weight, agent_weight, bandwidth, scale, stream)
+        feature_major(atoms).data_ptr(), pools.data_ptr(), queries.data_ptr(), offsets.data_ptr(),
+        reset.data_ptr(), rewards.data_ptr(), P, N, d, R, atom_weight, agent_weight, bandwidth,
+        scale, stream)
     if rc != 0:
         raise RuntimeError(f"pwil_transport kernel launch failed: CUDA error {rc} "
                            f"({lib.iltpu_pwil_error(rc).decode()})")

@@ -3,6 +3,7 @@ phase by phase.
 
     python -m iltpu_torch.profile_phases        # the SAC update
     python -m iltpu_torch.profile_phases gail   # the GAIL step
+    python -m iltpu_torch.profile_phases pwil   # PWIL's transport
 
 Needs one CUDA card. The SAC mode builds `csrc/sac_phases.cu` (the update of
 `csrc/sac_update.cu` with a timestamp after each phase's barrier), runs a
@@ -16,7 +17,16 @@ configuration (BCE, spectral norm, AIRL, penalty 1; batch 256, width 64) at
 pointmass (state 5, action 2) and hopper (state 12, action 3) shapes, five
 steps each after a warm-up, printing one JSON line per shape: the median
 microseconds of each phase and of the step from its first stamp to its
-last. Both end with the card's name and power limit.
+last. The PWIL mode builds `csrc/pwil_phases.cu` (the transport kernel
+with each CTA's thread 0 summing the SM cycles of each phase of each row)
+and runs the 25-segment relabelling (25,000 rows, 25,000 atoms of d 15),
+PWIL@25's hopper-sized env step (512 pools x 25,000 atoms) and a
+pointmass-sized one (512 x 505 atoms, d 7), printing one JSON line each:
+the launch's time (CUDA events), the cluster size, passes a row, and the
+microseconds a row of each phase averaged over the CTAs, with the bytes a
+CTA's pass reads and the rate that gives; first, how many clusters of 2 to
+8 CTAs the card holds at once. All modes end with the card's
+name and power limit.
 """
 
 import ctypes
@@ -29,6 +39,7 @@ import torch
 from iltpu_torch.models import SoftActor, TwinCritic
 from iltpu_torch.ops import build
 from iltpu_torch.ops import gail_update as gu
+from iltpu_torch.ops import pwil_transport as pt
 from iltpu_torch.ops import sac_update as su
 from iltpu_torch.rewards import GAILDiscriminator
 from iltpu_torch.updates import SACLearner
@@ -158,12 +169,86 @@ def gail_phases(lib, dev, S, A, B=256, Hd=64, runs=5):
     return [_median(col) for col in zip(*rows)], _median([sum(r) for r in rows])
 
 
+PWIL_PHASES = ("row start", "selection pass", "CTA merge", "cluster exchange + merge", "walk",
+               "write-back + refill")
+
+
+def _bind_pwil(lib):
+    if not hasattr(lib, "_typed"):
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.iltpu_pwil_transport.argtypes = [P] * 6 + [I] * 4 + [F] * 4 + [P, P]
+        lib.iltpu_pwil_transport.restype = I
+        lib.iltpu_pwil_cluster_size.argtypes = [I, I]
+        lib.iltpu_pwil_cluster_size.restype = I
+        lib.iltpu_pwil_active_clusters.argtypes = [I]
+        lib.iltpu_pwil_active_clusters.restype = I
+        lib._typed = True
+    return lib
+
+
+def _cycles_per_us():
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
+    a.record()
+    torch.cuda._sleep(50_000_000)
+    b.record()
+    torch.cuda.synchronize()
+    return 50_000_000 / (1e3 * a.elapsed_time(b))
+
+
+def pwil_phases(lib, dev, P, N, d, R, T, segments):
+    """One stamped launch after a warm-up: per phase the us a row, averaged
+    over the CTAs (each CTA's cycles over its rows)."""
+    g = torch.Generator(device=dev).manual_seed(N)
+    atoms = torch.randn(N, d, generator=g, device=dev)
+    queries = 1.2 * torch.randn(R, d, generator=g, device=dev)
+    if segments:
+        L = R // P
+        offsets = torch.arange(0, R + 1, L, dtype=torch.int32, device=dev)
+        reset = torch.zeros(R, dtype=torch.bool, device=dev)
+        reset[L - 1::L] = True
+    else:
+        offsets = torch.arange(P + 1, dtype=torch.int32, device=dev)
+        reset = torch.ones(R, dtype=torch.bool, device=dev)
+    pools = torch.full((P, N), 1.0 / N, device=dev)
+    rewards = torch.empty(R, device=dev)
+    C = lib.iltpu_pwil_cluster_size(P, N)
+    if C < 1:
+        raise RuntimeError(f"profile_phases: no cluster size for {P} pools (error {C})")
+    stamps = torch.zeros(P * C, 8, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (pt.feature_major(atoms).data_ptr(), pools.data_ptr(), queries.data_ptr(),
+            offsets.data_ptr(), reset.data_ptr(), rewards.data_ptr(), P, N, d, R, 1.0 / N,
+            1.0 / T - 1e-6, 5.0 * T / d ** 0.5, 5.0, stream, stamps.data_ptr())
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for timed in (False, True):  # every row resets or ends its segment: both do the same work
+        stamps.zero_()
+        a.record()
+        if lib.iltpu_pwil_transport(*args) != 0:
+            raise RuntimeError("profile_phases: PWIL launch failed")
+        b.record()
+        torch.cuda.synchronize()
+    st = stamps.double()
+    rows = st[:, 7].clamp(min=1)
+    per_row = (st[:, :6] / rows[:, None]).mean(0) / _cycles_per_us()
+    slice_atoms = -(-N // C)
+    pass_bytes = slice_atoms * (d + 1) * 4
+    passes = float((st[:, 6] / rows).mean())
+    return {
+        "shape": f"{P} pools x {N} atoms, d {d}, {R} rows", "launch_ms": a.elapsed_time(b),
+        "cluster": C, "passes_a_row": round(passes, 3), "row_us": round(float(per_row.sum()), 3),
+        "phases_us_a_row": {name: round(float(t), 3) for name, t in zip(PWIL_PHASES, per_row)},
+        "pass_bytes_a_cta": pass_bytes,
+        "pass_gb_s_a_cta": round(pass_bytes * passes / (1e3 * float(per_row[1])), 2),
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_phases: CUDA is not available; it measures the card")
     mode = sys.argv[1] if len(sys.argv) > 1 else "sac"
-    if mode not in ("sac", "gail"):
-        raise SystemExit(f"profile_phases: unknown mode {mode!r}; use sac or gail")
+    if mode not in ("sac", "gail", "pwil"):
+        raise SystemExit(f"profile_phases: unknown mode {mode!r}; use sac, gail or pwil")
     dev = torch.device("cuda")
     if mode == "sac":
         lib = _bind(build.load("sac_phases"))
@@ -174,6 +259,14 @@ def main():
             "phases_us": {f"{i + 1:2d} {name}": round(t, 2) for i, (name, t) in
                           enumerate(zip(PHASES, per_phase))},
         }))
+    elif mode == "pwil":
+        lib = _bind_pwil(build.load("pwil_phases"))
+        print(json.dumps({"clusters_at_once": {c: lib.iltpu_pwil_active_clusters(c)
+                                               for c in range(2, 9)}}))
+        for P, N, d, R, T, segments in ((25, 25000, 15, 25000, 1000, True),
+                                        (512, 25000, 15, 512, 1000, False),
+                                        (512, 505, 7, 512, 100, False)):
+            print(json.dumps(pwil_phases(lib, dev, P, N, d, R, T, segments)))
     else:
         lib = _bind_gail(build.load("gail_phases"))
         for S, A, where in ((5, 2, "pointmass"), (12, 3, "hopper")):

@@ -11,6 +11,8 @@ T / sqrt(dim). A pool is refilled where its env's episode ends.
 
 The transport is `ops.pwil_transport`: one kernel launch for every env's
 step (or for the whole expert relabelling), its plain version on the CPU.
+On the card the kernel reads the atoms feature-major; that copy is made
+once, here.
 
 What keeps the port on iltpu's numbers:
 - `jnp.std` is the population std: `torch.std(..., correction=0)`;
@@ -32,7 +34,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from iltpu_torch.ops.pwil_transport import pwil_transport
+from iltpu_torch.ops.pwil_transport import feature_major, pwil_transport
 
 
 @dataclass
@@ -60,6 +62,8 @@ class PWILDiscriminator:
         self.data_scale = 1.0 / torch.where(std == 0, 1.0, std)
         self.data_offset = -torch.mean(atoms, 0)
         self.expert_atoms = self.normalise(atoms).contiguous()
+        if self.expert_atoms.is_cuda:  # the kernel's (d, N) copy, made before any graph capture
+            feature_major(self.expert_atoms)
         self.num_atoms = atoms.shape[0]
         dim = state_size if state_only else state_size + action_size
         self.reward_scale = float(reward_scale)

@@ -25,23 +25,66 @@ def cuda():
     return torch.device("cuda")
 
 
+# (pools, atoms, features, episode length T, grid, atom mass in units of
+# 1/N): grid puts atoms and queries on the integers 0..grid-1 (exact ties);
+# a mass below 1 makes a row take more than 32 atoms (continuation passes),
+# below the agent's weight in total it empties the pools.
+PWIL_CASES = {
+    "shared": (64, 500, 7, 50, None, 1.0),
+    "cluster_100k": (4, 100000, 15, 50, None, 1.0),
+    "ties": (64, 3000, 3, 20, 3, 1.0),
+    "ties_cluster": (8, 40000, 4, 200, 3, 1.0),
+    "k_overflow": (64, 20000, 15, 1000, None, 0.05),
+    "ragged_cluster": (20, 30001, 15, 1000, None, 1.0),
+    "exhausted": (16, 600, 7, 1000, None, 0.0006),
+    "d64_cluster": (2, 30000, 64, 200, None, 1.0),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,N,d", [(64, 500, 7), (4, 70000, 15)], ids=["shared", "scratch"])
-def test_pwil_kernel_matches_plain(cuda, P, N, d):
-    """Bit-equal pools and close rewards over three steps, with the
-    distances in shared memory and, past it, in global scratch."""
+@pytest.mark.parametrize("case", list(PWIL_CASES))
+def test_pwil_kernel_matches_plain(cuda, case):
+    """Bit-equal pools and close rewards over three steps: one CTA a pool,
+    clusters of CTAs a pool, ties, more than 32 atoms a row, a cluster no
+    slice divides, pools that run out, the 64 features the kernel takes."""
+    P, N, d, T, grid, mass = PWIL_CASES[case]
     g = torch.Generator(device=cuda).manual_seed(N)
-    atoms = torch.randn(N, d, generator=g, device=cuda)
-    queries = torch.randn(P, d, generator=g, device=cuda)
+    if grid:
+        atoms = torch.randint(0, grid, (N, d), generator=g, device=cuda).float()
+        queries = torch.randint(0, grid, (P, d), generator=g, device=cuda).float()
+    else:
+        atoms = torch.randn(N, d, generator=g, device=cuda)
+        queries = torch.randn(P, d, generator=g, device=cuda)
     offsets = torch.arange(P + 1, dtype=torch.int32, device=cuda)
     reset = torch.rand(P, generator=g, device=cuda) < 0.1
-    kw = dict(atom_weight=1.0 / N, agent_weight=1.0 / 50 - 1e-6, bandwidth=3.0, scale=5.0)
-    kp, pp = torch.full((P, N), 1.0 / N, device=cuda), torch.full((P, N), 1.0 / N, device=cuda)
+    kw = dict(atom_weight=mass / N, agent_weight=1.0 / T - 1e-6, bandwidth=3.0, scale=5.0)
+    kp = torch.full((P, N), mass / N, device=cuda)
+    pp = kp.clone()
     for _ in range(3):
         got = pwil_transport(atoms, kp, queries, offsets, reset, **kw)
         want = pwil_transport_plain(atoms, pp, queries, offsets, reset, **kw)
         assert torch.equal(kp, pp)
         torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+def test_pwil_kernel_segments_match_plain(cuda):
+    """One launch over segments of 1 to 12 rows on clusters of CTAs, pools
+    reset after random rows inside a segment: bit-equal pools and close
+    rewards against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    N, d, R = 30000, 15, 40
+    atoms = torch.randn(N, d, generator=g, device=cuda)
+    queries = torch.randn(R, d, generator=g, device=cuda)
+    offsets = torch.tensor([0, 12, 13, 25, 40], dtype=torch.int32, device=cuda)
+    reset = torch.rand(R, generator=g, device=cuda) < 0.3
+    kw = dict(atom_weight=1.0 / N, agent_weight=1.0 / 40 - 1e-6, bandwidth=3.0, scale=5.0)
+    kp = torch.full((4, N), 1.0 / N, device=cuda)
+    pp = kp.clone()
+    got = pwil_transport(atoms, kp, queries, offsets, reset, **kw)
+    want = pwil_transport_plain(atoms, pp, queries, offsets, reset, **kw)
+    assert torch.equal(kp, pp)
+    torch.testing.assert_close(got, want, **TOL)
 
 
 SMALL = [

@@ -4,7 +4,10 @@ against iltpu's: the normalisation (population std, a constant feature),
 `compute_reward` step by step across done-resets against iltpu's vmapped
 PWIL step, the exhausted-pool guard, the expert relabelling against
 iltpu's sequential scan, the transport's segments against one pool at a
-time, and short CLI runs. The pools must equal iltpu's exactly (they are
+time, inputs that stress the card's selection kernel (exact ties on an
+integer grid, pools of tiny masses so a row takes more than 64 atoms,
+pools that run out), a numpy "sorted walk" (the masked (distance, index)
+list sorted, then walked) against iltpu's greedy loop, and short CLI runs. The pools must equal iltpu's exactly (they are
 only ever min and subtract on float32 weights); the rewards carry the
 distances' rounding: rtol 1e-5 / atol 1e-6. Inputs are made with numpy from
 a seed and handed to both."""
@@ -23,10 +26,12 @@ import torch
 
 from iltpu.config import load_config as jax_load_config
 from iltpu.rewards.pwil import PWILDiscriminator as JaxPWIL
+from iltpu.rewards.pwil import PWILState as JaxPWILState
 from iltpu.trainer import Trainer as JaxTrainer
 from iltpu_torch import convert
 from iltpu_torch.config import load_config
-from iltpu_torch.ops.pwil_transport import pwil_transport, pwil_transport_plain
+from iltpu_torch.ops import build
+from iltpu_torch.ops.pwil_transport import feature_major, pwil_transport, pwil_transport_plain
 from iltpu_torch.rewards import PWILDiscriminator
 from iltpu_torch.trainer import Trainer
 from test_torch_trainer import COMMON
@@ -149,6 +154,148 @@ def test_segments_equal_one_pool_at_a_time():
                                         reset[r:r + 1], **kw)
             assert torch.equal(got[r:r + 1], want), (p, r)
         assert torch.equal(pools[p], pool[0]), p
+
+
+def _stress(kind, seed=4, envs=6, n=300, S=4, A=2, steps=3):
+    """Expert data, pools (envs, n), `steps` agent atoms per env and the
+    episode length T for the inputs that stress the kernel's selection:
+    - grid_ties: 3 state and 1 action features on the integers 0..2 (81
+      points for 300 atoms), so atoms repeat and many distances are
+      exactly equal; agents on the same grid, of
+      1/20 each (15 atoms a row, ties among them);
+    - drained: pools of tiny random masses (and some spent atoms), so an
+      agent atom of 1/T takes about 100 of them, past two selections of 32;
+    - exhausted: pools holding less mass than one agent atom, one of them
+      empty from the start."""
+    rng = np.random.default_rng(seed)
+    if kind == "grid_ties":
+        S, A = 3, 1
+        es = rng.integers(0, 3, (n, S)).astype(np.float32)
+        ea = rng.integers(0, 3, (n, A)).astype(np.float32)
+        s = rng.integers(0, 3, (steps, envs, S)).astype(np.float32)
+        a = rng.integers(0, 3, (steps, envs, A)).astype(np.float32)
+        pools = np.full((envs, n), np.float32(1.0 / n), np.float32)
+    else:
+        es, ea = _expert(seed, n, S, A)
+        s = np.asarray(rng.normal(size=(steps, envs, S)) * 1.5, np.float32)
+        a = np.asarray(np.tanh(rng.normal(size=(steps, envs, A))), np.float32)
+        if kind == "drained":
+            pools = np.asarray(rng.uniform(0, 2e-5, (envs, n)), np.float32)
+            pools[rng.uniform(size=(envs, n)) < 0.2] = 0.0
+        else:
+            pools = np.full((envs, n), np.float32(5e-7), np.float32)
+            pools[0] = 0.0
+    return es, ea, s, a, pools, 20 if kind == "grid_ties" else 1000
+
+
+def _distances(atoms, q):
+    """The port's distances in float32 numpy: squared differences summed
+    feature by feature, then the root."""
+    acc = np.zeros(atoms.shape[0], np.float32)
+    for k in range(atoms.shape[1]):
+        t = atoms[:, k] - q[k]
+        acc = acc + t * t
+    return np.sqrt(acc)
+
+
+def _greedy_loop(pool, dist, weight):
+    """iltpu's while loop (iltpu/rewards/pwil.py:85-105) in float32 numpy:
+    a masked argmin a round."""
+    pool, w, cost = pool.copy(), np.float32(weight), np.float32(0.0)
+    while w > 0 and (pool > 0).any():
+        i = int(np.argmin(np.where(pool > 0, dist, np.float32(np.inf))))
+        consume = min(w, pool[i])
+        cost = cost + consume * dist[i]
+        pool[i] = pool[i] - consume
+        w = w - consume
+    return pool, cost
+
+
+def _sorted_walk(pool, dist, weight):
+    """The identity the card's kernel rests on: sort the atoms with mass
+    left by (distance, index) once, then walk them with the loop's
+    arithmetic until the weight is spent."""
+    pool, w, cost = pool.copy(), np.float32(weight), np.float32(0.0)
+    alive = np.flatnonzero(pool > 0)
+    for i in alive[np.lexsort((alive, dist[alive]))]:
+        if not w > 0:
+            break
+        consume = min(w, pool[i])
+        cost = cost + consume * dist[i]
+        pool[i] = pool[i] - consume
+        w = w - consume
+    return pool, cost
+
+
+@pytest.mark.parametrize("kind", ["grid_ties", "drained", "exhausted"])
+def test_stress_inputs_match_iltpu(kind):
+    """compute_reward on the selection kernel's hard inputs, step by step
+    against iltpu's jitted, vmapped one: pools equal, rewards close."""
+    es, ea, s, a, pools, T = _stress(kind)
+    jd, td = _pair(es, ea, time_horizon=T)
+    jstep = jax.jit(jax.vmap(jd.compute_reward))
+    jc = JaxPWILState(expert_weights=jnp.asarray(pools))
+    tc = td.init(pools.shape[0])
+    tc.expert_weights.copy_(torch.from_numpy(pools))
+    for step in range(s.shape[0]):
+        jc, want = jstep(jc, jnp.asarray(s[step]), jnp.asarray(a[step]))
+        _, got = td.compute_reward(tc, torch.from_numpy(s[step]), torch.from_numpy(a[step]))
+        np.testing.assert_array_equal(tc.expert_weights.numpy(), np.asarray(jc.expert_weights),
+                                      err_msg=f"step {step}")
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), err_msg=f"step {step}", **TOL)
+    if kind == "exhausted":
+        assert not bool((tc.expert_weights > 0).any())
+        assert float(got[0]) == np.float32(td.reward_scale)
+
+
+@pytest.mark.parametrize("kind", ["grid_ties", "drained", "exhausted"])
+def test_sorted_walk_equals_greedy_loop(kind):
+    """One sort and a walk give iltpu's greedy loop bit for bit: the pools
+    and the costs equal a float32 transcription of the loop, and the pools
+    equal iltpu's jitted compute_reward. On these inputs a row takes up to
+    ~100 atoms (drained) and every atom of its pool (exhausted)."""
+    es, ea, s, a, pools, T = _stress(kind)
+    jd, td = _pair(es, ea, time_horizon=T)
+    jstep = jax.jit(jax.vmap(jd.compute_reward))
+    atoms = td.expert_atoms.numpy()
+    weight = np.float32(td.agent_weight)
+    jc = JaxPWILState(expert_weights=jnp.asarray(pools))
+    walked, taken = pools.copy(), 0
+    for step in range(s.shape[0]):
+        jc, want = jstep(jc, jnp.asarray(s[step]), jnp.asarray(a[step]))
+        queries = td.normalise(torch.from_numpy(np.concatenate([s[step], a[step]], 1))).numpy()
+        for e in range(pools.shape[0]):
+            dist = _distances(atoms, queries[e])
+            loop_pool, loop_cost = _greedy_loop(walked[e], dist, weight)
+            walk_pool, walk_cost = _sorted_walk(walked[e], dist, weight)
+            np.testing.assert_array_equal(walk_pool, loop_pool)
+            assert walk_cost.tobytes() == loop_cost.tobytes(), (step, e)
+            taken = max(taken, int((walk_pool != walked[e]).sum()))
+            walked[e] = walk_pool
+            reward = np.float32(td.reward_scale) * np.exp(np.float32(-td.reward_bandwidth) * walk_cost)
+            np.testing.assert_allclose(reward, np.asarray(want)[e], **TOL)
+        np.testing.assert_array_equal(walked, np.asarray(jc.expert_weights), err_msg=f"step {step}")
+    assert taken > (64 if kind != "grid_ties" else 10)
+
+
+def test_feature_major_copy_is_kept_until_the_atoms_change():
+    """The kernel's (d, N) copy of the atoms: made once, kept on the tensor,
+    made again after an in-place write."""
+    atoms = torch.from_numpy(np.asarray(np.random.default_rng(5).normal(size=(9, 4)), np.float32))
+    fm = feature_major(atoms)
+    assert fm.shape == (4, 9) and fm.is_contiguous() and torch.equal(fm, atoms.t())
+    assert feature_major(atoms) is fm
+    atoms.mul_(2.0)
+    assert torch.equal(feature_major(atoms), atoms.t())
+
+
+def test_measuring_variant_builds_from_the_kernel_source():
+    """The stamped variant includes the transport's source, so an edit to
+    the kernel changes the variant's build key too."""
+    names = [os.path.basename(p) for p in build._sources("pwil_phases")]
+    assert names[:2] == ["pwil_phases.cu", "pwil_transport.cu"]
+    assert [os.path.basename(p) for p in build._sources("pwil_transport")][0] == "pwil_transport.cu"
+    assert "pwil_transport.cu" not in [os.path.basename(p) for p in build._sources("sac_update")]
 
 
 @pytest.mark.parametrize("extra", [[], ["imitation.mix_expert_data=prefill_memory"],
