@@ -23,7 +23,9 @@ of JAX or `iltpu`. Phases, each printing its results:
    batch) for one step and the chain. Tolerance:
    |kernel - plain| <= atol + rtol |plain| with rtol 2e-5 / atol 2e-6 for one
    step and 1e-4 / 1e-5 for the chain (fp32, summed in another order); SAC
-   also at batch 1024, past the GEMM's whole-depth panels. Each kernel is
+   also at batch 1024, past the GEMM's whole-depth panels; GAIL's Mixup
+   also with a Beta(0.5, 0.5) draw from the trainer's capture-safe
+   sampler (`mixup_alpha=0.5`) at both shapes. Each kernel is
    timed twice: on the device alone (the median of CUDA events around each
    of 60 calls queued while a sleep kernel holds the stream) and
    host-paced (the same without the hold);
@@ -33,7 +35,8 @@ of JAX or `iltpu`. Phases, each printing its results:
    against its plain version (the chain tolerance), at both shapes, for
    both GAIL configurations x min_alpha 0 and 0.05; times per launch and
    per micro-update at K=16 beside the plain version's and the 16
-   per-update calls';
+   per-update calls'; and Mixup with a Beta(0.5, 0.5) draw at both shapes
+   (K = 1, 2, 16 bit-identical, K=5 at the chain tolerance);
 3c. the row-sum kernel: one row sum (centred outside) and GMMIL's fused
    reward (one launch) against their plain versions at GMMIL's 256 x 256
    (D = 7 and 15) and at 256 x 10,001 expert rows (the y loop and a ragged
@@ -68,7 +71,9 @@ of JAX or `iltpu`. Phases, each printing its results:
    discriminator step (one SAC launch an update each); DRIL and RED
    pretrained 50 iterations on the card first; PWIL (one transport launch an
    iteration; its pools bit-equal, the ring's rewards at rtol 1e-5 / atol
-   1e-6). A third run on the CPU with
+   1e-6); GAIL's input options on the autograd step (reward shaping +
+   subtracting log pi; state-only) and Mixup at alpha 0.5 on the GAIL
+   kernel and at update_block=4 (Beta draws). A third run on the CPU with
    the SAC steps in float64 arbitrates the SAC state: an element past the
    tolerance between card and CPU passes, named, only where each is within
    it of the float64 value;
@@ -93,12 +98,24 @@ of JAX or `iltpu`. Phases, each printing its results:
    update_block=16, GMMIL, PWIL, DRIL and the autograd SAC update: every
    chunk replays CUDA graphs, with the launch counters checked as above;
    prints each one's steady env-steps/s beside the host loop's;
+5f. pipelined acting (`training.pipeline=true`, bench.py's default) on
+   GAIL per update and update_block=16, and host acting
+   (`training.host_acting=true`) on GAIL per update, with the launch
+   counters checked as above, each run right after the plain host loop's
+   run of the same path, its steady env-steps/s beside that one's; host
+   acting's costs at 512 envs on the host's clock (the copies each way,
+   the numpy forward, the parameter sync);
 6. graphs: on every path the on-device loop runs (GAIL per update and
    update_block=16, GMMIL, PWIL, SQIL, AdRIL, DRIL, RED on the SAC kernel,
-   the autograd SAC update, RED and the GAIL step on autograd), a chunk
+   the autograd SAC update, RED and the GAIL step on autograd, GAIL Mixup
+   at alpha 0.5 with its Beta draw in the captured front), a chunk
    replayed from CUDA graphs against the same chunk run eagerly on the card
    from the same state and generator state, at full widths: equal bit for
-   bit, with the same launches.
+   bit, with the same launches;
+6b. resume: an on-device GAIL run checkpoints; a fresh Trainer resumes
+   from it with every state tensor and the CUDA generator's state equal to
+   the saved run's bit for bit, then replays a chunk from graphs captured
+   after the load, equal bit for bit to the same chunk run eagerly.
 
 Then the steady rates and the pretraining times with the nvidia-smi line, one `kernels` JSON
 line, the nvidia-smi line, and as the last line {"ok": true, "device":
@@ -135,13 +152,17 @@ def fail(msg):
 
 
 def clone(st):
-    return {k: [t.clone() for t in v] if isinstance(v, list) else v.clone() for k, v in st.items()}
+    return {k: [t.clone() for t in v] if isinstance(v, list) else
+            v.clone() if hasattr(v, "clone") else v for k, v in st.items()}
 
 
 def leaves(st):
+    """A state's tensors by path (a GAIL state with shaping also holds the
+    count of g's leaves, `ng`)."""
     for k, v in st.items():
         for i, t in enumerate(v if isinstance(v, list) else [v]):
-            yield f"{k}[{i}]", t
+            if hasattr(t, "dtype"):
+                yield f"{k}[{i}]", t
 
 
 # parameter leaf -> (its AdamW first and second moments, its step clock)
@@ -386,10 +407,13 @@ def numel(ts):
     return sum(t.numel() for t in ts)
 
 
-def gail_case(S, A, B, bce, seed, dev, Hd=64, sn=None, **changes):
+def gail_case(S, A, B, bce, seed, dev, Hd=64, sn=None, alpha=1.0, **changes):
     """The bench configuration (bce) or the tuned one, with `changes` to
-    the hyperparameters and `sn` to the spectral norm where given."""
+    the hyperparameters and `sn` to the spectral norm where given; the
+    Mixup draws Beta(alpha, alpha) from the trainer's sampler (uniform at
+    alpha 1)."""
     import torch
+    from iltpu_torch.models.distributions import beta_sample
     from iltpu_torch.ops.gail_update import GAILHyper
     from iltpu_torch.rewards import GAILDiscriminator
 
@@ -409,7 +433,9 @@ def gail_case(S, A, B, bce, seed, dev, Hd=64, sn=None, **changes):
         u = lambda n: torch.rand(n, generator=g, device=dev)
         args = [r(B, S), torch.tanh(r(B, A)), 1 + 0.5 * u(B), r(B, S), torch.tanh(r(B, A)),
                 1 + 0.5 * u(B), u(B)]
-        return args, (None if bce else u(B))
+        if bce:
+            return args, None
+        return args, (u(B) if alpha == 1.0 else beta_sample(alpha, (B,), g, dev))
 
     return hyper, st, [step() for _ in range(5)]
 
@@ -565,9 +591,11 @@ def gail_bound_ms(S, A, B, Hd, case):
     return bound_ms(gail_flops(B, Hd, st, args, mix), 4 * (2 * state + batch + B + 1))
 
 
-def kblock_case(S, A, K, bce, min_alpha, dev):
-    """Full-width SAC and GAIL states and K-stacked batches and noise."""
+def kblock_case(S, A, K, bce, min_alpha, dev, alpha=1.0):
+    """Full-width SAC and GAIL states and K-stacked batches and noise (the
+    Mixup draws Beta(alpha, alpha), uniform at alpha 1)."""
     import torch
+    from iltpu_torch.models.distributions import beta_sample
 
     B = 256
     sac_hyper, sac_st, _ = sac_case(S, A, B, 256, min_alpha, 1 + S, dev)
@@ -584,7 +612,7 @@ def kblock_case(S, A, K, bce, min_alpha, dev):
     expert = {"states": r(K, B, S), "actions": torch.tanh(r(K, B, A)), "weights": 1 + 0.5 * u(K, B)}
     noise = {"eps_gp": u(K, B), "eps2": r(K, B, A), "eps_new": r(K, B, A)}
     if not bce:
-        noise["mix"] = u(K, B)
+        noise["mix"] = u(K, B) if alpha == 1.0 else beta_sample(alpha, (K, B), g, dev)
     return sac_hyper, gail_hyper, sac_st, disc_st, batches, expert, noise
 
 
@@ -604,7 +632,7 @@ def per_update_calls(sac_hyper, gail_hyper, sac_st, disc_st, batches, expert, no
     return {"loss": loss, "rewards": tb["rewards"], **aux}
 
 
-def check_kblock(S, A, bce, min_alpha, dev, timed):
+def check_kblock(S, A, bce, min_alpha, dev, timed, alpha=1.0):
     """K = 1, 2 and 16 against K per-update calls (bit-identical? K=1 runs
     GAIL and SAC with no overlap, K=2 hands the rewards over once) and K=5
     against the plain version; with `timed`, the times and the bound at
@@ -614,11 +642,12 @@ def check_kblock(S, A, bce, min_alpha, dev, timed):
     from iltpu_torch.ops import sac_update as su
     from iltpu_torch.ops.kblock_update import _batch_operands, kblock_update, kblock_update_plain
 
-    name = f"kblock S={S} A={A} {'BCE' if bce else 'Mixup'} min_alpha={min_alpha}"
+    name = f"kblock S={S} A={A} {'BCE' if bce else f'Mixup alpha {alpha}'} min_alpha={min_alpha}"
     worst, same, out = (0.0, 0.0), {}, None
     for K, tol, reference in ((1, TOL_STEP, per_update_calls), (2, TOL_STEP, per_update_calls),
                               (16, TOL_STEP, per_update_calls), (5, TOL_CHAIN, kblock_update_plain)):
-        sh, gh, sac_st, disc_st, batches, expert, noise = kblock_case(S, A, K, bce, min_alpha, dev)
+        sh, gh, sac_st, disc_st, batches, expert, noise = kblock_case(S, A, K, bce, min_alpha, dev,
+                                                                      alpha)
         k_sac, k_disc, r_sac, r_disc = clone(sac_st), clone(disc_st), clone(sac_st), clone(disc_st)
         ka = kblock_update(sh, gh, k_sac, k_disc, batches, expert, noise)
         ra = reference(sh, gh, r_sac, r_disc, batches, expert, noise)
@@ -833,6 +862,9 @@ def check_pwil(dev):
 
 
 GMMIL_ARGS = ["algorithm=GMMIL", "training.disc_pallas=false", "training.fused_update_scan=false"]
+MIXUP05 = ("imitation.loss_function=Mixup", "imitation.mixup_alpha=0.5")
+OPTIONS = ("imitation.discriminator.reward_shaping=true",
+           "imitation.discriminator.subtract_log_policy=true")
 
 
 def alg_args(alg, sac_pallas=True):
@@ -1051,6 +1083,7 @@ GRAPH_PATHS = (
     ("adril", tuple(alg_args("AdRIL"))), ("dril", tuple(alg_args("DRIL"))),
     ("red", tuple(alg_args("RED"))), ("sac_autograd", tuple(alg_args("SAC", False))),
     ("red_autograd", tuple(alg_args("RED", False))), ("gail_autograd", tuple(alg_args("GAIL"))),
+    ("gail_mixup05", MIXUP05),
 )
 
 
@@ -1073,60 +1106,141 @@ def restore(t, env_state, snap):
     t.gen.set_state(gen)
 
 
+def graph_vs_eager(t, env_state, step, n, name):
+    """One chunk of n iterations from env step `step` replayed from CUDA
+    graphs (captured here, after a warm-up chunk) against the same chunk run
+    eagerly through `Trainer.run_chunk`, from the same state and generator
+    state: every state tensor, the env state, the generator, the rewards,
+    dones and last aux must be equal bit for bit, and the launch counters
+    must move alike. Returns (state tensors compared, launches a chunk)."""
+    import torch
+    from iltpu_torch.graphs import ChunkGraphs
+
+    N = t.cfg.num_envs
+    graphs = ChunkGraphs(t, n)
+    graphs.run(env_state, step, n, N)  # warm-up, capture, replays
+    step += n * N
+    before = snapshot(t, env_state)
+    c0 = counts()
+    chunk = t.run_chunk(env_state, step, n, N)
+    eager = [x.clone() for x in chunk[:2]]
+    eager_aux = {k: v.clone() for k, v in chunk[2].items()}
+    eager_launches = {k: v - c0[k] for k, v in counts().items()}
+    after_eager = snapshot(t, env_state)
+    restore(t, env_state, before)
+    c0 = counts()
+    rewards, dones, aux = graphs.run(env_state, step, n, N)
+    graph_launches = {k: v - c0[k] for k, v in counts().items()}
+    after_graphs = snapshot(t, env_state)
+    torch.cuda.synchronize()
+    differ = [k for k, v in after_eager[0].items() if not torch.equal(v, after_graphs[0][k])]
+    if not torch.equal(after_eager[1], after_graphs[1]):
+        differ.append("generator")
+    differ += [k for k, a, b in (("rewards", eager[0], rewards), ("dones", eager[1], dones))
+               if not torch.equal(a, b)]
+    differ += [f"aux {k}" for k, v in eager_aux.items() if k not in aux or not torch.equal(v, aux[k])]
+    if differ:
+        raise AssertionError(f"graphs {name}: the replayed chunk differs from the eager one in "
+                             f"{len(differ)} tensors: {differ[:12]}")
+    if eager_launches != graph_launches:
+        raise AssertionError(f"graphs {name}: launches {graph_launches} replayed, "
+                             f"{eager_launches} eager")
+    print(f"graphs {name}: a chunk of {n} iterations x {N} updates replayed from graphs equals "
+          f"the eager chunk bit for bit in {len(after_eager[0])} tensors, the generator, the "
+          f"rewards, dones and last aux; launches {graph_launches}")
+    return len(after_eager[0]), graph_launches
+
+
+GRAPH_ARGS = [a for a in TRAINER_ARGS if not a.startswith(("num_envs", "training.start"))] + [
+    "num_envs=16", "training.start=0", "training.on_device_loop=true"]
+
+
 def check_graphs(dev):
     """6: on each path, one chunk (4 iterations of 16 envs, 16 updates an
-    iteration, full widths) replayed from CUDA graphs against the same chunk
-    run eagerly through `Trainer.run_chunk`, from the same state and
-    generator state: every state tensor (SAC, discriminator, pools, ring),
-    the env state, the generator, the chunk's rewards and dones and its last
-    aux must be equal bit for bit, and the launch counters must move alike.
-    Returns {path: (state tensors compared, launches a chunk)}."""
-    import torch
+    iteration, full widths) from CUDA graphs against the same chunk run
+    eagerly (`graph_vs_eager`). Returns {path: (state tensors compared,
+    launches a chunk)}."""
     from iltpu_torch.config import load_config
-    from iltpu_torch.graphs import ChunkGraphs
     from iltpu_torch.trainer import Trainer
 
-    N, n = 16, 4
-    args = [a for a in TRAINER_ARGS if not a.startswith(("num_envs", "training.start"))]
-    args += [f"num_envs={N}", "training.start=0", "training.on_device_loop=true"]
     out = {}
     for name, extra in GRAPH_PATHS:
         out_dir = os.path.join(REPO, "outputs", "chip_smoke", f"graphs_{name}")
-        t = Trainer(load_config(args + list(extra) + [f"output_dir={out_dir}"]), out_dir=out_dir)
+        t = Trainer(load_config(GRAPH_ARGS + list(extra) + [f"output_dir={out_dir}"]),
+                    out_dir=out_dir)
         env_state = t.env.reset()
         t.run_chunk(env_state, 0, 4, 0)  # rows in the ring
-        graphs = ChunkGraphs(t, n)
-        graphs.run(env_state, 4 * N, n, N)  # warm-up, capture, replays
-        before = snapshot(t, env_state)
-        c0 = counts()
-        chunk = t.run_chunk(env_state, 8 * N, n, N)
-        eager = [x.clone() for x in chunk[:2]]
-        eager_aux = {k: v.clone() for k, v in chunk[2].items()}
-        eager_launches = {k: v - c0[k] for k, v in counts().items()}
-        after_eager = snapshot(t, env_state)
-        restore(t, env_state, before)
-        c0 = counts()
-        rewards, dones, aux = graphs.run(env_state, 8 * N, n, N)
-        graph_launches = {k: v - c0[k] for k, v in counts().items()}
-        after_graphs = snapshot(t, env_state)
-        torch.cuda.synchronize()
-        differ = [k for k, v in after_eager[0].items() if not torch.equal(v, after_graphs[0][k])]
-        if not torch.equal(after_eager[1], after_graphs[1]):
-            differ.append("generator")
-        differ += [k for k, a, b in (("rewards", eager[0], rewards), ("dones", eager[1], dones))
-                   if not torch.equal(a, b)]
-        differ += [f"aux {k}" for k, v in eager_aux.items() if k not in aux or not torch.equal(v, aux[k])]
-        if differ:
-            raise AssertionError(f"graphs {name}: the replayed chunk differs from the eager one in "
-                                 f"{len(differ)} tensors: {differ[:12]}")
-        if eager_launches != graph_launches:
-            raise AssertionError(f"graphs {name}: launches {graph_launches} replayed, "
-                                 f"{eager_launches} eager")
-        out[name] = (len(after_eager[0]), graph_launches)
-        print(f"graphs {name}: a chunk of {n} iterations x {N} updates replayed from graphs equals "
-              f"the eager chunk bit for bit in {len(after_eager[0])} tensors, the generator, the "
-              f"rewards, dones and last aux; launches {graph_launches}")
+        out[name] = graph_vs_eager(t, env_state, 4 * 16, 4, name)
     return out
+
+
+def check_resume(dev):
+    """6b: an on-device GAIL run (graphs on the card) writes a checkpoint;
+    a fresh Trainer resumes from it: every state tensor and the CUDA
+    generator's state must equal the saved run's bit for bit; then the
+    resumed trainer replays a chunk from graphs captured after the load,
+    which must equal the same chunk run eagerly, bit for bit."""
+    import torch
+    from iltpu_torch.config import load_config
+    from iltpu_torch.trainer import Trainer
+
+    out_dir = os.path.join(REPO, "outputs", "chip_smoke", "resume")
+    args = GRAPH_ARGS + ["steps=512", "checkpointing.interval=256", "logging.interval=128",
+                         f"output_dir={out_dir}"]
+    t = Trainer(load_config(args), out_dir=out_dir)
+    t.run()
+    ckpt = os.path.join(out_dir, "checkpoint")
+    r = Trainer(load_config(args + [f"checkpointing.resume={ckpt}"]), out_dir=out_dir)
+    saved, got = t.state_tensors(), r.state_tensors()
+    differ = [k for k in saved if not torch.equal(saved[k], got[k])]
+    if sorted(saved) != sorted(got) or differ or not torch.equal(t.gen.get_state(), r.gen.get_state()):
+        raise AssertionError(f"resume: the restored state differs from the saved run's in "
+                             f"{differ[:12]} or the generator")
+    if r.start_step != 512 or r.metrics["update_steps"] != t.metrics["update_steps"]:
+        raise AssertionError(f"resume: start step {r.start_step}, metrics not restored")
+    print(f"resume: an on-device GAIL run of 512 steps checkpointed; a fresh trainer resumed it "
+          f"with {len(got)} state tensors and the CUDA generator state equal bit for bit")
+    env_state = r._reset_env()
+    return graph_vs_eager(r, env_state, r.start_step, 4, "resumed gail")
+
+
+def host_acting_costs(dev, N=512, n=50):
+    """5f: what host acting pays an iteration at 512 envs, in ms of the
+    host's clock: the observations' (and rewards' and dones') copy to the
+    host and the actions' copy back through pinned buffers, each waited
+    for, and the numpy forward of the actor (width 256, pointmass shapes)
+    that samples the actions; the parameter sync as well."""
+    import numpy as np
+    import torch
+    from iltpu_torch.models import SoftActor
+    from iltpu_torch.models.host_inference import HostActor, HostReads
+
+    actor = SoftActor(5, 2, 256, 2, device=dev)
+    actor.reset_parameters(torch.Generator(device=dev).manual_seed(3))
+    reads, host = HostReads(dev), HostActor(actor, actor.net.leaves())
+    obs, rew, done = torch.randn(N, 5, device=dev), torch.randn(N, device=dev), torch.zeros(
+        N, dtype=torch.bool, device=dev)
+    rng = np.random.default_rng(0)
+    actions = host.sample(obs.cpu().numpy(), rng)
+
+    def timed(fn):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(out))
+
+    d2h = timed(lambda: reads.wait(reads.start([rew, done, obs])))
+    h2d = timed(lambda: (reads.to_device(actions), torch.cuda.synchronize()))
+    obs_h = obs.cpu().numpy()
+    forward = timed(lambda: host.sample(obs_h, rng))
+    sync = timed(lambda: (host.start_sync(actor.net.leaves()), host.refresh()))
+    print(f"host acting at {N} envs, ms an iteration on the host's clock: obs, rewards and dones "
+          f"to the host {d2h:.4f}, actions to the card {h2d:.4f}, numpy actor forward + sample "
+          f"{forward:.4f}, parameter sync (copy, wait, numpy copies) {sync:.4f}")
+    return d2h, h2d, forward, sync
 
 
 def ptxas_report(log):
@@ -1217,6 +1331,11 @@ def main():
         print(f"kernel gail_update variant S={S} A={A} B={B} Hd={Hd} {'BCE' if bce else 'Mixup'} "
               f"{case}: {gu.smem_bytes(B, S + A, Hd)} bytes of shared memory, max_abs_err "
               f"{err[0]:.3g}, max_rel_err {err[1]:.3g}")
+    # the Mixup draw at alpha 0.5: Beta(0.5, 0.5) from the trainer's capture-safe sampler
+    for S, A in ((5, 2), (12, 3)):
+        err, _, _ = check_gail(S, A, False, dev, timed=False, alpha=0.5)
+        print(f"kernel gail_update S={S} A={A} Mixup with a Beta(0.5, 0.5) mix, 1 step and a chain "
+              f"of 5: max_abs_err {err[0]:.3g}, max_rel_err {err[1]:.3g}")
     # a batch past the GEMM's whole-depth panels: the ring of 128-deep chunks
     err, _ = check_sac(5, 2, 0.0, dev, B=1024, timed=False)
     print(f"kernel sac_update pointmass B=1024 (chunked weight-gradient depth): max_abs_err "
@@ -1245,6 +1364,13 @@ def main():
         if broken:
             raise AssertionError(f"kblock_update {where}: not bit-identical to K per-update calls "
                                  f"in {broken} configurations")
+        e, same, _ = check_kblock(S, A, False, 0.0, dev, timed=False, alpha=0.5)
+        if not all(same.values()):
+            raise AssertionError(f"kblock_update {where} Beta(0.5, 0.5): not bit-identical to K "
+                                 f"per-update calls at K in {[K for K, v in same.items() if not v]}")
+        print(f"kernel kblock_update {where} S={S} A={A} Mixup with a Beta(0.5, 0.5) mix: "
+              f"bit-identical to K per-update calls at K={sorted(same)}, K=5 against the plain "
+              f"version: max_abs_err {e[0]:.3g}, max_rel_err {e[1]:.3g}")
 
     # 3c. the row-sum kernel
     rowsum = check_rowsum(dev)
@@ -1290,6 +1416,11 @@ def main():
         (tuple(alg_args("DRIL")), launches_of(sac_update=24)),  # BC aux in place before the kernel
         (tuple(alg_args("GAIL")), launches_of(sac_update=24)),  # the autograd GAIL step
         (tuple(alg_args("PWIL")), launches_of(sac_update=24, pwil_transport=3)),
+        # the GAIL input options on the autograd step; Mixup at alpha 0.5 on both kernels
+        ((*alg_args("GAIL"), *OPTIONS), launches_of(sac_update=24)),
+        ((*alg_args("GAIL"), "imitation.state_only=true"), launches_of(sac_update=24)),
+        (MIXUP05, launches_of(sac_update=24, gail_update=24)),
+        (("training.update_block=4", *MIXUP05), launches_of(kblock_update=6)),
     ):
         err, launched = check_against_cpu(dev, extra)
         if launched != want:
@@ -1354,9 +1485,27 @@ def main():
     print("trainer on-device loop vs host loop, steady env-steps/s: " + ", ".join(
         f"{k} {rates[k + '_device']:.1f} vs {rates[k]:.1f}"
         for k in ("gail", "gail_kblock16", "gmmil", "pwil", "dril", "sac_autograd")) + f" on {smi}")
+    # 5f. pipelined and host acting (bench.py's GAIL configuration, on pointmass), each run
+    # right after the plain host loop's run of the same path
+    for name, extra, expect in (
+        ("gail_again", (), per_update),
+        ("gail_pipeline", ("training.pipeline=true",), per_update),
+        ("gail_host_acting", ("training.host_acting=true",), per_update),
+        ("gail_kblock16_again", ("training.update_block=16",), blocked),
+        ("gail_kblock16_pipeline", ("training.update_block=16", "training.pipeline=true"), blocked),
+    ):
+        counted, rates[name], pre[name] = run_trainer(name, extra, expect)
+    print("trainer pipelined and host acting vs the plain host loop, steady env-steps/s: "
+          f"gail pipelined {rates['gail_pipeline']:.1f} and host acting "
+          f"{rates['gail_host_acting']:.1f} vs {rates['gail_again']:.1f} (phase 5: "
+          f"{rates['gail']:.1f}), gail_kblock16 pipelined {rates['gail_kblock16_pipeline']:.1f} vs "
+          f"{rates['gail_kblock16_again']:.1f} (phase 5b: {rates['gail_kblock16']:.1f}) on {smi}")
+    host_acting_costs(dev)
 
     # 6. a chunk from CUDA graphs against the same chunk run eagerly, on every path
     check_graphs(dev)
+    # 6b. checkpoint and resume on the card, then graphs captured after the load
+    check_resume(dev)
 
     # the row-sum kernel's launches on its path: both of its entries
     launches["gaussian_rowsum"] += launches.pop("gmmil_witness_reward")

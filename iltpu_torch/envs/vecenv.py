@@ -40,12 +40,14 @@ class VecEnv:
             obs = torch.cat([obs, torch.zeros_like(obs[:, :1])], -1)
         return obs
 
-    def _draw(self) -> torch.Tensor:
+    def _draw(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         shape = (self.num_envs, self.env.reset_draws)
-        return torch.rand(shape, generator=self.generator, device=self.device)
+        return torch.rand(shape, generator=generator or self.generator, device=self.device)
 
-    def reset(self) -> Dict:
-        inner, obs = self.env.reset_from(self._draw())
+    def reset(self, generator: Optional[torch.Generator] = None) -> Dict:
+        """Fresh initial states, drawn from `generator` (the env's own when
+        None)."""
+        inner, obs = self.env.reset_from(self._draw(generator))
         t = torch.zeros(self.num_envs, dtype=torch.int64, device=obs.device)
         return {"inner": inner, "t": t, "obs": self._augment(obs)}
 

@@ -183,7 +183,7 @@ def smem_bytes(B: int, D: int, Hd: int) -> int:
             f"the gail_update kernel cannot take batch {B}, input {D}, width {Hd}: it has "
             f"no variant past input 32, width 128, or input 16 with width 64, and a block "
             f"has {limit} bytes of shared memory (this shape needs {n or 'no variant'}); "
-            "ROADMAP.md, 'GAIL options'")
+            "ROADMAP.md, 'GAIL kernel coverage'")
     return n
 
 

@@ -39,11 +39,27 @@ Everything an iteration updates is updated in place (`state_tensors`), so a
 captured iteration replays against the live state. On the card the
 kernels of `iltpu_torch/csrc/` run; on the CPU (platform=cpu) their plain
 versions. Entry points run on the card (`platform` null or gpu) and raise
-when CUDA is missing. The GAIL input options (shaping, log-pi, state-only,
-Mixup with alpha != 1), pipelined or host acting, other env backends, data
-parallelism, checkpointing and the profiler window raise
-NotImplementedError naming the ROADMAP.md item that will bring them;
-kernel flags that iltpu refuses raise iltpu's ValueError.
+when CUDA is missing.
+
+The host loop has iltpu's two acting modes. `training.pipeline=true` issues
+the next iteration's act and env step before this iteration's updates, so
+the actor reads params one iteration stale, and reads each iteration's
+rewards and dones through a pinned copy that does not wait for the
+updates; the generator draws in the plain loop's order. With
+`training.host_acting=true` a numpy copy of the actor samples the actions
+on the host (`models.host_inference.HostActor`), from params synced one
+iteration behind. Either flag with `training.on_device_loop=true` takes the
+on-device loop, as iltpu does.
+
+`checkpointing.interval` writes the whole state (`convert.train_state_tree`,
+iltpu's layout) with the step, metrics, score and the generator's state
+to `checkpoint/`, at iltpu's cadences; `checkpointing.resume` copies one
+back into the tensors the trainer built. The run writes `agent/`,
+`discriminator/` and the best evaluation's `agent_best/` as
+`utils.checkpoint` directories, and `metrics.pkl`. Other env backends, data
+parallelism and the profiler window raise NotImplementedError naming the
+ROADMAP.md item that will bring them; kernel flags that iltpu refuses raise
+iltpu's ValueError.
 """
 
 import os
@@ -69,6 +85,8 @@ from iltpu_torch.data.replay import COLUMNS
 from iltpu_torch.envs import make_env
 from iltpu_torch.models import SoftActor, TwinCritic
 from iltpu_torch.models.actor import DRIL_ENSEMBLE_SIZE
+from iltpu_torch.models.distributions import beta_sample
+from iltpu_torch.models.host_inference import HostActor, HostReads
 from iltpu_torch.ops.gail_update import GAILHyper, gail_update
 from iltpu_torch.ops.kblock_update import kblock_update
 from iltpu_torch.ops.sac_update import sac_update
@@ -90,6 +108,7 @@ from iltpu_torch.updates import (
     behavioural_cloning_update,
     target_estimation_update,
 )
+from iltpu_torch.utils.checkpoint import load_aux, load_checkpoint, save_checkpoint
 
 TRAINABLE_DISCRIMINATORS = ("DRIL", "GAIL", "RED")
 
@@ -146,22 +165,10 @@ def check_supported(cfg: DotDict) -> None:
             "and training.disc_pallas, no bc_aux_loss, and a single-device (mesh-free) run"
         )
     checks = [
-        (not t.get("pipeline") and not t.get("host_acting"),
-         "training.pipeline/host_acting", "Pipelined and host acting"),
         (cfg.env_backend == "jax", f"env_backend={cfg.env_backend}", "Native hopper env"),
         (cfg.parallel.get("data_axis") is None, "parallel.data_axis", "Data parallel"),
-        (cfg.checkpointing.interval == 0 and cfg.checkpointing.resume is None,
-         "checkpointing", "Checkpoint and resume"),
         (not (cfg.get("profiling") or {}).get("trace_dir"), "profiling.trace_dir", "Tooling"),
     ]
-    if alg == "GAIL":
-        checks += [
-            (icfg.get("loss_function") != "Mixup" or icfg.get("mixup_alpha") == 1,
-             "imitation.mixup_alpha != 1", "GAIL options"),
-            (not d.get("reward_shaping") and not d.get("subtract_log_policy")
-             and not icfg.get("state_only"),
-             "GAIL shaping/log-pi/state-only", "GAIL options"),
-        ]
     for ok, what, item in checks:
         if not ok:
             raise _not_ported(what, item)
@@ -247,6 +254,10 @@ class Trainer:
         elif alg == "GAIL":
             self.disc = GAILDiscriminator(
                 S, A,
+                state_only=icfg.state_only,
+                reward_shaping=bool(d.reward_shaping),
+                subtract_log_policy=bool(d.subtract_log_policy),
+                discount=rcfg.discount,
                 reward_function=d.reward_function,
                 hidden_size=d.hidden_size,
                 depth=d.depth,
@@ -307,7 +318,11 @@ class Trainer:
         )
         self.score = []
         self._log_queue = []
-        self.step_done = self.updates_done = 0
+        self.step_done = self.updates_done = self.start_step = 0
+        # the agent_best floor: seeded once from an existing snapshot's score
+        self._best_prior, self._best_seeded = float("-inf"), False
+        if cfg.checkpointing.resume:
+            self._resume(cfg.checkpointing.resume)
 
     # ------------------------------------------------------------ updates
 
@@ -315,7 +330,8 @@ class Trainer:
         """Every per-update draw of one iteration, in bulk from the trainer's
         generator, each with a leading n_updates axis (the replay and expert
         sample integers are drawn by replay_sample when absent): GAIL's
-        penalty interpolation `eps_gp` and Mixup draw `mix`, SAC's `eps2` and
+        penalty interpolation `eps_gp` and Mixup draw `mix` (Beta(alpha,
+        alpha); a uniform at alpha 1, as iltpu), SAC's `eps2` and
         `eps_new`, and the keep-masks of DRIL's five members for each layer
         k that drops (`dril_mask<k>`, (n_updates, 5, B, width))."""
         B, A, g, dev = self.cfg.training.batch_size, self.action_size, self.gen, self.device
@@ -326,7 +342,9 @@ class Trainer:
         noise["eps2"] = torch.randn((n_updates, B, A), generator=g, device=dev)
         noise["eps_new"] = torch.randn((n_updates, B, A), generator=g, device=dev)
         if gail and self.cfg.imitation.loss_function == "Mixup":
-            noise["mix"] = torch.rand((n_updates, B), generator=g, device=dev)  # Beta(1, 1)
+            alpha = float(self.cfg.imitation.mixup_alpha)
+            noise["mix"] = (torch.rand((n_updates, B), generator=g, device=dev) if alpha == 1.0
+                            else beta_sample(alpha, (n_updates, B), g, dev))  # Beta(1, 1) exactly
         if self.algorithm == "DRIL":
             masks = self.disc.net.draw_masks((n_updates, DRIL_ENSEMBLE_SIZE, B), g)
             noise.update({f"dril_mask{k}": m for k, m in enumerate(masks) if m is not None})
@@ -413,11 +431,9 @@ class Trainer:
     ) -> Dict[str, torch.Tensor]:
         """`front`, then its n_updates updates (iltpu's transition_core).
         Returns the last update's aux, with PWIL's rewards."""
-        aux, batches, expert_batches, draws = self.front(
-            step, obs, actions, rewards, next_obs, terminals, timeouts, n_updates, noise)
-        if n_updates:
-            aux.update(self.run_updates(step, batches, expert_batches, draws, n_updates))
-        return aux
+        front = self.front(step, obs, actions, rewards, next_obs, terminals, timeouts, n_updates,
+                           noise)
+        return self._updates_of(step, front, n_updates)
 
     def update(self, step, tb, eb, nz) -> Dict[str, torch.Tensor]:
         """One update (iltpu's `update_fn`) on the policy batch `tb`, the
@@ -435,8 +451,11 @@ class Trainer:
                 )
                 aux["discriminator_loss"] = d_loss[0]
             else:
+                # log pi at the update's pre-SAC actor params (shared with self.sac["a"])
+                log_pi = self.actor.log_prob if self.disc.subtract_log_policy else None
                 aux["discriminator_loss"] = adversarial_imitation_update(
-                    self.disc, self.disc_state, tb, eb, self.adv_cfg, nz["eps_gp"], nz.get("mix"))
+                    self.disc, self.disc_state, tb, eb, self.adv_cfg, nz["eps_gp"], nz.get("mix"),
+                    log_pi)
         if icfg.mix_expert_data == "mixed_batch" and alg != "AdRIL":
             tb = mix_expert_agent_transitions(tb, eb)
         tb = dict(tb)
@@ -455,9 +474,12 @@ class Trainer:
         elif alg == "DRIL":
             masks = [nz.get(f"dril_mask{k}") for k in range(self.disc.net.n_layers)]
             tb["rewards"] = self.disc.dril_reward(tb["states"], tb["actions"], self.dril_threshold, masks)
-        elif alg == "GAIL":
-            tb["rewards"] = (gail_rewards if self.disc_pallas
-                             else self.disc.predict_reward(tb["states"], tb["actions"], self.disc_state))
+        elif alg == "GAIL" and self.disc_pallas:
+            tb["rewards"] = gail_rewards
+        elif alg == "GAIL":  # the updated discriminator's, on the (mixed) batch
+            tb["rewards"] = self.disc.predict_reward(
+                tb["states"], tb["actions"], self.disc_state, tb["next_states"], tb["terminals"],
+                log_pi and log_pi(tb["states"], tb["actions"]))
         elif alg == "GMMIL":
             self.disc_state, tb["rewards"] = self.disc.predict_reward(
                 self.disc_state, tb["states"], tb["actions"], eb["states"], eb["actions"],
@@ -478,24 +500,37 @@ class Trainer:
         return aux
 
     @torch.no_grad()
+    def act_env(self, env_state: Dict, actions: Optional[torch.Tensor] = None):
+        """Act from the envs' observations (the actor's sample, unless
+        `actions` are given) and step the envs, their state in place.
+        Returns (the observations acted on, the actions, the env's
+        outputs)."""
+        obs = env_state["obs"].clone()  # the step overwrites the state
+        if actions is None:
+            actions = self.actor.sample(obs, generator=self.gen)[0]
+        _, out = self.env.step(env_state, actions)
+        return obs, actions, out
+
+    def front_of(self, step, acted, n_updates: int):
+        """`front` on what `act_env` returned."""
+        obs, actions, out = acted
+        return self.front(step, obs, actions, out["reward"], out["next_obs"], out["terminal"],
+                          out["timeout"], n_updates)
+
+    @torch.no_grad()
     def act_and_step(self, env_state: Dict, step, n_updates: int):
         """An iteration up to its updates: act from the envs' observations,
         step the envs (their state in place), then `front`. Returns (the
         env's outputs, front's (aux, batches, expert batches, draws))."""
-        obs = env_state["obs"].clone()  # the step overwrites the state
-        actions = self.actor.sample(obs, generator=self.gen)[0]
-        _, out = self.env.step(env_state, actions)
-        return out, self.front(step, obs, actions, out["reward"], out["next_obs"],
-                               out["terminal"], out["timeout"], n_updates)
+        acted = self.act_env(env_state)
+        return acted[2], self.front_of(step, acted, n_updates)
 
     def iteration(self, env_state: Dict, step, n_updates: int):
         """One iteration of either loop: act -> env step -> PWIL reward ->
         append -> draws and bulk samples -> n_updates updates. Returns (the
         env's outputs, the aux)."""
-        out, (aux, batches, expert_batches, draws) = self.act_and_step(env_state, step, n_updates)
-        if n_updates:
-            aux.update(self.run_updates(step, batches, expert_batches, draws, n_updates))
-        return out, aux
+        out, front = self.act_and_step(env_state, step, n_updates)
+        return out, self._updates_of(step, front, n_updates)
 
     def run_chunk(self, env_state: Dict, step: int, n_iters: int, upi: int):
         """n_iters iterations of `upi` updates from env step `step`, one by
@@ -584,28 +619,83 @@ class Trainer:
         self.metrics["test_steps"].append(step)
         self.metrics["test_returns"].append(test_returns)
         self.metrics["test_returns_normalized"].append(normalized)
+        # iltpu's agent_best: rewritten on a strict improvement over this
+        # run's scores and over the score inside an existing snapshot of the
+        # port's (one with only iltpu's header.pkl gives no floor)
+        best = os.path.join(self.out_dir, self.prefix + "agent_best")
+        if not self._best_seeded:
+            self._best_seeded = True
+            try:
+                self._best_prior = float(load_aux(best)["score"])
+            except (OSError, EOFError, KeyError, pickle.UnpicklingError):
+                pass  # no snapshot of the port's, or an unreadable one: no floor
+        score = self.score[-1]
+        if score > max(max(self.score[:-1], default=float("-inf")), self._best_prior):
+            save_checkpoint(best, self._best_tree(step, score), aux={"step": step, "score": score})
+
+    def _best_tree(self, step: int, score: float) -> Dict:
+        return dict(convert.agent_tree(self.sac), step=np.asarray(step), score=np.asarray(score))
 
     def _save(self):
+        """iltpu's run outputs: `agent/` (actor, critic, log_alpha) and, for
+        the trained discriminators, `discriminator/`, as checkpoint
+        directories in iltpu's leaf order; `metrics.pkl`."""
         pre = os.path.join(self.out_dir, self.prefix)
-        tree = convert.sac_tree(self.sac)
-        agent = {k: tree[k] for k in ("actor_params", "critic_params", "log_alpha")}
-        with open(pre + "agent.pkl", "wb") as f:
-            pickle.dump(agent, f)
+        save_checkpoint(pre + "agent", convert.agent_tree(self.sac))
         if self.algorithm in TRAINABLE_DISCRIMINATORS:  # as iltpu: not GMMIL's
-            with open(pre + "discriminator.pkl", "wb") as f:
-                pickle.dump(self._disc_params(), f)
+            save_checkpoint(pre + "discriminator", convert.disc_params_tree(self))
         with open(pre + "metrics.pkl", "wb") as f:
             pickle.dump(self.metrics, f)
 
-    def _disc_params(self):
-        """The discriminator's parameters in iltpu's layout (numpy)."""
-        if self.algorithm == "GAIL":
-            return convert.disc_tree(self.disc_state)["params"]
-        if self.algorithm == "DRIL":
-            return convert.opt_tree(self.disc_state)["params"]
-        tree = convert.red_tree(self.disc_state)
-        return {"predictor": tree["params"], "target": tree["target"],
-                "sigma_1": tree["sigma_1"], "sigma_set": tree["sigma_set"]}
+    def _spare_rows(self) -> Dict[str, np.ndarray]:
+        """The rings' spare rows (the writes of invalid rows), which iltpu's
+        layout has no place for: the port's header keeps them, so a round
+        trip restores every state tensor."""
+        return {f"{ring}.{k}": getattr(getattr(self, ring), k)[-1].cpu().numpy()
+                for ring in ("replay", "expert") for k in COLUMNS}
+
+    def _checkpoint(self, step: int, updates_done: int):
+        """The whole state (iltpu's layout) and, in the port's header, the
+        step, metrics, score, update count, the generator's state and the
+        rings' spare rows."""
+        self._flush_logs()
+        save_checkpoint(
+            os.path.join(self.out_dir, self.prefix + "checkpoint"),
+            convert.train_state_tree(self),
+            aux={"step": step, "metrics": self.metrics, "score": self.score,
+                 "updates_done": updates_done, "generator": self.gen.get_state().numpy(),
+                 "spare_rows": self._spare_rows(), "replay_size": self.replay.size},
+        )
+
+    @torch.no_grad()
+    def _resume(self, path: str):
+        """Copy a checkpoint into the tensors this trainer built (the SAC
+        state, the rings, the discriminator's, which other objects share),
+        then the generator's state: before any graph is captured. The ring
+        keeps the checkpoint's size, as iltpu's does (memory.size is
+        clamped to the run's steps): a ring of another size is rebuilt
+        first, before anything holds it."""
+        size = load_aux(path)["replay_size"]
+        if size != self.replay.size:
+            r = self.replay
+            self.replay = replay_init(size, self.state_size, self.action_size, r.absorbing,
+                                      self.device)
+        tree, aux = load_checkpoint(path, like=convert.train_state_tree(self))
+        convert.load_train_state_(self, tree)
+        for name, row in aux["spare_rows"].items():
+            ring, k = name.split(".")
+            getattr(getattr(self, ring), k)[-1].copy_(torch.from_numpy(row))
+        self.metrics, self.score = aux["metrics"], aux["score"]
+        self.start_step, self.updates_done = aux["step"], aux["updates_done"]
+        self.gen.set_state(torch.from_numpy(aux["generator"]))
+
+    def _reset_env(self) -> Dict:
+        """The envs' first state, from the trainer's generator; on a resumed
+        run (envs are not checkpointed), from the run's seed, as iltpu
+        resets them."""
+        if self.start_step == 0:
+            return self.env.reset()
+        return self.env.reset(torch.Generator(self.device).manual_seed(self.cfg.seed))
 
     # ------------------------------------------------------- pretraining
 
@@ -648,7 +738,8 @@ class Trainer:
     def run(self) -> float:
         cfg = self.cfg
         start_time = time.time()
-        if cfg.bc_pretraining.iterations > 0:
+        fresh = self.start_step == 0  # a resumed run skips the pretraining and prefill
+        if cfg.bc_pretraining.iterations > 0 and fresh:
             self.bc_pretrain()
             if self.algorithm == "BC":  # the early exit: evaluate the cloned policy
                 if cfg.check_time_usage:
@@ -661,19 +752,19 @@ class Trainer:
                 self.metrics["test_returns_normalized"] = [normalized]
                 self._save()
                 return float(np.mean(normalized))
-        if self.algorithm in ("DRIL", "RED"):
+        if self.algorithm in ("DRIL", "RED") and fresh:
             self.pretrain_discriminator()
             if cfg.check_time_usage:
                 self._sync()
                 self.metrics["pre_training_time"] = time.time() - start_time
                 start_time = time.time()
-        if self.algorithm == "PWIL" and cfg.imitation.mix_expert_data != "none":
+        if self.algorithm == "PWIL" and cfg.imitation.mix_expert_data != "none" and fresh:
             # the expert rows' rewards become PWIL's, before any transfer
             self.expert.rows("rewards").copy_(self.disc.relabel(*(
                 self.expert.rows(k) for k in ("states", "actions", "terminals", "timeouts"))))
-        if cfg.imitation.mix_expert_data == "prefill_memory":
+        if cfg.imitation.mix_expert_data == "prefill_memory" and fresh:
             replay_transfer(self.replay, self.expert)
-        if cfg.training.get("on_device_loop"):
+        if cfg.training.get("on_device_loop"):  # whatever the acting flags say, as iltpu
             self._device_loop()
         else:
             self._host_loop()
@@ -682,31 +773,72 @@ class Trainer:
             self._record_eval(self.step_done)
         return self._finish()
 
+    def _updates_owed(self, step: int) -> int:
+        """The host loop's update count once the iteration that ends at env
+        step `step` is done (none before the first): one update per
+        `interval` env steps from training.start."""
+        t = self.cfg.training
+        return (step - t.start) // t.interval + 1 if step >= max(t.start, 1) else 0
+
     def _host_loop(self):
+        """iltpu's host loop (`iltpu/trainer.py:1449-1637`): one iteration at
+        a time, the host reading each iteration's rewards and dones. Plain
+        acting reads them after the iteration's updates; pipelined acting
+        issues the next iteration's act and env step before this one's
+        updates and reads through a pinned copy that does not wait for
+        them; host acting samples the next actions in numpy while the
+        updates run. A resumed run continues from the checkpoint's step with
+        the update count the schedule had reached there (iltpu's restarts
+        from 0 and makes up every update in its first iteration)."""
         cfg = self.cfg
         N = cfg.num_envs
-        env_state = self.env.reset()
-        train_return = torch.zeros(N, device=self.device)
-        updates_done = evals_done = logs_done = 0
-        step = 0
+        host_act = bool(cfg.training.get("host_acting"))
+        pipeline = bool(cfg.training.get("pipeline")) and not host_act
+        env_state = self._reset_env()
+        reads = HostReads(self.device)
+        train_return = np.zeros(N)
+        step = self.start_step
+        updates_done = self._updates_owed(step)
+        evals_done = step // cfg.evaluation.interval
+        logs_done = 0
         # Steady-state window (benchmarks): from the first step >= skip,
         # with timing_marks=K giving K windows.
         timing_skip = int(cfg.training.get("timing_skip_steps", 0) or 0)
         timing_marks = int(cfg.training.get("timing_marks", 0) or 0)
         steady_t0 = steady_step0 = None
         mark_every = next_mark = 0
+        acted = pending = None
+        if host_act:
+            host_actor = HostActor(self.actor, self.sac["a"])
+            act_rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, 0xAC7]))
+            actions = host_actor.sample(reads.wait(reads.start([env_state["obs"]]))[0], act_rng)
 
         while step < cfg.steps:
             new_step = step + N
-            # one update per `interval` env steps, whatever num_envs is
-            n_updates = 0
-            if new_step >= cfg.training.start:
-                target = (new_step - cfg.training.start) // cfg.training.interval + 1
-                n_updates = int(target - updates_done)
-                updates_done = target
-            out, aux = self.iteration(env_state, step, n_updates)
-            # the env's reward, also where PWIL's is stored
-            train_return += out["reward"]
+            n_updates = self._updates_owed(new_step) - updates_done
+            updates_done += n_updates
+            if host_act:
+                acted = self.act_env(env_state, reads.to_device(actions))
+                pending = reads.start([acted[2]["reward"], acted[2]["done"], env_state["obs"]])
+                aux = self._updates_of(step, self.front_of(step, acted, n_updates), n_updates)
+                host_actor.refresh()  # the params of the previous iteration's sync
+                host_actor.start_sync(self.sac["a"])
+                rewards, dones, obs = reads.wait(pending)
+                actions = host_actor.sample(obs, act_rng)
+            elif pipeline:
+                if acted is None:
+                    acted = self.act_env(env_state)
+                    pending = reads.start([acted[2]["reward"], acted[2]["done"]])
+                front = self.front_of(step, acted, n_updates)
+                mine = pending
+                if new_step < cfg.steps:  # the next act, from the params before these updates
+                    acted = self.act_env(env_state)
+                    pending = reads.start([acted[2]["reward"], acted[2]["done"]])
+                aux = self._updates_of(step, front, n_updates)
+                rewards, dones = reads.wait(mine)
+            else:
+                out, aux = self.iteration(env_state, step, n_updates)
+                rewards, dones = reads.wait(reads.start([out["reward"], out["done"]]))
             step = new_step
             if steady_t0 is None and timing_skip and step >= timing_skip:
                 self._sync()
@@ -721,13 +853,12 @@ class Trainer:
                 while next_mark <= step:
                     next_mark += mark_every
 
-            done = out["done"]
-            ended = torch.nonzero(done).flatten().tolist()  # the one host read
-            if ended:
-                for r in train_return[ended].tolist():
-                    self.metrics["train_steps"].append(step)
-                    self.metrics["train_returns"].append([r])
-                train_return[done] = 0.0
+            # the env's reward, also where PWIL's is stored
+            train_return += rewards
+            for e in np.flatnonzero(dones):
+                self.metrics["train_steps"].append(step)
+                self.metrics["train_returns"].append([float(train_return[e])])
+                train_return[e] = 0.0
 
             if n_updates > 0 and cfg.logging.interval > 0 and step // cfg.logging.interval > logs_done:
                 logs_done = step // cfg.logging.interval
@@ -735,6 +866,8 @@ class Trainer:
             if step // cfg.evaluation.interval > evals_done and not cfg.check_time_usage:
                 evals_done = step // cfg.evaluation.interval
                 self._record_eval(step)
+            if cfg.checkpointing.interval > 0 and step % cfg.checkpointing.interval < N:
+                self._checkpoint(step, updates_done)
 
         if steady_t0 is not None:
             self._sync()
@@ -747,6 +880,13 @@ class Trainer:
         self.step_done = step
         self.updates_done = updates_done
 
+    def _updates_of(self, step, front, n_updates: int) -> Dict[str, torch.Tensor]:
+        """The updates of an iteration whose `front` has run; its aux."""
+        aux, batches, expert_batches, draws = front
+        if n_updates:
+            aux.update(self.run_updates(step, batches, expert_batches, draws, n_updates))
+        return aux
+
     def _device_loop(self):
         """iltpu's on-device loop (`iltpu/trainer.py:1639-1762`): chunks of
         iterations with the host stepping in only between chunks, at the
@@ -756,17 +896,20 @@ class Trainer:
         one by one. iltpu's schedule: power-of-two chunks of at most
         `steady` iterations, clipped at training.start and at the end;
         num_envs // interval updates an iteration once past the start, none
-        before; the steady marks at chunk granularity."""
+        before; the steady marks at chunk granularity; a checkpoint at the
+        first chunk end past each multiple of checkpointing.interval."""
         cfg = self.cfg
         N = cfg.num_envs
         interval = cfg.training.interval
         if not (N % interval == 0 or interval >= N):
             raise ValueError(f"num_envs {N} must be compatible with training.interval {interval}")
         upi_steady = max(N // interval, 1) if interval <= N else 1
-        env_state = self.env.reset()
+        env_state = self._reset_env()
         train_return = np.zeros(N)
-        evals_done = logs_done = updates_done = 0
-        step = 0
+        ckpt = cfg.checkpointing.interval
+        step, updates_done, logs_done = self.start_step, self.updates_done, 0
+        evals_done = step // cfg.evaluation.interval
+        checks_done = step // ckpt if ckpt > 0 else 0
         timing_skip = int(cfg.training.get("timing_skip_steps", 0) or 0)
         timing_marks = int(cfg.training.get("timing_marks", 0) or 0)
         steady_t0 = steady_step0 = None
@@ -775,6 +918,8 @@ class Trainer:
         cadences = [] if cfg.check_time_usage else [cfg.evaluation.interval]
         if cfg.logging.interval > 0:
             cadences.append(cfg.logging.interval)
+        if ckpt > 0:
+            cadences.append(ckpt)
         base_iters = min(max(1, min(cadences) // N) if cadences else 1024, 1024)
         steady = 1 << (base_iters.bit_length() - 1)  # pow2 <= base_iters
         if self.device.type == "cuda":
@@ -816,6 +961,9 @@ class Trainer:
             if step // cfg.evaluation.interval > evals_done and not cfg.check_time_usage:
                 evals_done = step // cfg.evaluation.interval
                 self._record_eval(step)
+            if ckpt > 0 and step // ckpt > checks_done:
+                checks_done = step // ckpt
+                self._checkpoint(step, updates_done)
 
         if steady_t0 is not None:
             self.metrics["steady_env_steps"] = step - steady_step0

@@ -3,12 +3,16 @@ of `iltpu/updates/adversarial.py`, the `training.disc_pallas=false` path.
 
 - Losses: weighted BCE; nn-PUGAIL, positive-unlabelled with a class prior
   and the non-negative margin clamp; Mixup on convex combinations of expert
-  and policy rows with the draw `mix` (Beta(alpha, alpha); the trainer
-  takes alpha 1, a uniform draw).
+  and policy rows (their next states, terminals, weights and log pi too)
+  with the draw `mix` (Beta(alpha, alpha); a uniform draw at alpha 1).
+- The discriminator's input options (`rewards.gail`): the rows' next
+  states and terminals feed the shaping term; `log_pi(s, a)` gives the
+  actor's log-probabilities that the logit subtracts, constants here.
 - Gradient penalty: the squared L2 norm of the logit's input gradient at
   `eps_gp`-interpolated (state, action) rows, weighted by the interpolated
   importance weights, through `torch.autograd.grad(..., create_graph=True)`
-  (second order through spectral norm, with u and v held constant).
+  (second order through spectral norm, with u and v held constant); the
+  interpolated next states, terminals and log pi are held constant.
 - Entropy bonus: maximise the Bernoulli(logits=D) entropy.
 - One AdamW step on the discriminator's leaves, then one spectral-norm
   power iteration.
@@ -19,7 +23,7 @@ discriminator (`GAILDiscriminator.predict_reward`), as iltpu's trainer takes
 it.
 """
 
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -50,9 +54,15 @@ def _bernoulli_entropy(logits: torch.Tensor) -> torch.Tensor:
     return p * softplus(-logits) + (1.0 - p) * softplus(logits)
 
 
-def _mix(x1: torch.Tensor, x2: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+def _mix(x1: Optional[torch.Tensor], x2: Optional[torch.Tensor], eps: torch.Tensor):
+    if x1 is None:
+        return None
     m = eps[:, None] if x1.dim() == 2 else eps
     return m * x1 + (1.0 - m) * x2
+
+
+def _cat(x1: Optional[torch.Tensor], x2: Optional[torch.Tensor]):
+    return None if x1 is None else torch.cat([x1, x2])
 
 
 @torch.enable_grad()
@@ -64,29 +74,49 @@ def adversarial_imitation_update(
     cfg: AdversarialConfig,
     eps_gp: torch.Tensor,
     mix: Optional[torch.Tensor] = None,
+    log_pi: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One discriminator step of `st` in place; returns the loss (0-d).
-    `mix` is the Mixup draw, given exactly when the loss is Mixup."""
+    `mix` is the Mixup draw, given exactly when the loss is Mixup; `log_pi`
+    the actor's log-probability, given exactly when the discriminator
+    subtracts it."""
     if cfg.loss_function not in LOSS_FUNCTIONS:
         raise ValueError(f"unknown loss_function {cfg.loss_function}")
     if (mix is None) == (cfg.loss_function == "Mixup"):
         raise ValueError("mix must be given exactly for the Mixup loss")
-    e_s, e_a, e_w = (expert_transitions[k] for k in ("states", "actions", "weights"))
-    p_s, p_a, p_w = (transitions[k] for k in ("states", "actions", "weights"))
+    if (log_pi is None) == disc.subtract_log_policy:
+        raise ValueError("log_pi must be given exactly when the discriminator subtracts log pi")
+
+    def cols(d):  # the next states and terminals only where the shaping term reads them
+        shaped = ("next_states", "terminals") if disc.reward_shaping else ()
+        return [d[k] for k in ("states", "actions", "weights")] + [
+            d[k] if k in shaped else None for k in ("next_states", "terminals")]
+
+    e_s, e_a, e_w, e_s2, e_term = cols(expert_transitions)
+    p_s, p_a, p_w, p_s2, p_term = cols(transitions)
     B = p_s.shape[0]
     params = [t.detach().requires_grad_() for t in st["p"]]
 
-    def logits(s, a):
-        return disc.forward(s, a, params, st["sn"])
+    def lp(s, a):
+        if log_pi is None:
+            return None
+        with torch.no_grad():
+            return log_pi(s, a)
+
+    def logits(s, a, s2, term, lpi):
+        return disc.forward(s, a, params, st["sn"], s2, term, lpi)
 
     if cfg.loss_function == "Mixup":
+        m_s, m_a = _mix(e_s, p_s, mix), _mix(e_a, p_a, mix)
         m_w = _mix(e_w, p_w, mix)
-        d_m = logits(_mix(e_s, p_s, mix), _mix(e_a, p_a, mix))
+        d_m = logits(m_s, m_a, _mix(e_s2, p_s2, mix), _mix(e_term, p_term, mix), lp(m_s, m_a))
         loss = torch.mean(mix * m_w * _bce_with_logits(d_m, 1.0)
                           + (1.0 - mix) * m_w * _bce_with_logits(d_m, 0.0))
         entropy_terms = [(d_m, m_w)]
     else:
-        d = logits(torch.cat([e_s, p_s]), torch.cat([e_a, p_a]))
+        lp_e, lp_p = lp(e_s, e_a), lp(p_s, p_a)
+        d = logits(torch.cat([e_s, p_s]), torch.cat([e_a, p_a]), _cat(e_s2, p_s2),
+                   _cat(e_term, p_term), _cat(lp_e, lp_p))
         d_e, d_p = d[:B], d[B:]
         if cfg.loss_function == "BCE":
             expert_loss = torch.mean(e_w * _bce_with_logits(d_e, 1.0))
@@ -103,10 +133,14 @@ def adversarial_imitation_update(
         entropy_terms = [(d_e, e_w), (d_p, p_w)]
 
     if cfg.grad_penalty > 0:
-        g_s = _mix(e_s, p_s, eps_gp).requires_grad_()
-        g_a = _mix(e_a, p_a, eps_gp).requires_grad_()
-        gs, ga = torch.autograd.grad(logits(g_s, g_a).sum(), (g_s, g_a), create_graph=True)
-        sq_norms = (gs**2).sum(-1) + (ga**2).sum(-1)
+        g_s = _mix(e_s, p_s, eps_gp)
+        g_a = _mix(e_a, p_a, eps_gp)
+        g_s2, g_term, lp_g = _mix(e_s2, p_s2, eps_gp), _mix(e_term, p_term, eps_gp), lp(g_s, g_a)
+        g_s, g_a = g_s.requires_grad_(), g_a.requires_grad_()
+        f = logits(g_s, g_a, g_s2, g_term, lp_g).sum()
+        # state-only: the logit does not read the action, whose gradient is 0
+        gs, ga = torch.autograd.grad(f, (g_s, g_a), create_graph=True, allow_unused=True)
+        sq_norms = (gs**2).sum(-1) + (0.0 if ga is None else (ga**2).sum(-1))
         loss = loss + cfg.grad_penalty * torch.mean(_mix(e_w, p_w, eps_gp) * sq_norms)
 
     if cfg.entropy_bonus > 0:

@@ -35,6 +35,7 @@ SCHEDULES = {
                         ["training.timing_skip_steps=128", "training.timing_marks=2"]),
     "interval_past_envs": (4, 8, 0, 200, 64, 1000, []),
     "check_time_usage": (16, 1, 32, 700, 0, 50, ["check_time_usage=true"]),
+    "checkpointing": (4, 1, 64, 300, 40, 100, ["checkpointing.interval=96"]),
 }
 
 AUX = {"predicted_rewards": [0.5, 0.25], "alphas": 0.1, "entropies": [0.0, 1.0],
@@ -70,8 +71,13 @@ def test_schedule_and_metrics_match_iltpu(tmp_path, name):
 
     jt._scan_chunk, tt.run_chunk = scan_chunk, run_chunk
     jt.evaluate = tt.evaluate = lambda: [1.0, 2.0]
+    checks = {"jax": [], "torch": []}
+    jt._checkpoint = lambda step: checks["jax"].append(step)
+    tt._checkpoint = lambda step, updates_done: checks["torch"].append(step)
     jt._device_loop()
     tt._device_loop()
+    assert checks["torch"] == checks["jax"]
+    assert bool(checks["jax"]) == (name == "checkpointing")
     jt._flush_logs()
     tt._flush_logs()
     assert calls["torch"] == calls["jax"] and len(calls["jax"]) > 2

@@ -225,9 +225,9 @@ def test_cli_short_run_on_cpu(tmp_path):
     assert r.returncode == 0, r.stderr[-3000:]
     summary = json.loads(r.stdout.strip().splitlines()[-1])
     assert np.isfinite(summary["mean_normalized_score"])
-    for name in ("agent.pkl", "metrics.pkl", "config.json"):
+    for name in ("agent", "metrics.pkl", "config.json"):
         assert os.path.exists(os.path.join(summary["out_dir"], name))
-    assert not os.path.exists(os.path.join(summary["out_dir"], "discriminator.pkl"))
+    assert not os.path.exists(os.path.join(summary["out_dir"], "discriminator"))
 
 
 @pytest.mark.parametrize("flag", ["training.fused_update_scan", "training.disc_pallas"])
@@ -240,10 +240,10 @@ def test_kernel_flags_iltpu_refuses_raise_value_error(tmp_path, flag):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("training.pipeline=true", "Pipelined and host acting"),
-    ("training.host_acting=true", "Pipelined and host acting"),
+    ("env_backend=native", "Native hopper env"),
+    ("profiling.trace_dir=traces", "Tooling"),
     ("parallel.data_axis=data", "Data parallel"),
-    ("checkpointing.interval=100", "Checkpoint and resume"),
+    ("env=hopper", "Native hopper env"),
 ])
 def test_refuses_what_is_not_ported(tmp_path, override, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, '{item}'"):

@@ -315,7 +315,7 @@ def test_cli_short_run_on_cpu(tmp_path, extra):
     summary = json.loads(r.stdout.strip().splitlines()[-1])
     assert np.isfinite(summary["mean_normalized_score"])
     out = summary["out_dir"]
-    assert not os.path.exists(os.path.join(out, "discriminator.pkl"))
+    assert not os.path.exists(os.path.join(out, "discriminator"))
     with open(os.path.join(out, "metrics.pkl"), "rb") as f:
         metrics = pickle.load(f)
     assert metrics["update_steps"] and np.isfinite(metrics["alphas"]).all()

@@ -267,7 +267,7 @@ def test_cli_short_run_on_cpu(tmp_path):
     assert r.returncode == 0, r.stderr[-3000:]
     summary = json.loads(r.stdout.strip().splitlines()[-1])
     assert np.isfinite(summary["mean_normalized_score"])
-    for name in ("agent.pkl", "discriminator.pkl", "metrics.pkl", "config.json"):
+    for name in ("agent", "discriminator", "metrics.pkl", "config.json"):
         assert os.path.exists(os.path.join(summary["out_dir"], name))
 
 
@@ -275,8 +275,8 @@ CLI_ALGORITHMS = {
     "SAC": ([], "no discriminator"),
     "BC": (["bc_pretraining.iterations=20"], "no discriminator"),
     "SQIL": (["training.sac_pallas=true"], "no discriminator"),
-    "DRIL": (["imitation.pretraining.iterations=20", "training.sac_pallas=true"], "discriminator.pkl"),
-    "RED": (["imitation.pretraining.iterations=20"], "discriminator.pkl"),
+    "DRIL": (["imitation.pretraining.iterations=20", "training.sac_pallas=true"], "discriminator"),
+    "RED": (["imitation.pretraining.iterations=20"], "discriminator"),
 }
 
 
@@ -298,9 +298,9 @@ def test_cli_other_algorithms_on_cpu(tmp_path, alg):
     summary = json.loads(r.stdout.strip().splitlines()[-1])
     assert np.isfinite(summary["mean_normalized_score"])
     out = summary["out_dir"]
-    for name in ("agent.pkl", "metrics.pkl", "config.json"):
+    for name in ("agent", "metrics.pkl", "config.json"):
         assert os.path.exists(os.path.join(out, name))
-    assert os.path.exists(os.path.join(out, "discriminator.pkl")) == (disc == "discriminator.pkl")
+    assert os.path.exists(os.path.join(out, "discriminator")) == (disc == "discriminator")
     with open(os.path.join(out, "metrics.pkl"), "rb") as f:
         metrics = pickle.load(f)
     if alg == "BC":
@@ -311,13 +311,30 @@ def test_cli_other_algorithms_on_cpu(tmp_path, alg):
 
 
 def test_port_imports_neither_jax_nor_iltpu(tmp_path):
+    """Every module of the port, a plain CLI run, and a pipelined run that
+    checkpoints, resumed: beside an `agent_best/` that holds only iltpu's
+    header.pkl (a pickled JAX treedef, never opened), neither JAX nor iltpu
+    is imported."""
+    best = tmp_path / "resume" / "agent_best"
+    best.mkdir(parents=True)
+    (best / "header.pkl").write_bytes(b"not a pickle the port may open")
+    first = CLI + ["platform=cpu", f"output_dir={tmp_path / 'first'}", "training.pipeline=true",
+                   "checkpointing.interval=100"]
     code = f"""
-import importlib, pkgutil, sys
+import glob, importlib, pkgutil, sys
 import iltpu_torch
 for m in pkgutil.walk_packages(iltpu_torch.__path__, "iltpu_torch."):
     importlib.import_module(m.name)
 from iltpu_torch.train import main
+from iltpu_torch.trainer import Trainer
+from iltpu_torch.config import load_config
 main({CLI + ['platform=cpu', f'output_dir={tmp_path}']!r})
+main({first!r})
+ckpt = glob.glob({str(tmp_path / 'first')!r} + "/*/*/checkpoint")[0]
+t = Trainer(load_config({CLI + ['platform=cpu', 'steps=300', 'training.pipeline=true']!r}
+                        + ["checkpointing.resume=" + ckpt]), out_dir={str(tmp_path / 'resume')!r})
+assert t.start_step == 200, t.start_step
+t.run()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "iltpu", "yaml"))
 assert not bad, bad
 print("clean")
@@ -325,6 +342,7 @@ print("clean")
     r = _run(code, tmp_path)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().endswith("clean")
+    assert (best / "header_torch.pkl").exists()
 
 
 def test_gpu_entry_point_raises_without_cuda(tmp_path, monkeypatch):
@@ -336,16 +354,16 @@ def test_gpu_entry_point_raises_without_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("override,error,match", [
     ("profiling.trace_dir=traces", NotImplementedError, "ROADMAP.md, 'Tooling'"),
-    ("imitation.discriminator.reward_shaping=true", NotImplementedError, "ROADMAP.md, 'GAIL options'"),
-    ("imitation.state_only=true", NotImplementedError, "ROADMAP.md, 'GAIL options'"),
-    ("imitation.mixup_alpha=0.5", NotImplementedError, "ROADMAP.md, 'GAIL options'"),
+    ("imitation.discriminator.reward_shaping=true", ValueError, "training.disc_pallas=true supports"),
+    ("imitation.state_only=true", ValueError, "training.disc_pallas=true supports"),
+    ("env_backend=native", NotImplementedError, "ROADMAP.md, 'Native hopper env'"),
     ("reinforcement.critic.depth=3", ValueError, "training.sac_pallas=true requires"),
     ("imitation.loss_function=PUGAIL", ValueError, "training.disc_pallas=true supports"),
 ])
 def test_refuses_pwil_gail_options_and_kernel_shapes(tmp_path, override, error, match):
-    """The profiler window and the GAIL input options are not ported, on
-    either update path; the kernel flags refuse what iltpu refuses, with
-    its ValueError."""
+    """The profiler window and other env backends are not ported; the kernel
+    flags refuse what iltpu refuses (the GAIL input options on the GAIL
+    kernel among them), with its ValueError."""
     base = BASE if error is ValueError else COMMON + ["algorithm=GAIL"]
     args = base + TUNEDLIKE[:1] + [override, "platform=cpu"]
     with pytest.raises(error, match=match):
