@@ -115,7 +115,20 @@ of JAX or `iltpu`. Phases, each printing its results:
 6b. resume: an on-device GAIL run checkpoints; a fresh Trainer resumes
    from it with every state tensor and the CUDA generator's state equal to
    the saved run's bit for bit, then replays a chunk from graphs captured
-   after the load, equal bit for bit to the same chunk run eagerly.
+   after the load, equal bit for bit to the same chunk run eagerly;
+7. tooling: (7a) a GAIL run at phase 5's width with a profiler window over
+   one host-loop iteration (`profiling.start_step=2048`,
+   `profiling.steps=512`): its Chrome trace holds the SAC and GAIL kernels'
+   `__global__` functions once for each of the window's updates, each
+   one's median duration printed beside phase 3's; (7b) a two-seed
+   `python -m iltpu_torch.train -m` sweep on the GAIL kernel path (64 envs,
+   1,024 steps): two job directories, `multirun.yaml` read back, launches
+   equal to the two schedules' updates; (7c) `python -m
+   iltpu_torch.train_all --envs pointmass,pendulum --sweep 4 --sobol 2`,
+   each trial two forkserver workers on the card at once (the SAC kernel,
+   the discriminator step on autograd: the sweep sets shapes the GAIL
+   kernel refuses): `sweep.jsonl`'s records and the best-trial line; (7d)
+   the IQM of 7b's two seeds with its stratified bootstrap CI.
 
 Then the steady rates and the pretraining times with the nvidia-smi line, one `kernels` JSON
 line, the nvidia-smi line, and as the last line {"ok": true, "device":
@@ -1243,6 +1256,186 @@ def host_acting_costs(dev, N=512, n=50):
     return d2h, h2d, forward, sync
 
 
+# Phase 7's GAIL runs: phase 5's kernel path at a small size
+SMALL_ARGS = [a for a in TRAINER_ARGS if not a.startswith(
+    ("num_envs", "steps", "training.start", "training.timing", "memory.size"))] + [
+    "num_envs=64", "steps=1024", "training.start=256", "memory.size=10000"]
+
+
+def kernel_names(*names):
+    """The `__global__` function of each source `csrc/<name>.cu`."""
+    out = {}
+    for name in names:
+        with open(os.path.join(REPO, "iltpu_torch", "csrc", f"{name}.cu")) as f:
+            found = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\) )?(\w+)\(", f.read())
+        if len(found) != 1:
+            raise AssertionError(f"{name}.cu: expected one __global__ function, found {found}")
+        out[name] = found[0]
+    return out
+
+
+def check_profiler_window(results):
+    """7a: a GAIL run with the per-update kernels at phase 5's width whose
+    profiler window covers exactly one host-loop iteration (512 env steps
+    and its updates). The Chrome trace must parse, and hold each kernel's
+    `__global__` function as many times as that iteration's updates; the
+    launch counters the whole run's updates. Prints each kernel's median
+    duration in the trace beside phase 3's CUDA-event time."""
+    import numpy as np
+    from iltpu_torch.config import load_config
+    from iltpu_torch.trainer import Trainer
+
+    out_dir = os.path.join(REPO, "outputs", "chip_smoke", "profiler")
+    trace_dir = os.path.join(out_dir, "trace")
+    args = TRAINER_ARGS + ["steps=3072", f"profiling.trace_dir={trace_dir}",
+                           "profiling.start_step=2048", "profiling.steps=512",
+                           f"output_dir={out_dir}"]
+    t = Trainer(load_config(args), out_dir=out_dir)
+    reset_counts()
+    t0 = time.time()
+    score = t.run()
+    wall = time.time() - t0
+    n = t.updates_done
+    if counts() != launches_of(sac_update=n, gail_update=n) or not np.isfinite(score):
+        raise AssertionError(f"profiler window: launch counters {counts()} for {n} updates, "
+                             f"score {score}")
+    w = t.profiler
+    N = t.cfg.num_envs
+    # the iterations whose top falls inside the window
+    in_window = sum(t._updates_owed(s + N) - t._updates_owed(s)
+                    for s in range(0, t.cfg.steps, N) if w.start_step <= s < w.stop_step)
+    with open(w.path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    line = []
+    for name, fn in kernel_names("sac_update", "gail_update").items():
+        durs = [e["dur"] for e in kernels if re.search(rf"\b{fn}\b", e["name"])]
+        if len(durs) != in_window:
+            raise AssertionError(f"profiler window: {len(durs)} {fn} events in the trace, "
+                                 f"{in_window} updates in the window")
+        key = "sac" if name == "sac_update" else "gail"
+        line.append(f"{name} ({fn}) {len(durs)} events, median {np.median(durs) / 1e3:.4f} ms "
+                    f"(phase 3, CUDA events: {results[(key, 'pointmass')][1]:.4f} ms on the device)")
+    print(f"profiler window: steps {w.start_step}-{w.stop_step} of a {t.cfg.steps}-step GAIL run "
+          f"({n} updates, {wall:.2f} s wall, counters {counts()}), trace "
+          f"{os.path.relpath(w.path, REPO)} ({os.path.getsize(w.path)} bytes, {len(events)} "
+          f"events, {len(kernels)} kernels): " + "; ".join(line))
+
+
+def check_multirun():
+    """7b: `iltpu_torch.train.main(["-m", "seed=1,2", ...])` on the GAIL
+    kernel path at a small size: two job directories with iltpu's outputs,
+    `multirun.yaml` read back by the port's reader, launches equal to the
+    two schedules' updates. Returns the job directories."""
+    import shutil
+
+    import numpy as np
+    from iltpu_torch.config import load_config
+    from iltpu_torch.config.yaml_subset import loads
+    from iltpu_torch.train import main as train_main
+
+    out = os.path.join(REPO, "outputs", "chip_smoke", "multirun")
+    shutil.rmtree(out, ignore_errors=True)
+    args = SMALL_ARGS + [f"output_dir={out}"]
+    reset_counts()
+    t0 = time.time()
+    scores = train_main(["-m", "seed=1,2", *args])
+    wall = time.time() - t0
+    launched = counts()
+    (root,) = [os.path.join(out, "multirun", d) for d in os.listdir(os.path.join(out, "multirun"))]
+    jobs = [os.path.join(root, str(i)) for i in range(2)]
+    for d in jobs:
+        missing = [x for x in ("config.yaml", "metrics.pkl", "agent", "discriminator")
+                   if not os.path.exists(os.path.join(d, x))]
+        if missing:
+            raise AssertionError(f"multirun: {d} lacks {missing}")
+    with open(os.path.join(root, "multirun.yaml")) as f:
+        record = loads(f.read())
+    want_jobs = [" ".join([f"seed={s}", *args]) for s in (1, 2)]
+    if record != {"jobs": want_jobs, "scores": scores} or not np.isfinite(scores).all():
+        raise AssertionError(f"multirun: multirun.yaml {record} against scores {scores}")
+    with open(os.path.join(jobs[1], "config.yaml")) as f:
+        if loads(f.read()) != dict(load_config(["seed=2", *args])):
+            raise AssertionError("multirun: config.yaml is not the job's resolved config")
+    n = schedule(load_config(args), 1)[1]
+    if launched != launches_of(sac_update=2 * n, gail_update=2 * n):
+        raise AssertionError(f"multirun: launch counters {launched} != 2 x {n} updates")
+    print(f"multirun: 2 jobs (seed=1,2) in {wall:.2f} s wall, scores {scores}, launches "
+          f"{launched} (2 x {n} updates), {os.path.relpath(root, REPO)}")
+    return jobs
+
+
+def check_train_all():
+    """7c: `iltpu_torch.train_all.main([... --envs pointmass,pendulum --sweep
+    4 --sobol 2])` without --serial: each trial two forkserver workers on
+    the card at once, each with its own CUDA context. The GAIL search
+    space sets discriminator depths, activations and losses that the GAIL
+    kernel refuses (iltpu's ValueError), so the trials run the SAC kernel
+    and the autograd discriminator step. iltpu's optimiser fits its GP only
+    after three told trials: trials 0-2 are Sobol's, 3 GP-EI's. A worker's
+    exception propagates through pool.map and fails the phase."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    from iltpu_torch import train_all
+    from iltpu_torch.analysis import load_metrics
+
+    work = os.path.join(REPO, "outputs", "chip_smoke", "train_all")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    args = [a for a in SMALL_ARGS if not a.startswith(("training.", "steps"))] + [
+        "training.sac_pallas=true", "steps=2048",
+        "--envs", "pointmass,pendulum", "--sweep", "4", "--sobol", "2"]
+    here, printed = os.getcwd(), io.StringIO()
+    os.chdir(work)
+    try:
+        t0 = time.time()
+        with contextlib.redirect_stdout(printed):
+            best = train_all.main(args)
+        wall = time.time() - t0
+    finally:
+        os.chdir(here)
+    with open(os.path.join(work, "outputs", "all_GAIL", "sweep.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    methods = [r["method"] for r in rows]
+    if methods != ["sobol"] * 3 + ["gp-ei"]:
+        raise AssertionError(f"train_all: trials {methods}")
+    trained = []  # a trial's slower worker's seconds in Trainer.run
+    for r in rows:
+        if (sorted(r["per_env"]) != ["pendulum", "pointmass"] or r["min_score"] != min(r["per_env"].values())
+                or not np.isfinite(list(r["per_env"].values())).all()):
+            raise AssertionError(f"train_all: trial {r}")
+        trained.append(max(load_metrics(os.path.join(
+            work, "outputs", "all_GAIL", f"trial_{r['trial']:03d}", env))["training_time"]
+            for env in r["per_env"]))
+    last = json.loads(printed.getvalue().strip().splitlines()[-1])
+    top = max(rows, key=lambda r: r["min_score"])
+    if last["best_trial"] != top["trial"] or last["min_score"] != best or best != top["min_score"]:
+        raise AssertionError(f"train_all: best-trial line {last} against {rows}")
+    print(f"train_all: a 4-trial sweep, 2 concurrent forkserver workers a trial, in {wall:.2f} s "
+          f"wall ({wall / len(rows):.2f} s a trial; the slower worker's training loop "
+          f"{[round(x, 2) for x in trained]} s): methods {methods}, min scores "
+          f"{[r['min_score'] for r in rows]}; best-trial line {json.dumps(last)[:160]}...")
+
+
+def check_aggregation(jobs):
+    """7d: `collect_seed_sweep` over 7b's two job directories, then the IQM
+    of the final evaluation and its stratified bootstrap CI (2,000 reps)."""
+    import numpy as np
+    from iltpu_torch.analysis import collect_seed_sweep, iqm, stratified_bootstrap_ci
+
+    steps, tensor, _ = collect_seed_sweep("", "GAIL", ["pointmass"],
+                                          run_dirs_by_env={"pointmass": jobs})
+    final = tensor[..., -1]
+    point, lo, hi = stratified_bootstrap_ci(final, iqm, reps=2000)
+    if tensor.shape[:2] != (2, 1) or not (np.isfinite([point, lo, hi]).all() and lo <= point <= hi):
+        raise AssertionError(f"aggregation: tensor {tensor.shape}, IQM {point} CI [{lo}, {hi}]")
+    print(f"aggregation: 2 seeds x 1 env at steps {list(steps)}: IQM {point:.4f}, 95% CI "
+          f"[{lo:.4f}, {hi:.4f}] (stratified bootstrap, 2,000 reps)")
+
+
 def ptxas_report(log):
     """The `-Xptxas -v` register lines of a build log, and every function
     with spills."""
@@ -1506,6 +1699,12 @@ def main():
     check_graphs(dev)
     # 6b. checkpoint and resume on the card, then graphs captured after the load
     check_resume(dev)
+
+    # 7. tooling: the profiler window, a multirun, a train_all sweep, the aggregation
+    check_profiler_window(results)
+    jobs = check_multirun()
+    check_train_all()
+    check_aggregation(jobs)
 
     # the row-sum kernel's launches on its path: both of its entries
     launches["gaussian_rowsum"] += launches.pop("gmmil_witness_reward")

@@ -66,7 +66,9 @@ def _start(name: str) -> Optional[subprocess.Popen]:
         _nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
         "-Xptxas", "-v", "-o", tmp, os.path.join(CSRC, f"{name}.cu"),
     ]
-    log = open(os.path.join(os.path.dirname(lib), "build.log"), "w")
+    # each process logs apart (two processes may build one library at once);
+    # the log becomes build.log just before its library appears
+    log = open(f"{lib}.{os.getpid()}.log", "w")
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     proc.tmp, proc.lib, proc.log = tmp, lib, log
     return proc
@@ -81,6 +83,7 @@ def _finish(name: str, proc: Optional[subprocess.Popen]) -> None:
         with open(proc.log.name) as f:
             tail = f.read()[-4000:]
         raise RuntimeError(f"nvcc failed to build {name} (rc {rc}):\n{tail}")
+    os.replace(proc.log.name, os.path.join(os.path.dirname(proc.lib), "build.log"))
     os.replace(proc.tmp, proc.lib)
 
 

@@ -56,10 +56,11 @@ iltpu's layout) with the step, metrics, score and the generator's state
 to `checkpoint/`, at iltpu's cadences; `checkpointing.resume` copies one
 back into the tensors the trainer built. The run writes `agent/`,
 `discriminator/` and the best evaluation's `agent_best/` as
-`utils.checkpoint` directories, and `metrics.pkl`. Other env backends, data
-parallelism and the profiler window raise NotImplementedError naming the
-ROADMAP.md item that will bring them; kernel flags that iltpu refuses raise
-iltpu's ValueError.
+`utils.checkpoint` directories, and `metrics.pkl`. `profiling.trace_dir`
+opens iltpu's profiler window over the host loop (`ProfilerWindow`:
+torch.profiler, a Chrome trace). Other env backends and data parallelism
+raise NotImplementedError naming the ROADMAP.md item; kernel flags that
+iltpu refuses raise iltpu's ValueError.
 """
 
 import os
@@ -167,7 +168,6 @@ def check_supported(cfg: DotDict) -> None:
     checks = [
         (cfg.env_backend == "jax", f"env_backend={cfg.env_backend}", "Native hopper env"),
         (cfg.parallel.get("data_axis") is None, "parallel.data_axis", "Data parallel"),
-        (not (cfg.get("profiling") or {}).get("trace_dir"), "profiling.trace_dir", "Tooling"),
     ]
     for ok, what, item in checks:
         if not ok:
@@ -180,14 +180,54 @@ def _load_expert_dataset(cfg: DotDict, env) -> Dict[str, np.ndarray]:
         path = src if str(src).endswith(".npz") else cfg.expert_data.path
         with np.load(path) as data:
             return {k: data[k] for k in data.files}
-    if src != "synthetic":
-        raise _not_ported(f"expert_data.source={src}", "Tooling")
+    if src == "hdf5":  # iltpu's load_d4rl_hdf5 needs h5py
+        raise _not_ported(f"expert_data.source={src}", "D4RL hdf5")
+    assert src == "synthetic", f"unknown expert_data.source {src}"
     raw_obs = env.obs_size - (1 if cfg.imitation.absorbing else 0)
     n_traj = max(cfg.imitation.trajectories, 10)
     length = min(env.max_episode_steps, 100)
     return random_d4rl_dataset(
         np.random.default_rng(cfg.seed), [length] * n_traj, raw_obs, env.action_size
     )
+
+
+class ProfilerWindow:
+    """iltpu's profiler window over the host loop (`profiling.trace_dir`,
+    `start_step` 2000 and `steps` 200 by default), through torch.profiler:
+    it opens at the top of the first iteration at or past `start_step`,
+    closes at the top of the first one at or past `start_step + steps` or
+    at the loop's end, once a run, and writes a Chrome trace into
+    `trace_dir` (`path`). CPU activities, and CUDA ones on the card."""
+
+    def __init__(self, cfg: DotDict, device: torch.device, prefix: str = ""):
+        prof = cfg.get("profiling") or {}
+        self.dir = prof.get("trace_dir")
+        self.start_step = int(prof.get("start_step", 2000))
+        self.stop_step = self.start_step + int(prof.get("steps", 200))
+        self.device, self.prefix = device, prefix
+        self.prof = self.path = None
+
+    def at(self, step: int):
+        """The top of the iteration that starts at env step `step`."""
+        if self.dir and self.prof is None and step >= self.start_step:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+        if self.prof is not None and step >= self.stop_step:
+            self.close()
+
+    def close(self):
+        """Stop the window, if open, and write its trace."""
+        if self.prof is None:
+            return
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self.path = os.path.join(self.dir, f"{self.prefix}host_loop.{os.getpid()}."
+                                           f"{time.time_ns()}.pt.trace.json")
+        self.prof.export_chrome_trace(self.path)
+        self.prof = self.dir = None
 
 
 class Trainer:
@@ -808,12 +848,14 @@ class Trainer:
         steady_t0 = steady_step0 = None
         mark_every = next_mark = 0
         acted = pending = None
+        self.profiler = window = ProfilerWindow(cfg, self.device, self.prefix)
         if host_act:
             host_actor = HostActor(self.actor, self.sac["a"])
             act_rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, 0xAC7]))
             actions = host_actor.sample(reads.wait(reads.start([env_state["obs"]]))[0], act_rng)
 
         while step < cfg.steps:
+            window.at(step)
             new_step = step + N
             n_updates = self._updates_owed(new_step) - updates_done
             updates_done += n_updates
@@ -869,6 +911,7 @@ class Trainer:
             if cfg.checkpointing.interval > 0 and step % cfg.checkpointing.interval < N:
                 self._checkpoint(step, updates_done)
 
+        window.close()
         if steady_t0 is not None:
             self._sync()
             self.metrics["steady_env_steps"] = step - steady_step0

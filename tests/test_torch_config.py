@@ -16,7 +16,7 @@ from iltpu_torch.config import yaml_subset
 
 torch.set_num_threads(1)
 
-FILES = ("train.yaml", "algorithms.yaml", "tuned.yaml")
+FILES = ("train.yaml", "algorithms.yaml", "tuned.yaml", "search_space.yaml")
 
 CASES = [
     ([], {}),

@@ -225,7 +225,7 @@ def test_cli_short_run_on_cpu(tmp_path):
     assert r.returncode == 0, r.stderr[-3000:]
     summary = json.loads(r.stdout.strip().splitlines()[-1])
     assert np.isfinite(summary["mean_normalized_score"])
-    for name in ("agent", "metrics.pkl", "config.json"):
+    for name in ("agent", "metrics.pkl", "config.yaml"):
         assert os.path.exists(os.path.join(summary["out_dir"], name))
     assert not os.path.exists(os.path.join(summary["out_dir"], "discriminator"))
 
@@ -241,7 +241,7 @@ def test_kernel_flags_iltpu_refuses_raise_value_error(tmp_path, flag):
 
 @pytest.mark.parametrize("override,item", [
     ("env_backend=native", "Native hopper env"),
-    ("profiling.trace_dir=traces", "Tooling"),
+    ("expert_data.source=hdf5", "D4RL hdf5"),
     ("parallel.data_axis=data", "Data parallel"),
     ("env=hopper", "Native hopper env"),
 ])

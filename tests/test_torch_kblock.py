@@ -170,5 +170,5 @@ def test_cli_kblock_short_run_on_cpu(tmp_path):
     assert r.returncode == 0, r.stderr[-3000:]
     summary = json.loads(r.stdout.strip().splitlines()[-1])
     assert np.isfinite(summary["mean_normalized_score"])
-    for name in ("agent", "discriminator", "metrics.pkl", "config.json"):
+    for name in ("agent", "discriminator", "metrics.pkl", "config.yaml"):
         assert os.path.exists(os.path.join(summary["out_dir"], name))

@@ -267,7 +267,7 @@ def test_cli_short_run_on_cpu(tmp_path):
     assert r.returncode == 0, r.stderr[-3000:]
     summary = json.loads(r.stdout.strip().splitlines()[-1])
     assert np.isfinite(summary["mean_normalized_score"])
-    for name in ("agent", "discriminator", "metrics.pkl", "config.json"):
+    for name in ("agent", "discriminator", "metrics.pkl", "config.yaml"):
         assert os.path.exists(os.path.join(summary["out_dir"], name))
 
 
@@ -298,7 +298,7 @@ def test_cli_other_algorithms_on_cpu(tmp_path, alg):
     summary = json.loads(r.stdout.strip().splitlines()[-1])
     assert np.isfinite(summary["mean_normalized_score"])
     out = summary["out_dir"]
-    for name in ("agent", "metrics.pkl", "config.json"):
+    for name in ("agent", "metrics.pkl", "config.yaml"):
         assert os.path.exists(os.path.join(out, name))
     assert os.path.exists(os.path.join(out, "discriminator")) == (disc == "discriminator")
     with open(os.path.join(out, "metrics.pkl"), "rb") as f:
@@ -311,10 +311,11 @@ def test_cli_other_algorithms_on_cpu(tmp_path, alg):
 
 
 def test_port_imports_neither_jax_nor_iltpu(tmp_path):
-    """Every module of the port, a plain CLI run, and a pipelined run that
+    """Every module of the port (train_all, sweep and analysis named too), a
+    plain CLI run, a two-job `-m` run, and a pipelined run that
     checkpoints, resumed: beside an `agent_best/` that holds only iltpu's
-    header.pkl (a pickled JAX treedef, never opened), neither JAX nor iltpu
-    is imported."""
+    header.pkl (a pickled JAX treedef, never opened), neither JAX, iltpu
+    nor PyYAML is imported."""
     best = tmp_path / "resume" / "agent_best"
     best.mkdir(parents=True)
     (best / "header.pkl").write_bytes(b"not a pickle the port may open")
@@ -325,10 +326,13 @@ import glob, importlib, pkgutil, sys
 import iltpu_torch
 for m in pkgutil.walk_packages(iltpu_torch.__path__, "iltpu_torch."):
     importlib.import_module(m.name)
+import iltpu_torch.analysis, iltpu_torch.sweep, iltpu_torch.train_all
 from iltpu_torch.train import main
 from iltpu_torch.trainer import Trainer
 from iltpu_torch.config import load_config
 main({CLI + ['platform=cpu', f'output_dir={tmp_path}']!r})
+scores = main({['-m', 'seed=1,2'] + CLI + ['platform=cpu', f'output_dir={tmp_path / "multi"}']!r})
+assert len(scores) == 2 and len(glob.glob({str(tmp_path / 'multi')!r} + "/multirun/*/?/config.yaml")) == 2
 main({first!r})
 ckpt = glob.glob({str(tmp_path / 'first')!r} + "/*/*/checkpoint")[0]
 t = Trainer(load_config({CLI + ['platform=cpu', 'steps=300', 'training.pipeline=true']!r}
@@ -353,7 +357,7 @@ def test_gpu_entry_point_raises_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override,error,match", [
-    ("profiling.trace_dir=traces", NotImplementedError, "ROADMAP.md, 'Tooling'"),
+    ("expert_data.source=hdf5", NotImplementedError, "ROADMAP.md, 'D4RL hdf5'"),
     ("imitation.discriminator.reward_shaping=true", ValueError, "training.disc_pallas=true supports"),
     ("imitation.state_only=true", ValueError, "training.disc_pallas=true supports"),
     ("env_backend=native", NotImplementedError, "ROADMAP.md, 'Native hopper env'"),
@@ -361,9 +365,9 @@ def test_gpu_entry_point_raises_without_cuda(tmp_path, monkeypatch):
     ("imitation.loss_function=PUGAIL", ValueError, "training.disc_pallas=true supports"),
 ])
 def test_refuses_pwil_gail_options_and_kernel_shapes(tmp_path, override, error, match):
-    """The profiler window and other env backends are not ported; the kernel
-    flags refuse what iltpu refuses (the GAIL input options on the GAIL
-    kernel among them), with its ValueError."""
+    """D4RL's hdf5 expert data and other env backends are not ported; the
+    kernel flags refuse what iltpu refuses (the GAIL input options on the
+    GAIL kernel among them), with its ValueError."""
     base = BASE if error is ValueError else COMMON + ["algorithm=GAIL"]
     args = base + TUNEDLIKE[:1] + [override, "platform=cpu"]
     with pytest.raises(error, match=match):
