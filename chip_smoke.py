@@ -128,7 +128,30 @@ of JAX or `iltpu`. Phases, each printing its results:
    each trial two forkserver workers on the card at once (the SAC kernel,
    the discriminator step on autograd: the sweep sets shapes the GAIL
    kernel refuses): `sweep.jsonl`'s records and the best-trial line; (7d)
-   the IQM of 7b's two seeds with its stratified bootstrap CI.
+   the IQM of 7b's two seeds with its stratified bootstrap CI;
+8. data parallel (`parallel.data_axis=data`): (8a) NCCL at world size 1:
+   for GAIL on the per-update kernels and on the autograd updates, a
+   chunk of 4 iterations x 16 updates at full widths run eagerly (the host
+   loop's iterations) and one from CUDA graphs (the on-device loop's) on a
+   trainer with data_axis against the same chunk on one without, from the
+   same state and generator state: equal bit for bit, the same kernel
+   launches, and `allreduce_mean_` 3 times an update on the autograd path
+   (critic, actor + temperature, discriminator), none on the kernels;
+   a chunk replayed with the all-reduces captured against it eager, bit
+   for bit; ms an update of each, host-paced and replayed, with and
+   without data_axis (host-paced one chunk, replayed the median of 3, each
+   way twice in turns); ms a call of the one-rank all-reduce at the
+   autograd steps' sizes and of the rows' gather, eager and replayed
+   (`collective_ms`); then the trainer through `Trainer.run` with
+   data_axis: GAIL per update on the host loop (launches as phase 5) and
+   autograd GAIL on the on-device loop (64 envs, 2,048 steps) beside the
+   same run without it;
+   (8b) two ranks on the one card in a gloo group over CUDA tensors
+   (spawned): GAIL autograd for 3 iterations x 8 updates against 8a's
+   one-rank state at 1e-4 / 1e-5, 72 all-reduces, each rank's first
+   chunk (a fresh process's first autograd steps) against the same chunk
+   run again, bit for bit, and its ms an update (one card staging through
+   the host: not a scaling figure).
 
 Then the steady rates and the pretraining times with the nvidia-smi line, one `kernels` JSON
 line, the nvidia-smi line, and as the last line {"ok": true, "device":
@@ -921,11 +944,11 @@ def float64_sac(learner):
     between the card and the CPU (`compare`'s `reference`)."""
     update = type(learner).update
 
-    def wide_update(st, batch, eps2, eps_new):
+    def wide_update(st, batch, eps2, eps_new, mesh=None):
         wide = {k: [t.double() for t in v] if isinstance(v, list) else v.double()
                 for k, v in st.items()}
         out = update(learner, wide, {k: v.double() for k, v in batch.items()}, eps2.double(),
-                     eps_new.double())
+                     eps_new.double(), mesh)
         for (_, t), (_, w) in zip(leaves(st), leaves(wide)):
             t.copy_(w)
         return {k: out[k].float() for k in SAC_AUX}
@@ -1215,6 +1238,267 @@ def check_resume(dev):
           f"with {len(got)} state tensors and the CUDA generator state equal bit for bit")
     env_state = r._reset_env()
     return graph_vs_eager(r, env_state, r.start_step, 4, "resumed gail")
+
+
+# Phase 8: data parallel (`parallel.data_axis`). The chunks run at phase 6's
+# size (16 envs, 16 updates an iteration, full widths); (name, arguments,
+# all-reduces an update).
+DP_ARGS = [a for a in GRAPH_ARGS if not a.startswith("training.fused_update_scan")] + [
+    "training.fused_update_scan=false"]
+DP_PATHS = (
+    ("gail_kernels", (), 0),  # the GAIL and SAC kernels: replicated, no collective
+    ("gail_autograd", tuple(alg_args("GAIL", False)), 3),  # discriminator, critic, actor
+)
+DP = ("parallel.data_axis=data",)
+
+
+def timed_chunks(t, run, env_state, step, n, reps=3):
+    """Wall ms an update of `reps` chunks of `run` from `step`, each ended
+    by a synchronise: their median."""
+    import numpy as np
+    import torch
+
+    N, out = t.cfg.num_envs, []
+    for r in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(env_state, step + r * n * N, n, N)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0) / (n * N))
+    return float(np.median(out))
+
+
+def same_chunk(name, pair, envs, run, step, n, per_update):
+    """One chunk of `run` (eager or from graphs) on the trainer without and
+    the trainer with data_axis, from the same state and generator state:
+    equal bit for bit, the same kernel launches, `per_update` all-reduces an
+    update on the data-parallel one only."""
+    import torch
+
+    N, got = pair[0].cfg.num_envs, []
+    for t, env in zip(pair, envs):
+        c0 = counts()
+        chunk = run(t)(env, step, n, N)
+        torch.cuda.synchronize()
+        snap = snapshot(t, env)
+        got.append((snap, chunk, {k: v - c0[k] for k, v in counts().items()}))
+    (a, ca, la), (b, cb, lb) = got
+    differ = [k for k, v in a[0].items() if not torch.equal(v, b[0][k])]
+    if not torch.equal(a[1], b[1]):
+        differ.append("generator")
+    differ += [w for w, x, y in (("rewards", ca[0], cb[0]), ("dones", ca[1], cb[1])) if not torch.equal(x, y)]
+    differ += [f"aux {k}" for k, v in ca[2].items() if not torch.equal(v, cb[2][k])]
+    if differ:
+        raise AssertionError(f"data parallel {name}: the one-rank chunk differs from the plain "
+                             f"one in {len(differ)} tensors: {differ[:12]}")
+    want = dict(la, allreduce_mean_=per_update * n * N)
+    if la["allreduce_mean_"] != 0 or lb != want:
+        raise AssertionError(f"data parallel {name}: launches {lb} with data_axis, {la} without")
+    return len(a[0]), lb
+
+
+def collective_ms(t, calls=50):
+    """8a: ms a call of `allreduce_mean_` on `t`'s one-rank NCCL mesh at
+    its autograd steps' sizes (the critic's gradients and loss, the
+    actor's and the temperature's with the loss, the discriminator's with
+    the loss) and of `allgather_rows` of the update's (256, 2) rows: eager
+    (CUDA events around `calls` calls) and replayed (one graph of `calls`
+    calls); the replay equal to the eager calls bit for bit."""
+    import torch
+    from iltpu_torch.parallel import allgather_rows, allreduce_mean_
+
+    loss = [torch.zeros((), device=t.device)]
+    cases = {
+        "critic": [x.clone() for x in t.sac["c"]] + loss,
+        "actor+temperature": [x.clone() for x in t.sac["a"]] + [t.sac["la"].clone()] + loss,
+        "discriminator": [x.clone() for x in t.disc_state["p"]] + loss,
+        "gather (256, 2)": [torch.randn(256 // t.mesh.world_size, 2, device=t.device)],
+    }
+    out = {}
+    for name, ts in cases.items():
+        got = []
+        fn = ((lambda: got.append(allgather_rows(ts[0], t.mesh))) if name.startswith("gather")
+              else (lambda: allreduce_mean_(ts, t.mesh)))
+        start = [x.clone() for x in ts]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up on the capture's stream
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(calls):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        eager_ms = e0.elapsed_time(e1) / calls
+        eager = [x.clone() for x in (got[-1:] or ts)]
+        for x, y in zip(ts, start):
+            x.copy_(y)
+        graph = torch.cuda.CUDAGraph()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(calls):
+                fn()
+        for x, y in zip(ts, start):
+            x.copy_(y)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(eager, got[-1:] or ts)):
+            raise AssertionError(f"data parallel {name}: a replayed collective differs from eager")
+        nbytes = sum(x.numel() * x.element_size() for x in ts)
+        out[f"{name} ({nbytes} bytes)"] = (eager_ms, e0.elapsed_time(e1) / calls)
+    return out
+
+
+def check_data_parallel_world1(dev):
+    """8a: NCCL at world size 1. For GAIL on the per-update kernels and on
+    the autograd updates, a trainer with data_axis (a one-rank NCCL group)
+    and one without, from the same state and generator state: a chunk run
+    eagerly, as the host loop's iterations, then a chunk from CUDA graphs,
+    as the on-device loop's, each bit for bit (an all-reduce over one rank
+    is a copy and the division by 1 exact), with the all-reduces counted;
+    a chunk replayed with the all-reduces captured against the same chunk
+    eager (`graph_vs_eager`); then ms an update of each, host-paced and
+    replayed, with and without data_axis, in turns; and `collective_ms` on
+    the autograd path's mesh. Returns ({(path, mode, 1 with data_axis or 0
+    without): ms an update}, `collective_ms`'s)."""
+    from iltpu_torch.config import load_config
+    from iltpu_torch.graphs import ChunkGraphs
+    from iltpu_torch.trainer import Trainer
+
+    times = {}
+    for name, extra, per_update in DP_PATHS:
+        out_dir = os.path.join(REPO, "outputs", "chip_smoke", f"dp_{name}")
+        pair = [Trainer(load_config(DP_ARGS + list(extra) + list(dp) + [f"output_dir={out_dir}"]),
+                        out_dir=out_dir) for dp in ((), DP)]
+        envs = [t.env.reset() for t in pair]
+        pair[0].run_chunk(envs[0], 0, 4, 0)  # rows in the ring
+        restore(pair[1], envs[1], snapshot(pair[0], envs[0]))
+        n, step = 4, 4 * 16
+        tensors, launched = same_chunk(f"{name} eager", pair, envs, lambda t: t.run_chunk, step, n,
+                                       per_update)
+        step += n * 16
+        graphs = [ChunkGraphs(t, n) for t in pair]
+        same_chunk(f"{name} graphs", pair, envs, lambda t: graphs[pair.index(t)].run, step, n,
+                   per_update)
+        print(f"data parallel {name}: a one-rank NCCL mesh equals the plain trainer bit for bit "
+              f"in {tensors} state tensors, the generator, rewards, dones and aux over a chunk of "
+              f"{n} x 16 updates run eagerly and one from CUDA graphs; launches a chunk {launched}")
+        step += n * 16
+        snap = snapshot(pair[1], envs[1])
+        graph_vs_eager(pair[1], envs[1], step, n, f"data parallel {name}")
+        restore(pair[1], envs[1], snap)
+        for mode, reps in (("host-paced", 1), ("replayed", 3)):
+            for i in (0, 1, 1, 0):
+                t = pair[i]
+                run = t.run_chunk if mode == "host-paced" else graphs[i].run
+                times.setdefault((name, mode, i), []).append(
+                    timed_chunks(t, run, envs[i], step, n, reps))
+        if name == "gail_autograd":
+            coll = collective_ms(pair[1])
+    return {k: min(v) for k, v in times.items()}, coll
+
+
+def _dp2_rank(rank, store, out):
+    """8b's rank: a gloo group of two ranks on the one card (CUDA tensors,
+    staged through the host). Its first chunk (this fresh process's first
+    autograd steps) is run twice from the same state: equal bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from iltpu_torch.config import load_config
+    from iltpu_torch.parallel import allreduce_mean_, initialize_multihost
+    from iltpu_torch.trainer import Trainer
+
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on the one card
+    torch.cuda.set_device(0)
+    initialize_multihost(f"file://{store}", 2, rank, backend="gloo")
+    t, env = dp2_trainer(load_config, Trainer)
+    snap = snapshot(t, env)
+    t.run_chunk(env, 8, 3, 8)  # this process's first autograd steps
+    torch.cuda.synchronize()
+    first = {k: v.cpu().clone() for k, v in t.state_tensors().items()}
+    restore(t, env, snap)
+    allreduce_mean_.launches = 0
+    t.run_chunk(env, 8, 3, 8)
+    torch.cuda.synchronize()
+    state = {k: v.cpu().clone() for k, v in t.state_tensors().items()}
+    collectives = allreduce_mean_.launches
+    first_differs = [k for k, v in state.items() if not torch.equal(v, first[k])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.run_chunk(env, 32, 4, 8)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 32
+    if rank == 0:
+        torch.save({"state": state, "ms": ms, "collectives": collectives,
+                    "first_differs": first_differs}, out)
+    dist.destroy_process_group()
+
+
+def dp2_trainer(load_config, Trainer):
+    """8b's trainer (GAIL autograd, 8 envs, 8 updates an iteration, full
+    widths) on the process group's mesh, its ring given one iteration."""
+    out_dir = os.path.join(REPO, "outputs", "chip_smoke", "dp2")
+    args = [a for a in DP_ARGS if not a.startswith("num_envs")] + ["num_envs=8"]
+    t = Trainer(load_config(args + alg_args("GAIL", False) + list(DP) + [f"output_dir={out_dir}"]),
+                out_dir=out_dir)
+    env = t.env.reset()
+    t.run_chunk(env, 0, 1, 0)
+    return t, env
+
+
+def check_data_parallel_two_ranks(dev):
+    """8b: two ranks on the one card over gloo with CUDA tensors: GAIL
+    autograd for 3 iterations x 8 updates against the same iterations on
+    8a's one-rank NCCL mesh, at the chain tolerance, and against the same
+    iterations run first in the rank, bit for bit; then ms an update over
+    4 more iterations."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as tmp
+    from iltpu_torch.config import load_config
+    from iltpu_torch.trainer import Trainer
+
+    t, env = dp2_trainer(load_config, Trainer)
+    t.run_chunk(env, 8, 3, 8)
+    torch.cuda.synchronize()
+    want = t.state_tensors()
+    out = os.path.join(REPO, "outputs", "chip_smoke", "dp2.pt")
+    store = tempfile.mkdtemp(prefix="chip_smoke_dp2_")
+    t0 = time.time()
+    try:
+        ranks = tmp.spawn(_dp2_rank, args=(f"{store}/store", out), nprocs=2, join=False)
+        while not ranks.join(timeout=5):
+            if time.time() - t0 > 240:
+                for p in ranks.processes:
+                    p.kill()
+                raise AssertionError("data parallel 8b: the two ranks did not finish in 240 s")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    got = torch.load(out)
+    if got["first_differs"]:
+        raise AssertionError("data parallel 8b: a process's first chunk differs from the same "
+                             f"chunk run again in {got['first_differs'][:12]}")
+    if got["collectives"] != 3 * 24:
+        raise AssertionError(f"data parallel 8b: {got['collectives']} all-reduces, want 72")
+    floats = [k for k, v in want.items() if v.is_floating_point()]
+    differ = [k for k, v in want.items() if k not in floats and not torch.equal(got["state"][k].to(dev), v)]
+    if sorted(got["state"]) != sorted(want) or differ:
+        raise AssertionError(f"data parallel 8b: the ring's counters differ: {differ}")
+    err = compare("data parallel 8b", [(k, got["state"][k].to(dev)) for k in floats],
+                  [(k, want[k]) for k in floats], TOL_CHAIN)
+    print(f"data parallel 8b: two gloo ranks on one card (CUDA tensors through the host), GAIL "
+          f"autograd 3 x 8 updates against the one-rank NCCL mesh: max_abs_err {err[0]:.3g}, "
+          f"max_rel_err {err[1]:.3g} over {len(want)} state tensors, 72 all-reduces; each "
+          f"rank's first chunk equal bit for bit to the same chunk run again; "
+          f"{got['ms']:.3f} ms an update (one card staging through the host, not a scaling "
+          f"figure); {time.time() - t0:.1f} s with the ranks' start")
+    return got["ms"]
 
 
 def host_acting_costs(dev, N=512, n=50):
@@ -1705,6 +1989,39 @@ def main():
     jobs = check_multirun()
     check_train_all()
     check_aggregation(jobs)
+
+    # 8. data parallel: NCCL at world size 1, then two gloo ranks on the one card
+    import torch.distributed as dist
+
+    t8 = time.time()
+    dp_times, coll_ms = check_data_parallel_world1(dev)
+    dp2_ms = check_data_parallel_two_ranks(dev)
+
+    def allreduces(k):
+        return lambda t: launches_of(allreduce_mean_=k * t.updates_done)
+
+    # 64 envs: the first chunk's eager warm-up iteration (64 host-paced updates) stays short;
+    # the capture precedes the steady window
+    autograd = (*alg_args("GAIL", False), "num_envs=64", "steps=2048", "training.start=256",
+                "training.timing_skip_steps=1024", "memory.size=10000")
+    for name, extra, expect in (
+        ("gail_again_dp", ("training.fused_update_scan=false", *DP), per_update),
+        ("gail_autograd_device", (device, *autograd), none),
+        ("gail_autograd_device_dp", (device, *autograd, *DP), allreduces(3)),
+    ):
+        counted, rates[name], pre[name] = run_trainer(name, extra, expect)
+    dist.destroy_process_group()
+    print("data parallel one-rank NCCL collectives, ms a call eager / replayed from a graph: "
+          + ", ".join(f"{k} {e:.4f} / {r:.4f}" for k, (e, r) in coll_ms.items()) + f" on {smi}")
+    print("data parallel ms an update at world 1 (16 envs, 16 updates an iteration, full widths; "
+          "with data_axis vs without): " + ", ".join(
+              f"{name} {mode} {dp_times[(name, mode, 1)]:.4f} vs {dp_times[(name, mode, 0)]:.4f}"
+              for name, _, _ in DP_PATHS for mode in ("host-paced", "replayed"))
+          + f"; two gloo ranks on the card (8b) {dp2_ms:.3f}; trainer steady env-steps/s: gail "
+          f"host loop {rates['gail_again_dp']:.1f} with data_axis (phase 5: {rates['gail']:.1f}), "
+          f"autograd GAIL on-device (64 envs) {rates['gail_autograd_device_dp']:.1f} with vs "
+          f"{rates['gail_autograd_device']:.1f} without, on {smi}; phase 8 took "
+          f"{time.time() - t8:.1f} s")
 
     # the row-sum kernel's launches on its path: both of its entries
     launches["gaussian_rowsum"] += launches.pop("gmmil_witness_reward")

@@ -31,7 +31,9 @@ Capture follows `torch.cuda.graph`'s rules: the first chunk with a given
 upi runs its first `WARMUP` iterations eagerly on the capture's side stream
 (the autograd paths allocate, the kernels cache their launch configuration
 then), and captures after them with the sync debug mode set to "error";
-later chunks only replay. The kernel wrappers' launch counters count Python
+later chunks only replay; under data parallel the update graph holds the
+NCCL all-reduces (the mesh made the communicator before any capture). The
+kernel wrappers' launch counters (and the all-reduce's) count Python
 calls, so the launches counted while capturing are taken out again, and
 each replay adds the launches its graph holds.
 """
@@ -44,15 +46,17 @@ WARMUP = 1
 
 
 def wrappers():
-    """Every kernel wrapper with a launch counter."""
+    """Every kernel wrapper with a launch counter, and the data-parallel
+    gradient all-reduce with its count of collectives."""
     from iltpu_torch.ops.gail_update import gail_update
     from iltpu_torch.ops.gaussian_rowsum import gaussian_rowsum, gmmil_witness_reward
     from iltpu_torch.ops.kblock_update import kblock_update
     from iltpu_torch.ops.pwil_transport import pwil_transport
     from iltpu_torch.ops.sac_update import sac_update
+    from iltpu_torch.parallel.data import allreduce_mean_
 
     return (sac_update, gail_update, kblock_update, gaussian_rowsum, gmmil_witness_reward,
-            pwil_transport)
+            pwil_transport, allreduce_mean_)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -58,9 +58,22 @@ back into the tensors the trainer built. The run writes `agent/`,
 `discriminator/` and the best evaluation's `agent_best/` as
 `utils.checkpoint` directories, and `metrics.pkl`. `profiling.trace_dir`
 opens iltpu's profiler window over the host loop (`ProfilerWindow`:
-torch.profiler, a Chrome trace). Other env backends and data parallelism
-raise NotImplementedError naming the ROADMAP.md item; kernel flags that
-iltpu refuses raise iltpu's ValueError.
+torch.profiler, a Chrome trace). Other env backends and the
+tensor-parallel layout raise NotImplementedError naming the ROADMAP.md
+item; kernel flags that iltpu refuses raise iltpu's ValueError.
+
+`parallel.data_axis` runs data parallel (`iltpu_torch.parallel`), one
+process (a rank) a device, on `cuda:<local rank>`: a data-parallel run is
+the single-device run to reduction-order rounding, as iltpu's mesh is.
+Every rank seeds the same generator, steps the same envs, fills the same
+ring, samples the same global batch and draws the same noise; ranks never
+exchange state. Only an update's gradient steps split the work: each rank
+takes its shard of the policy batch, the expert batch and the per-row
+draws, and the autograd steps (critic, actor and temperature, the
+discriminator, the BC auxiliary step) all-reduce their gradients. The
+rewards, the expert mixing, the kernels and pretraining run replicated on
+the whole batch, so the metrics and rewards are the single-device run's.
+Only rank 0 writes run outputs.
 """
 
 import os
@@ -91,6 +104,7 @@ from iltpu_torch.models.host_inference import HostActor, HostReads
 from iltpu_torch.ops.gail_update import GAILHyper, gail_update
 from iltpu_torch.ops.kblock_update import kblock_update
 from iltpu_torch.ops.sac_update import sac_update
+from iltpu_torch.parallel import local_rank, make_mesh, shard_batch
 from iltpu_torch.rewards import (
     GAILDiscriminator,
     GMMILDiscriminator,
@@ -114,8 +128,9 @@ from iltpu_torch.utils.checkpoint import load_aux, load_checkpoint, save_checkpo
 TRAINABLE_DISCRIMINATORS = ("DRIL", "GAIL", "RED")
 
 
-def resolve_device(platform: Optional[str]) -> torch.device:
-    """`cpu` selects the CPU; null or `gpu` the card, raising without CUDA."""
+def resolve_device(platform: Optional[str], rank: Optional[int] = None) -> torch.device:
+    """`cpu` selects the CPU; null or `gpu` the card, raising without CUDA:
+    `cuda:<rank>` for a rank's own card, else the current one."""
     if platform == "cpu":
         return torch.device("cpu")
     if platform in (None, "gpu", "cuda"):
@@ -124,7 +139,7 @@ def resolve_device(platform: Optional[str]) -> torch.device:
                 f"platform={platform} runs on the GPU, and CUDA is not available; "
                 "pass platform=cpu to run on the CPU"
             )
-        return torch.device("cuda")
+        return torch.device("cuda") if rank is None else torch.device("cuda", rank)
     raise ValueError(f"unknown platform {platform!r}: cpu or gpu")
 
 
@@ -167,7 +182,9 @@ def check_supported(cfg: DotDict) -> None:
         )
     checks = [
         (cfg.env_backend == "jax", f"env_backend={cfg.env_backend}", "Native hopper env"),
-        (cfg.parallel.get("data_axis") is None, "parallel.data_axis", "Data parallel"),
+        # iltpu lays the weights out on its mesh only: without data_axis it ignores the flag
+        (not (cfg.parallel.get("data_axis") and cfg.parallel.get("shard_params")),
+         "parallel.shard_params", "Tensor-parallel layout"),
     ]
     for ok, what, item in checks:
         if not ok:
@@ -192,15 +209,16 @@ def _load_expert_dataset(cfg: DotDict, env) -> Dict[str, np.ndarray]:
 
 
 class ProfilerWindow:
-    """iltpu's profiler window over the host loop (`profiling.trace_dir`,
-    `start_step` 2000 and `steps` 200 by default), through torch.profiler:
+    """iltpu's profiler window over the host loop (`prof`, the `profiling`
+    config: `trace_dir`, none for no window, `start_step` 2000 and `steps`
+    200 by default), through torch.profiler:
     it opens at the top of the first iteration at or past `start_step`,
     closes at the top of the first one at or past `start_step + steps` or
     at the loop's end, once a run, and writes a Chrome trace into
     `trace_dir` (`path`). CPU activities, and CUDA ones on the card."""
 
-    def __init__(self, cfg: DotDict, device: torch.device, prefix: str = ""):
-        prof = cfg.get("profiling") or {}
+    def __init__(self, prof: Optional[Dict], device: torch.device, prefix: str = ""):
+        prof = prof or {}
         self.dir = prof.get("trace_dir")
         self.start_step = int(prof.get("start_step", 2000))
         self.stop_step = self.start_step + int(prof.get("steps", 200))
@@ -234,10 +252,20 @@ class Trainer:
     def __init__(self, cfg: Dict, out_dir: str = ".", file_prefix: str = ""):
         self.cfg = cfg = validate_config(cfg)
         check_supported(cfg)
-        self.device = dev = resolve_device(cfg.get("platform"))
+        self.mesh = None
+        data_axis = cfg.parallel.get("data_axis")
+        if data_axis:  # the process group's ranks, this one on its own device
+            self.mesh = make_mesh(cfg.parallel.get("num_devices"), data_axis,
+                                  resolve_device(cfg.get("platform"), local_rank()))
+            n = self.mesh.world_size
+            B = cfg.training.batch_size
+            assert B % n == 0, f"batch_size {B} must divide the {n}-device data mesh"
+        self.device = dev = self.mesh.device if self.mesh else resolve_device(cfg.get("platform"))
+        self.writer = self.mesh is None or self.mesh.rank == 0  # only rank 0 writes
         self.out_dir = out_dir
         self.prefix = file_prefix
-        os.makedirs(out_dir, exist_ok=True)
+        if self.writer:
+            os.makedirs(out_dir, exist_ok=True)
         self.gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
         self.env = make_env(cfg.env, cfg.num_envs, absorbing=cfg.imitation.absorbing,
@@ -479,9 +507,15 @@ class Trainer:
         """One update (iltpu's `update_fn`) on the policy batch `tb`, the
         expert batch `eb` and this update's draws `nz`: the reward -> mixing
         -> BC auxiliary step -> SAC step. PWIL's reward is the one the ring
-        stored. `step` is a host int or the device's step counter. Returns
-        the aux."""
-        alg, icfg = self.algorithm, self.cfg.imitation
+        stored. `step` is a host int or the device's step counter. Under
+        data parallel the autograd gradient steps take this rank's shard of
+        the rows and draws (`shard`); the rest sees the whole batch. Returns
+        the aux, of the whole batch."""
+        alg, icfg, mesh = self.algorithm, self.cfg.imitation, self.mesh
+
+        def shard(x):
+            return x if mesh is None else shard_batch(x, mesh)
+
         aux = {}
         if alg == "GAIL":
             if self.disc_pallas:
@@ -494,8 +528,8 @@ class Trainer:
                 # log pi at the update's pre-SAC actor params (shared with self.sac["a"])
                 log_pi = self.actor.log_prob if self.disc.subtract_log_policy else None
                 aux["discriminator_loss"] = adversarial_imitation_update(
-                    self.disc, self.disc_state, tb, eb, self.adv_cfg, nz["eps_gp"], nz.get("mix"),
-                    log_pi)
+                    self.disc, self.disc_state, shard(tb), shard(eb), self.adv_cfg,
+                    shard(nz["eps_gp"]), shard(nz.get("mix")), log_pi, mesh)
         if icfg.mix_expert_data == "mixed_batch" and alg != "AdRIL":
             tb = mix_expert_agent_transitions(tb, eb)
         tb = dict(tb)
@@ -529,12 +563,14 @@ class Trainer:
             tb["rewards"] = self.disc.predict_reward(self.disc_state, tb["states"], tb["actions"])
         if icfg.bc_aux_loss:
             # on the SAC actor's own AdamW state, in place, before the SAC step reads it
-            behavioural_cloning_update(self.actor, actor_opt_state(self.sac), eb,
-                                       lr=self.learner.lr, weight_decay=self.learner.weight_decay)
-        if self.sac_pallas:
+            behavioural_cloning_update(self.actor, actor_opt_state(self.sac), shard(eb),
+                                       lr=self.learner.lr, weight_decay=self.learner.weight_decay,
+                                       mesh=mesh)
+        if self.sac_pallas:  # the kernel: replicated, on the whole batch
             out = sac_update(self.learner.hyper, self.sac, tb, nz["eps2"], nz["eps_new"])
         else:
-            out = self.learner.update(self.sac, tb, nz["eps2"], nz["eps_new"])
+            out = self.learner.update(self.sac, shard(tb), shard(nz["eps2"]), shard(nz["eps_new"]),
+                                      mesh)
         aux.update(predicted_rewards=tb["rewards"], alphas=out["alpha"],
                    entropies=-out["log_probs"], Q_values=out["Q_values"])
         return aux
@@ -652,6 +688,8 @@ class Trainer:
         self._log_queue.clear()
 
     def _record_eval(self, step: int):
+        """Evaluate (on every rank: its generator is its own) and record;
+        rank 0 keeps the best agent."""
         self._flush_logs()
         test_returns = self.evaluate()
         normalized = self._normalized(test_returns)
@@ -659,6 +697,8 @@ class Trainer:
         self.metrics["test_steps"].append(step)
         self.metrics["test_returns"].append(test_returns)
         self.metrics["test_returns_normalized"].append(normalized)
+        if not self.writer:
+            return
         # iltpu's agent_best: rewritten on a strict improvement over this
         # run's scores and over the score inside an existing snapshot of the
         # port's (one with only iltpu's header.pkl gives no floor)
@@ -679,7 +719,9 @@ class Trainer:
     def _save(self):
         """iltpu's run outputs: `agent/` (actor, critic, log_alpha) and, for
         the trained discriminators, `discriminator/`, as checkpoint
-        directories in iltpu's leaf order; `metrics.pkl`."""
+        directories in iltpu's leaf order; `metrics.pkl`. Rank 0's only."""
+        if not self.writer:
+            return
         pre = os.path.join(self.out_dir, self.prefix)
         save_checkpoint(pre + "agent", convert.agent_tree(self.sac))
         if self.algorithm in TRAINABLE_DISCRIMINATORS:  # as iltpu: not GMMIL's
@@ -697,8 +739,10 @@ class Trainer:
     def _checkpoint(self, step: int, updates_done: int):
         """The whole state (iltpu's layout) and, in the port's header, the
         step, metrics, score, update count, the generator's state and the
-        rings' spare rows."""
+        rings' spare rows. Rank 0's only."""
         self._flush_logs()
+        if not self.writer:
+            return
         save_checkpoint(
             os.path.join(self.out_dir, self.prefix + "checkpoint"),
             convert.train_state_tree(self),
@@ -848,7 +892,8 @@ class Trainer:
         steady_t0 = steady_step0 = None
         mark_every = next_mark = 0
         acted = pending = None
-        self.profiler = window = ProfilerWindow(cfg, self.device, self.prefix)
+        self.profiler = window = ProfilerWindow(
+            cfg.get("profiling") if self.writer else None, self.device, self.prefix)
         if host_act:
             host_actor = HostActor(self.actor, self.sac["a"])
             act_rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, 0xAC7]))

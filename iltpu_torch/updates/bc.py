@@ -3,7 +3,10 @@
 Weighted maximum likelihood, loss = mean(w * -log pi(a_E | s_E)), with the
 expert actions clamped into (-1, 1) inside `log_prob_of_action`. Used for
 BC pretraining, DRIL's ensemble pretraining (with dropout) and the per-update
-BC auxiliary loss, which steps the SAC actor's own AdamW state.
+BC auxiliary loss, which steps the SAC actor's own AdamW state. Under data
+parallel (`mesh`; the per-update auxiliary step only) the expert rows are
+this rank's shard and the gradients and loss go through one
+`allreduce_mean_`.
 
 The optimised state is a dict of lists of tensors, updated in place:
   p: the actor's parameter leaves, m, v: their AdamW moments,
@@ -18,6 +21,7 @@ import torch
 
 from iltpu_torch.models.actor import SoftActor
 from iltpu_torch.ops.sac_update import adamw_
+from iltpu_torch.parallel.data import DataMesh, allreduce_mean_
 
 
 def actor_opt_state(sac_state: Dict) -> Dict:
@@ -37,6 +41,7 @@ def behavioural_cloning_update(
     masks=None,
     generator: Optional[torch.Generator] = None,
     train_dropout: bool = False,
+    mesh: Optional[DataMesh] = None,
 ) -> torch.Tensor:
     """One AdamW step of `opt_state` in place; returns the loss. With
     `train_dropout`, the actor's dropout runs with `masks` or masks drawn
@@ -46,5 +51,8 @@ def behavioural_cloning_update(
     lp = actor.log_prob(s, a, params=params, masks=masks, generator=generator, train=train_dropout)
     loss = torch.mean(w * -lp)
     grads = torch.autograd.grad(loss, params)
+    loss = loss.detach()
+    if mesh is not None:
+        allreduce_mean_([*grads, loss], mesh)
     adamw_(opt_state["p"], grads, opt_state["m"], opt_state["v"], opt_state["t"], lr, weight_decay)
-    return loss.detach()
+    return loss

@@ -19,9 +19,16 @@ Gradients come from `torch.autograd.grad` on detached views of the state's
 leaves; the AdamW steps write the results back in place (`adamw_`, the same
 formulas as the kernel's plain version), so the modules and the kernel keep
 seeing the same tensors.
+
+Under data parallel (`mesh`, `iltpu_torch.parallel`) the batch and the
+draws `update` is given are this rank's shard; every loss is a plain mean
+over the rows, so each step's gradients (and its loss) go through one
+`allreduce_mean_` before the AdamW step: the critic's, then the actor's and
+the temperature's together. The per-row outputs come back as the whole
+batch's.
 """
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -29,6 +36,7 @@ from iltpu_torch.models import distributions as D
 from iltpu_torch.models.actor import SoftActor
 from iltpu_torch.models.critic import TwinCritic, polyak_update
 from iltpu_torch.ops.sac_update import SACHyper, adamw_
+from iltpu_torch.parallel.data import DataMesh, allgather_rows, allreduce_mean_
 
 
 class SACLearner:
@@ -83,11 +91,14 @@ class SACLearner:
 
     @torch.enable_grad()
     def update(
-        self, st: Dict, batch: Dict[str, torch.Tensor], eps2: torch.Tensor, eps_new: torch.Tensor
+        self, st: Dict, batch: Dict[str, torch.Tensor], eps2: torch.Tensor, eps_new: torch.Tensor,
+        mesh: Optional[DataMesh] = None,
     ) -> Dict[str, torch.Tensor]:
         """One SAC update of `st` in place, with the standard-normal draws
-        eps2 (next actions) and eps_new (the actor loss's actions). Returns
-        (log_probs, Q_values, critic_loss, actor_loss, alpha)."""
+        eps2 (next actions) and eps_new (the actor loss's actions); under
+        `mesh`, on this rank's shard of the batch and draws. Returns
+        (log_probs, Q_values, critic_loss, actor_loss, alpha), of the whole
+        batch."""
         s, a, r, s2 = batch["states"], batch["actions"], batch["rewards"], batch["next_states"]
         term, w, absorbing = batch["terminals"], batch["weights"], batch["absorbing"]
         live = 1.0 - absorbing
@@ -110,6 +121,9 @@ class SACLearner:
         q1, q2 = self.critic(s, a, params=c)
         critic_loss = torch.mean(w * (q1 - td) ** 2) + torch.mean(w * (q2 - td) ** 2)
         c_grads = torch.autograd.grad(critic_loss, c)
+        critic_loss = critic_loss.detach()
+        if mesh is not None:
+            allreduce_mean_([*c_grads, critic_loss], mesh)
         min_q = torch.minimum(q1, q2).detach()
         adamw_(st["c"], c_grads, st["cm"], st["cv"], st["tc"], self.lr, self.weight_decay)
 
@@ -124,11 +138,16 @@ class SACLearner:
         lp = log_prob.detach()
         alpha_loss = -torch.mean(w * live * torch.exp(log_alpha)[0] * (lp + self.entropy_target))
         *a_grads, la_grad = torch.autograd.grad(actor_loss + alpha_loss, ap + [log_alpha])
+        actor_loss = actor_loss.detach()
+        if mesh is not None:
+            allreduce_mean_([*a_grads, la_grad, actor_loss], mesh)
         adamw_(st["a"], a_grads, st["am"], st["av"], st["ta"], self.lr, self.weight_decay)
         adamw_([st["la"]], [la_grad], [st["lam"]], [st["lav"]], st["tal"], self.alpha_lr, 0.0)
 
         polyak_update(st["c"], st["t"], self.polyak_factor)
+        if mesh is not None:  # the whole batch's rows, one gather
+            lp, min_q = allgather_rows(torch.stack([lp, min_q], 1), mesh).unbind(1)
         return {
-            "log_probs": lp, "Q_values": min_q, "critic_loss": critic_loss.detach(),
-            "actor_loss": actor_loss.detach(), "alpha": alpha,
+            "log_probs": lp, "Q_values": min_q, "critic_loss": critic_loss,
+            "actor_loss": actor_loss, "alpha": alpha,
         }

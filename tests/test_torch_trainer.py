@@ -311,11 +311,12 @@ def test_cli_other_algorithms_on_cpu(tmp_path, alg):
 
 
 def test_port_imports_neither_jax_nor_iltpu(tmp_path):
-    """Every module of the port (train_all, sweep and analysis named too), a
-    plain CLI run, a two-job `-m` run, and a pipelined run that
-    checkpoints, resumed: beside an `agent_best/` that holds only iltpu's
-    header.pkl (a pickled JAX treedef, never opened), neither JAX, iltpu
-    nor PyYAML is imported."""
+    """Every module of the port (train_all, sweep, analysis and parallel
+    named too), a plain CLI run, a data-parallel one (a one-rank gloo
+    group), a two-job `-m` run, and a pipelined run that checkpoints,
+    resumed: beside an `agent_best/` that holds only iltpu's header.pkl (a
+    pickled JAX treedef, never opened), neither JAX, iltpu nor PyYAML is
+    imported."""
     best = tmp_path / "resume" / "agent_best"
     best.mkdir(parents=True)
     (best / "header.pkl").write_bytes(b"not a pickle the port may open")
@@ -326,11 +327,15 @@ import glob, importlib, pkgutil, sys
 import iltpu_torch
 for m in pkgutil.walk_packages(iltpu_torch.__path__, "iltpu_torch."):
     importlib.import_module(m.name)
-import iltpu_torch.analysis, iltpu_torch.sweep, iltpu_torch.train_all
+import iltpu_torch.analysis, iltpu_torch.parallel, iltpu_torch.sweep, iltpu_torch.train_all
 from iltpu_torch.train import main
 from iltpu_torch.trainer import Trainer
 from iltpu_torch.config import load_config
 main({CLI + ['platform=cpu', f'output_dir={tmp_path}']!r})
+main({CLI + ['platform=cpu', 'training.fused_update_scan=false', 'training.sac_pallas=false',
+             'training.disc_pallas=false', 'parallel.data_axis=data',
+             f'output_dir={tmp_path / "dp"}']!r})
+assert iltpu_torch.parallel.allreduce_mean_.launches > 0
 scores = main({['-m', 'seed=1,2'] + CLI + ['platform=cpu', f'output_dir={tmp_path / "multi"}']!r})
 assert len(scores) == 2 and len(glob.glob({str(tmp_path / 'multi')!r} + "/multirun/*/?/config.yaml")) == 2
 main({first!r})
