@@ -1090,9 +1090,10 @@ def run_trainer(name, extra, expect):
     m = trainer.metrics
     if not np.isfinite(score) or not all(np.isfinite(r).all() for r in m["test_returns"]):
         raise AssertionError(f"{name}: non-finite score {score} or returns {m['test_returns']}")
-    for path, t in [*leaves(trainer.sac), *disc_leaves(trainer)]:
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"{name}: non-finite trainer state {path}")
+    with trainer._work(write=False):  # under the layout, the parameters gathered whole
+        for path, t in [*leaves(trainer.sac), *disc_leaves(trainer)]:
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{name}: non-finite trainer state {path}")
     cfg = trainer.cfg
     iters = cfg.bc_pretraining.iterations if bc_exit else cfg.imitation.get("pretraining", {}).get("iterations")
     pre_ms = None
@@ -1499,6 +1500,283 @@ def check_data_parallel_two_ranks(dev):
           f"{got['ms']:.3f} ms an update (one card staging through the host, not a scaling "
           f"figure); {time.time() - t0:.1f} s with the ranks' start")
     return got["ms"]
+
+
+# Phase 9: the tensor-parallel layout (`parallel.shard_params`) over phase 8's
+# mesh, at its size; (name, arguments, all-reduces an update).
+SHARD = ("parallel.shard_params=true",)
+TP_PATHS = (
+    ("gail_kernels", (), 0),
+    ("gail_autograd", tuple(alg_args("GAIL", False)), 3),
+    # under a mesh update_block=4 runs per update, as iltpu's (it refuses the fused scan
+    # there); the K-blocked branch of update_unit is driven directly below
+    ("update_block4", ("training.update_block=4",), 0),
+)
+
+
+def state_bytes(t):
+    """The bytes a rank keeps resident as state: every `state_tensors()`
+    entry (under the layout, the blocks) and the expert ring."""
+    from iltpu_torch.data.replay import COLUMNS
+
+    ts = list(t.state_tensors().values()) + [getattr(t.expert, k) for k in COLUMNS]
+    return sum(x.numel() * x.element_size() for x in ts)
+
+
+def whole_state(t):
+    """Every state tensor whole, on the CPU: under the layout its leaves
+    gathered (a collective)."""
+    import contextlib
+
+    with t.layout.work(write=False) if t.layout else contextlib.nullcontext():
+        ts = dict(t.state_tensors())
+        if t.layout:
+            ts.update({n: x.whole for n, x in t.layout.leaves.items() if x.ring is None})
+        return {k: v.to("cpu", copy=True) for k, v in ts.items()}
+
+
+def same_chunk_layout(name, pair, envs, run, step, n, per_update):
+    """One chunk of `run` on the data-parallel trainer and on the one under
+    the layout, from the same state and generator state: equal bit for bit
+    (at world 1 a block is the whole leaf), the same kernel launches and
+    all-reduces; returns the layout's all-gathers an update."""
+    import torch
+
+    N, got = pair[0].cfg.num_envs, []
+    for t, env in zip(pair, envs):
+        c0 = counts()
+        chunk = run(t)(env, step, n, N)
+        torch.cuda.synchronize()
+        got.append((snapshot(t, env), chunk, {k: v - c0[k] for k, v in counts().items()}))
+    (a, ca, la), (b, cb, lb) = got
+    differ = [k for k, v in a[0].items() if not torch.equal(v, b[0][k])]
+    if sorted(a[0]) != sorted(b[0]) or not torch.equal(a[1], b[1]):
+        differ.append("names or generator")
+    differ += [w for w, x, y in (("rewards", ca[0], cb[0]), ("dones", ca[1], cb[1])) if not torch.equal(x, y)]
+    differ += [f"aux {k}" for k, v in ca[2].items() if not torch.equal(v, cb[2][k])]
+    if differ:
+        raise AssertionError(f"layout {name}: the chunk under shard_params differs from the data-"
+                             f"parallel one in {len(differ)} tensors: {differ[:12]}")
+    gathers = lb.pop("allgather_blocks")
+    if la != dict(lb, allgather_blocks=0) or la["allreduce_mean_"] != per_update * n * N:
+        raise AssertionError(f"layout {name}: launches {lb} under shard_params, {la} without")
+    # an act and the sampled rows' gather an iteration, one an update
+    if gathers != n * (2 + N):
+        raise AssertionError(f"layout {name}: {gathers} all-gathers a chunk, want {n * (2 + N)}")
+    return len(a[0]), gathers / (n * N)
+
+
+def kblock_units_layout(pair, envs, step):
+    """The K-blocked branch of `update_unit` under the layout: one front of
+    16 updates, then 4 units of 4 on each trainer: equal bit for bit, one
+    all-gather a unit."""
+    import torch
+
+    got = []
+    for t, env in zip(pair, envs):
+        _, front = t.act_and_step(env, step, 16)
+        c0 = counts()
+        for c in range(0, 16, 4):
+            t.update_unit(step, *({k: v[c:c + 4] for k, v in d.items()} for d in front[1:]))
+        torch.cuda.synchronize()
+        got.append((snapshot(t, env), {k: v - c0[k] for k, v in counts().items()}))
+    (a, la), (b, lb) = got
+    differ = [k for k, v in a[0].items() if not torch.equal(v, b[0][k])]
+    if differ or la != launches_of(kblock_update=4) or lb != launches_of(kblock_update=4,
+                                                                         allgather_blocks=4):
+        raise AssertionError(f"layout update_block4: K-blocked units differ in {differ[:12]}, "
+                             f"launches {lb} under shard_params, {la} without")
+    return len(a[0])
+
+
+def check_layout_world1(dev):
+    """9a: NCCL at world size 1, where the rule shards every leaf it applies
+    to into one whole block, so gather, compute and keep all run. On each
+    path, a trainer with data_axis and one with data_axis and
+    shard_params, from the same state and generator state: a chunk run
+    eagerly (the host loop's iterations), then one from CUDA graphs (the
+    on-device loop's, the gathers and block copies captured), each bit for
+    bit, with the all-gathers counted; on update_block4 the K-blocked
+    branch too; then ms an update of each, host-paced and replayed, in
+    turns. Returns ({(path, mode, 1 under the layout or 0): ms an update},
+    {path: all-gathers an update}, the resident state bytes (data
+    parallel, the layout) at world 1)."""
+    from iltpu_torch.config import load_config
+    from iltpu_torch.graphs import ChunkGraphs
+    from iltpu_torch.trainer import Trainer
+
+    times, gathers = {}, {}
+    for name, extra, per_update in TP_PATHS:
+        out_dir = os.path.join(REPO, "outputs", "chip_smoke", f"tp_{name}")
+        pair = [Trainer(load_config(DP_ARGS + list(extra) + list(DP) + list(sp)
+                                    + [f"output_dir={out_dir}"]), out_dir=out_dir)
+                for sp in ((), SHARD)]
+        envs = [t.env.reset() for t in pair]
+        pair[0].run_chunk(envs[0], 0, 4, 0)  # rows in the ring
+        restore(pair[1], envs[1], snapshot(pair[0], envs[0]))
+        n, step = 4, 4 * 16
+        tensors, gathers[name] = same_chunk_layout(f"{name} eager", pair, envs,
+                                                   lambda t: t.run_chunk, step, n, per_update)
+        step += n * 16
+        graphs = [ChunkGraphs(t, n) for t in pair]
+        same_chunk_layout(f"{name} graphs", pair, envs, lambda t: graphs[pair.index(t)].run, step,
+                          n, per_update)
+        step += n * 16
+        extra_check = ""
+        if name == "update_block4":
+            kblock_units_layout(pair, envs, step)
+            step += 16
+            extra_check = "; the K-blocked branch (4 units of 4) too, one all-gather a unit"
+        print(f"layout {name}: shard_params on a one-rank NCCL mesh equals data_axis alone bit for "
+              f"bit in {tensors} state tensors, the generator, rewards, dones and aux over a chunk "
+              f"of {n} x 16 updates run eagerly and one from CUDA graphs{extra_check}; "
+              f"{gathers[name]:.4f} all-gathers an update (one a unit, an act's and the sampled "
+              f"rows' an iteration)")
+        for mode, reps in (("host-paced", 1), ("replayed", 3)):
+            for i in (0, 1, 1, 0):
+                t = pair[i]
+                run = t.run_chunk if mode == "host-paced" else graphs[i].run
+                times.setdefault((name, mode, i), []).append(
+                    timed_chunks(t, run, envs[i], step, n, reps))
+        resident = (state_bytes(pair[0]), state_bytes(pair[1]))
+    return {k: min(v) for k, v in times.items()}, gathers, resident
+
+
+TP2_PATHS = (("gail_autograd", tuple(alg_args("GAIL", False))), ("gail_kernels", ()))
+
+
+def tp2_trainer(load_config, Trainer, extra):
+    """9b's trainer: 8b's (8 envs, 8 updates an iteration, full widths) on
+    `extra`'s path under the layout, its ring given one iteration."""
+    out_dir = os.path.join(REPO, "outputs", "chip_smoke", "tp2")
+    args = [a for a in DP_ARGS if not a.startswith("num_envs")] + ["num_envs=8"]
+    t = Trainer(load_config(args + list(extra) + list(DP) + list(SHARD)
+                            + [f"output_dir={out_dir}"]), out_dir=out_dir)
+    env = t.env.reset()
+    t.run_chunk(env, 0, 1, 0)
+    return t, env
+
+
+def _tp2_rank(rank, store, out):
+    """9b's rank: a gloo group of two ranks on the one card under the layout.
+    On each path: 3 iterations x 8 updates, then the state of record, the
+    whole state (gathered) and the resident bytes; ms an update over 4 more
+    iterations; the peak memory."""
+    import torch
+    import torch.distributed as dist
+    from iltpu_torch.config import load_config
+    from iltpu_torch.parallel import allgather_blocks, allreduce_mean_, initialize_multihost
+    from iltpu_torch.trainer import Trainer
+
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on the one card
+    torch.cuda.set_device(0)
+    initialize_multihost(f"file://{store}", 2, rank, backend="gloo")
+    res = {}
+    for path, extra in TP2_PATHS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t, env = tp2_trainer(load_config, Trainer, extra)
+        allgather_blocks.launches = allreduce_mean_.launches = 0
+        t.run_chunk(env, 8, 3, 8)
+        torch.cuda.synchronize()
+        leaves = t.layout.leaves
+        res[path] = {
+            "gathers": allgather_blocks.launches, "reduces": allreduce_mean_.launches,
+            "record": {k: v.to("cpu", copy=True) for k, v in t.state_tensors().items()},
+            "cols": {n: (x.cols.start, x.cols.stop) for n, x in leaves.items()},
+            "whole": whole_state(t), "resident": state_bytes(t)}
+        t0 = time.perf_counter()
+        t.run_chunk(env, 32, 4, 8)
+        torch.cuda.synchronize()
+        res[path].update(ms=1e3 * (time.perf_counter() - t0) / 32,
+                         peak=torch.cuda.max_memory_allocated())
+        del t, env
+    torch.save(res, f"{out}.rank{rank}")
+    dist.destroy_process_group()
+
+
+def check_layout_two_ranks(dev):
+    """9b: two ranks on the one card over gloo with CUDA tensors, under the
+    layout: GAIL autograd (3 x 8 updates) against the same iterations on a
+    one-rank NCCL mesh under the layout at the chain tolerance, and GAIL on
+    the kernels (replicated, so) bit for bit; each rank's blocks
+    concatenated equal the gathered whole state bit for bit; the
+    all-gathers and all-reduces counted; the resident state bytes at world
+    1 and 2 and each rank's peak memory."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as tmp
+    from iltpu_torch.config import load_config
+    from iltpu_torch.trainer import Trainer
+
+    want, one = {}, {}
+    for path, extra in TP2_PATHS:
+        t, env = tp2_trainer(load_config, Trainer, extra)
+        t.run_chunk(env, 8, 3, 8)
+        torch.cuda.synchronize()
+        want[path], one[path] = whole_state(t), state_bytes(t)
+    out = os.path.join(REPO, "outputs", "chip_smoke", "tp2.pt")
+    store = tempfile.mkdtemp(prefix="chip_smoke_tp2_")
+    t0 = time.time()
+    try:
+        ranks = tmp.spawn(_tp2_rank, args=(f"{store}/store", out), nprocs=2, join=False)
+        while not ranks.join(timeout=5):
+            if time.time() - t0 > 240:
+                for p in ranks.processes:
+                    p.kill()
+                raise AssertionError("layout 9b: the two ranks did not finish in 240 s")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    got = [torch.load(f"{out}.rank{r}") for r in range(2)]
+    summary = {}
+    for path, _ in TP2_PATHS:
+        w, whole = want[path], got[0][path]["whole"]
+        if sorted(whole) != sorted(w) or sorted(got[1][path]["whole"]) != sorted(w):
+            raise AssertionError(f"layout 9b {path}: the state's names differ")
+        for r in range(2):
+            differ = [k for k, v in got[r][path]["whole"].items() if not torch.equal(v, whole[k])]
+            if differ:
+                raise AssertionError(f"layout 9b {path}: rank {r}'s whole state differs from rank "
+                                     f"0's in {differ[:12]}")
+        cols = got[0][path]["cols"]
+        for k in cols:
+            if k.startswith("expert."):
+                continue
+            cat = torch.cat([got[r][path]["record"][k] for r in range(2)], -1)
+            if not torch.equal(cat, whole[k]):
+                raise AssertionError(f"layout 9b {path}: the ranks' blocks of {k} do not "
+                                     "concatenate to the whole leaf")
+        floats = [k for k, v in w.items() if v.is_floating_point()]
+        ints = [k for k in w if k not in floats and not torch.equal(whole[k], w[k])]
+        if ints:
+            raise AssertionError(f"layout 9b {path}: the ring's counters differ: {ints}")
+        if path == "gail_kernels":
+            differ = [k for k in floats if not torch.equal(whole[k], w[k])]
+            if differ:
+                raise AssertionError(f"layout 9b {path}: two ranks differ from one in {differ[:12]}")
+            err = (0.0, 0.0)
+        else:
+            err = compare(f"layout 9b {path}", [(k, whole[k].to(dev)) for k in floats],
+                          [(k, w[k].to(dev)) for k in floats], TOL_CHAIN)
+        g = got[0][path]
+        want_reduces = 24 * (3 if path == "gail_autograd" else 0)
+        want_gathers = 3 * (2 + 8)  # an act, the sampled rows and 8 units an iteration
+        if (g["gathers"], g["reduces"]) != (want_gathers, want_reduces):
+            raise AssertionError(f"layout 9b {path}: {g['gathers']} all-gathers and {g['reduces']} "
+                                 f"all-reduces, want {want_gathers} and {want_reduces}")
+        summary[path] = (err, g["ms"], one[path], [got[r][path]["resident"] for r in range(2)],
+                         [got[r][path]["peak"] for r in range(2)], sorted(cols))
+        print(f"layout 9b {path}: two gloo ranks on one card under shard_params against one rank "
+              f"(NCCL, under the layout): max_abs_err {err[0]:.3g}, max_rel_err {err[1]:.3g} over "
+              f"{len(w)} state tensors{' (bit for bit: the kernels run replicated)' if not err[0] else ''}; "
+              f"every rank's blocks concatenate to the whole leaves bit for bit, in {len(cols)} "
+              f"sharded leaves; {g['gathers']} all-gathers, {g['reduces']} all-reduces; resident "
+              f"state {one[path]} bytes at world 1, {summary[path][3]} a rank at world 2; peak "
+              f"memory {summary[path][4]} bytes a rank; {g['ms']:.3f} ms an update (one card "
+              f"staging through the host, not a scaling figure); {time.time() - t0:.1f} s")
+    return summary
 
 
 def host_acting_costs(dev, N=512, n=50):
@@ -2010,6 +2288,27 @@ def main():
         ("gail_autograd_device_dp", (device, *autograd, *DP), allreduces(3)),
     ):
         counted, rates[name], pre[name] = run_trainer(name, extra, expect)
+    phase8_s = time.time() - t8
+
+    # 9. the tensor-parallel layout: world 1 on NCCL (phase 8's group), two gloo ranks
+    # on the card, and the host loop plain, with data_axis and with shard_params in turns
+    t9 = time.time()
+    tp_times, tp_gathers, tp_resident = check_layout_world1(dev)
+    tp2 = check_layout_two_ranks(dev)
+
+    def sharded(t):  # per_update's, and the layout's all-gathers: one an update, an act's
+        # an iteration, the sampled rows' an iteration with updates, the final evaluation's,
+        # agent_best's and the run outputs'
+        N, c = t.cfg.num_envs, t.cfg
+        its = sum(1 for s in range(N, c.steps + N, N) if s >= max(c.training.start, 1))
+        return dict(per_update(t), allgather_blocks=t.updates_done + t.step_done // N + its + 3)
+
+    unfused = ("training.fused_update_scan=false",)
+    host_loop = {"plain": (unfused, per_update), "dp": ((*unfused, *DP), per_update),
+                 "shard": ((*unfused, *DP, *SHARD), sharded)}
+    for i, way in enumerate(("plain", "dp", "shard", "shard", "dp", "plain")):
+        name = f"gail_tp_{way}{i // 3}"
+        counted, rates[name], pre[name] = run_trainer(name, *host_loop[way])
     dist.destroy_process_group()
     print("data parallel one-rank NCCL collectives, ms a call eager / replayed from a graph: "
           + ", ".join(f"{k} {e:.4f} / {r:.4f}" for k, (e, r) in coll_ms.items()) + f" on {smi}")
@@ -2021,7 +2320,20 @@ def main():
           f"host loop {rates['gail_again_dp']:.1f} with data_axis (phase 5: {rates['gail']:.1f}), "
           f"autograd GAIL on-device (64 envs) {rates['gail_autograd_device_dp']:.1f} with vs "
           f"{rates['gail_autograd_device']:.1f} without, on {smi}; phase 8 took "
-          f"{time.time() - t8:.1f} s")
+          f"{phase8_s:.1f} s")
+    print("layout ms an update at world 1 (16 envs, 16 updates an iteration, full widths; "
+          "shard_params vs data_axis alone): " + ", ".join(
+              f"{name} {mode} {tp_times[(name, mode, 1)]:.4f} vs {tp_times[(name, mode, 0)]:.4f}"
+              for name, _, _ in TP_PATHS for mode in ("host-paced", "replayed"))
+          + "; all-gathers an update " + ", ".join(f"{k} {v:.4f}" for k, v in tp_gathers.items())
+          + f"; resident state bytes at world 1 {tp_resident[1]} under the layout, "
+          f"{tp_resident[0]} without; two gloo ranks (9b) " + ", ".join(
+              f"{p} {v[1]:.3f} ms an update, resident {v[3]} and peak {v[4]} bytes a rank "
+              f"(world 1 resident {v[2]})" for p, v in tp2.items())
+          + "; GAIL kernels on the host loop, steady env-steps/s in turns: " + ", ".join(
+              f"{way} {rates[f'gail_tp_{way}0']:.1f} and {rates[f'gail_tp_{way}1']:.1f}"
+              for way in ("plain", "dp", "shard"))
+          + f" on {smi}; phase 9 took {time.time() - t9:.1f} s")
 
     # the row-sum kernel's launches on its path: both of its entries
     launches["gaussian_rowsum"] += launches.pop("gmmil_witness_reward")

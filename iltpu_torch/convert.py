@@ -53,7 +53,8 @@ def _tree(leaves) -> Dict:
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy().copy()
+    # a copy made by torch: numpy never shares (and pins) the state's storage
+    return t.detach().to("cpu", copy=True).numpy()
 
 
 def _copy_(dst: List[torch.Tensor], src) -> None:

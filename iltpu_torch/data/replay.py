@@ -97,8 +97,11 @@ def replay_append_batch(
     terminals: torch.Tensor,  # (N,) true termination (excludes timeouts)
     timeouts: torch.Tensor,  # (N,) time-limit truncation
     valid: Optional[torch.Tensor] = None,  # (N,) mask for ragged batches
+    keep: Optional[Dict[str, slice]] = None,  # columns that hold only a block of their width
 ) -> ReplayState:
-    """Ring append of N transitions with inline absorbing wrapping, in place."""
+    """Ring append of N transitions with inline absorbing wrapping, in place.
+    A column named in `keep` holds only those columns of its rows (a rank's
+    block under the tensor-parallel layout): the append writes them."""
     n, s_dim = states.shape
     dev = states.device
     valid = torch.ones(n, dtype=torch.bool, device=dev) if valid is None else valid.bool()
@@ -119,17 +122,22 @@ def replay_append_batch(
     def il(a, b):
         return torch.stack([a, b], 1).reshape((2 * n,) + a.shape[1:])
 
+    keep = keep or {}
+
+    def put(k, rows):
+        getattr(rs, k)[write_idx] = rows[..., keep[k]] if k in keep else rows
+
     stepf = step.float()
     zeros = torch.zeros(n, device=dev)
     ones = torch.ones(n, device=dev)
-    rs.step[write_idx] = il(stepf, stepf)
-    rs.states[write_idx] = il(states, b_states)
-    rs.actions[write_idx] = il(actions, torch.zeros_like(actions))
-    rs.rewards[write_idx] = il(rewards.float(), zeros)
-    rs.next_states[write_idx] = il(a_next, b_states)
-    rs.terminals[write_idx] = il(a_term, zeros)
-    rs.timeouts[write_idx] = il(timeouts.float(), zeros)
-    rs.weights[write_idx] = il(ones, ones)
+    put("step", il(stepf, stepf))
+    put("states", il(states, b_states))
+    put("actions", il(actions, torch.zeros_like(actions)))
+    put("rewards", il(rewards.float(), zeros))
+    put("next_states", il(a_next, b_states))
+    put("terminals", il(a_term, zeros))
+    put("timeouts", il(timeouts.float(), zeros))
+    put("weights", il(ones, ones))
     count = rows_valid.sum()
     rs.full |= rs.idx + count >= rs.size
     rs.idx.copy_((rs.idx + count) % rs.size)

@@ -32,7 +32,10 @@ upi runs its first `WARMUP` iterations eagerly on the capture's side stream
 (the autograd paths allocate, the kernels cache their launch configuration
 then), and captures after them with the sync debug mode set to "error";
 later chunks only replay; under data parallel the update graph holds the
-NCCL all-reduces (the mesh made the communicator before any capture). The
+NCCL all-reduces (the mesh made the communicator before any capture), and
+under the tensor-parallel layout the front and update graphs hold their
+works' all-gathers and block copies, the whole temporaries in the graphs'
+private pools (`iltpu_torch/parallel/tensor.py`). The
 kernel wrappers' launch counters (and the all-reduce's) count Python
 calls, so the launches counted while capturing are taken out again, and
 each replay adds the launches its graph holds.
@@ -46,17 +49,19 @@ WARMUP = 1
 
 
 def wrappers():
-    """Every kernel wrapper with a launch counter, and the data-parallel
-    gradient all-reduce with its count of collectives."""
+    """Every kernel wrapper with a launch counter, the data-parallel
+    gradient all-reduce and the tensor-parallel layout's all-gather with
+    their counts of collectives."""
     from iltpu_torch.ops.gail_update import gail_update
     from iltpu_torch.ops.gaussian_rowsum import gaussian_rowsum, gmmil_witness_reward
     from iltpu_torch.ops.kblock_update import kblock_update
     from iltpu_torch.ops.pwil_transport import pwil_transport
     from iltpu_torch.ops.sac_update import sac_update
     from iltpu_torch.parallel.data import allreduce_mean_
+    from iltpu_torch.parallel.tensor import allgather_blocks
 
     return (sac_update, gail_update, kblock_update, gaussian_rowsum, gmmil_witness_reward,
-            pwil_transport, allreduce_mean_)
+            pwil_transport, allreduce_mean_, allgather_blocks)
 
 
 def launch_counts() -> Dict[str, int]:

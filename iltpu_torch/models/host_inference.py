@@ -52,7 +52,7 @@ def _pairs(leaves: Sequence[np.ndarray]) -> List[Tuple[np.ndarray, np.ndarray]]:
 def host_greedy_fn(actor, params: Sequence[torch.Tensor]) -> Callable[[np.ndarray], np.ndarray]:
     """`obs (B, S) or (S,) -> greedy actions` in numpy, from one copy of the
     parameter leaves `params`."""
-    layers = _pairs([p.detach().cpu().numpy() for p in params])
+    layers = _pairs([p.detach().to("cpu", copy=True).numpy() for p in params])
     act, A = _ACTIVATIONS[actor.net.activation], actor.action_size
 
     def greedy(obs: np.ndarray) -> np.ndarray:

@@ -11,16 +11,20 @@ the batch. Rank r takes rows [r B/N, (r+1) B/N) of each leaf
 shards that mean is the whole batch's mean-loss gradient. `allgather_rows`
 brings per-row outputs back to the whole batch.
 
-The tensor-parallel layout (iltpu's `param_shardings`) is not ported:
-ROADMAP.md, 'Tensor-parallel layout'.
+`param_shardings` is iltpu's rule for its tensor-parallel layout
+(`parallel.shard_params`); `iltpu_torch.parallel.tensor` lays the train
+state out by it.
 """
 
 from typing import Any, List, NamedTuple, Optional
+
+import numpy as np
 
 import torch
 import torch.distributed as dist
 
 from iltpu_torch.parallel.multihost import init_group, local_rank
+from iltpu_torch.utils.checkpoint import flatten, unflatten
 
 
 class DataMesh(NamedTuple):
@@ -104,3 +108,22 @@ def allgather_rows(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(mesh.world_size)]
     dist.all_gather(parts, t.contiguous(), group=mesh.group)
     return torch.cat(parts)
+
+
+def param_shardings(mesh: DataMesh, params: Any) -> Any:
+    """iltpu's tensor-parallel rule (`iltpu/parallel/data.py:63-83`) for a
+    nested dict, tuple or `Fields` of arrays or tensors: a leaf with ndim >=
+    2 whose last axis the mesh divides (and is at least the mesh's size)
+    shards that axis, and this rank holds its column block `[..., r c:(r+1)
+    c]`, c = shape[-1] / N: the leaf's spec is that `slice`. Every other
+    leaf is replicated: None. Returns the specs in `params`' structure."""
+    n, r = mesh.world_size, mesh.rank
+
+    def spec(leaf):
+        shape = tuple(np.shape(leaf))
+        if len(shape) >= 2 and shape[-1] % n == 0 and shape[-1] >= n:
+            c = shape[-1] // n
+            return slice(r * c, (r + 1) * c)
+        return None
+
+    return unflatten(params, [spec(leaf) for leaf in flatten(params)[0]])

@@ -58,9 +58,12 @@ back into the tensors the trainer built. The run writes `agent/`,
 `discriminator/` and the best evaluation's `agent_best/` as
 `utils.checkpoint` directories, and `metrics.pkl`. `profiling.trace_dir`
 opens iltpu's profiler window over the host loop (`ProfilerWindow`:
-torch.profiler, a Chrome trace). Other env backends and the
-tensor-parallel layout raise NotImplementedError naming the ROADMAP.md
-item; kernel flags that iltpu refuses raise iltpu's ValueError.
+torch.profiler, a Chrome trace). Other env backends raise
+NotImplementedError naming the ROADMAP.md item; kernel flags that iltpu
+refuses raise iltpu's ValueError. `evaluation.on_host` (iltpu's default,
+true) evaluates through a numpy copy of the actor
+(`models.host_inference.host_greedy_fn`); false, through the device
+forward.
 
 `parallel.data_axis` runs data parallel (`iltpu_torch.parallel`), one
 process (a rank) a device, on `cuda:<local rank>`: a data-parallel run is
@@ -74,8 +77,18 @@ discriminator, the BC auxiliary step) all-reduce their gradients. The
 rewards, the expert mixing, the kernels and pretraining run replicated on
 the whole batch, so the metrics and rewards are the single-device run's.
 Only rank 0 writes run outputs.
+
+With `parallel.shard_params` as well, the state is laid out as iltpu lays
+it out (`iltpu_torch.parallel.tensor`): each rank keeps only its column
+block of each leaf iltpu's `param_shardings` shards, and each piece of work
+that reads such leaves (`_work`: an update unit, an act, an evaluation, the
+host actor's sync, a pretraining, the run outputs, a checkpoint) gathers
+them whole in one collective, runs as above, and keeps its block of what it
+updated. The front appends the block's columns of a sharded ring column and
+gathers the sampled rows. The numbers are the data-parallel run's.
 """
 
+import contextlib
 import os
 import pickle
 import time
@@ -100,11 +113,11 @@ from iltpu_torch.envs import make_env
 from iltpu_torch.models import SoftActor, TwinCritic
 from iltpu_torch.models.actor import DRIL_ENSEMBLE_SIZE
 from iltpu_torch.models.distributions import beta_sample
-from iltpu_torch.models.host_inference import HostActor, HostReads
+from iltpu_torch.models.host_inference import HostActor, HostReads, host_greedy_fn
 from iltpu_torch.ops.gail_update import GAILHyper, gail_update
 from iltpu_torch.ops.kblock_update import kblock_update
 from iltpu_torch.ops.sac_update import sac_update
-from iltpu_torch.parallel import local_rank, make_mesh, shard_batch
+from iltpu_torch.parallel import TensorLayout, local_rank, make_mesh, shard_batch
 from iltpu_torch.rewards import (
     GAILDiscriminator,
     GMMILDiscriminator,
@@ -126,6 +139,11 @@ from iltpu_torch.updates import (
 from iltpu_torch.utils.checkpoint import load_aux, load_checkpoint, save_checkpoint
 
 TRAINABLE_DISCRIMINATORS = ("DRIL", "GAIL", "RED")
+
+# The sharded leaves a piece of work reads, by name prefix (`Trainer._work`)
+ACTOR = ("sac.a[",)
+UPDATE = ("sac.", "disc.p[", "disc.target[")
+POOLS = ("disc.expert_weights[",)
 
 
 def resolve_device(platform: Optional[str], rank: Optional[int] = None) -> torch.device:
@@ -180,15 +198,8 @@ def check_supported(cfg: DotDict) -> None:
             "training.fused_update_scan=true requires algorithm=GAIL with training.sac_pallas "
             "and training.disc_pallas, no bc_aux_loss, and a single-device (mesh-free) run"
         )
-    checks = [
-        (cfg.env_backend == "jax", f"env_backend={cfg.env_backend}", "Native hopper env"),
-        # iltpu lays the weights out on its mesh only: without data_axis it ignores the flag
-        (not (cfg.parallel.get("data_axis") and cfg.parallel.get("shard_params")),
-         "parallel.shard_params", "Tensor-parallel layout"),
-    ]
-    for ok, what, item in checks:
-        if not ok:
-            raise _not_ported(what, item)
+    if cfg.env_backend != "jax":
+        raise _not_ported(f"env_backend={cfg.env_backend}", "Native hopper env")
 
 
 def _load_expert_dataset(cfg: DotDict, env) -> Dict[str, np.ndarray]:
@@ -390,7 +401,25 @@ class Trainer:
         # the agent_best floor: seeded once from an existing snapshot's score
         self._best_prior, self._best_seeded = float("-inf"), False
         if cfg.checkpointing.resume:
-            self._resume(cfg.checkpointing.resume)
+            self._resume(cfg.checkpointing.resume)  # whole leaves: the layout keeps its blocks
+        # iltpu lays the state out on its mesh only: without data_axis it ignores the flag
+        self.layout = None
+        if self.mesh is not None and cfg.parallel.get("shard_params"):
+            self.layout = TensorLayout(self, self.mesh)
+
+    def _work(self, *prefixes: str, write: bool = True):
+        """A piece of work on the whole leaves named by `prefixes` (all when
+        none) under the tensor-parallel layout (`TensorLayout.work`), else
+        nothing to do."""
+        return self.layout.work(*prefixes, write=write) if self.layout else contextlib.nullcontext()
+
+    def _samples(self, draws):
+        """`replay_sample` of each (ring, n, raw integers), in order; under
+        the layout the rows of every block column in one collective."""
+        batches = [replay_sample(rs, n, self.gen, r) for rs, n, r in draws]
+        if self.layout:
+            self.layout.whole_rows(batches, [rs for rs, _, _ in draws])
+        return batches
 
     # ------------------------------------------------------------ updates
 
@@ -442,22 +471,21 @@ class Trainer:
         aux = {}
         if self.algorithm == "PWIL":
             dones = (terminals + timeouts) > 0
-            _, rewards = self.disc.compute_reward(self.disc_state, obs, actions, dones)
+            with self._work(*POOLS):
+                _, rewards = self.disc.compute_reward(self.disc_state, obs, actions, dones)
             aux["pwil_rewards"] = rewards
         replay_append_batch(self.replay, self._step_ids(step, obs.shape[0]), obs, actions, rewards,
-                            next_obs, terminals, timeouts)
+                            next_obs, terminals, timeouts,
+                            keep=self.layout.keep(self.replay) if self.layout else None)
         if n_updates == 0:
             return aux, None, None, None
         if noise is None:
             noise = self.draw_noise(n_updates)
         B = self.cfg.training.batch_size
-
-        def bulk(rs, r):
-            batch = replay_sample(rs, n_updates * B, self.gen, r)
-            return {k: v.reshape((n_updates, B) + v.shape[1:]) for k, v in batch.items()}
-
-        batches = bulk(self.replay, noise.get("replay"))
-        expert_batches = bulk(self.expert, noise.get("expert"))
+        batches, expert_batches = (
+            {k: v.reshape((n_updates, B) + v.shape[1:]) for k, v in batch.items()}
+            for batch in self._samples([(self.replay, n_updates * B, noise.get("replay")),
+                                        (self.expert, n_updates * B, noise.get("expert"))]))
         draws = {k: v for k, v in noise.items() if k not in ("replay", "expert")}
         return aux, batches, expert_batches, draws
 
@@ -475,13 +503,14 @@ class Trainer:
         """One unit of updates on batches, expert batches and draws with a
         leading axis of `unit` rows: one K-blocked launch (K x GAIL -> SAC)
         when that is above 1, else the per-update body. Returns the aux."""
-        if tb["states"].shape[0] > 1:
-            out = kblock_update(self.learner.hyper, self.disc_hyper, self.sac, self.disc_state,
-                                tb, eb, nz)
-            return {"discriminator_loss": out["loss"][0], "predicted_rewards": out["rewards"],
-                    "alphas": out["alpha"], "entropies": -out["log_probs"],
-                    "Q_values": out["Q_values"]}
-        return self.update(step, *({k: v[0] for k, v in d.items()} for d in (tb, eb, nz)))
+        with self._work(*UPDATE):
+            if tb["states"].shape[0] > 1:
+                out = kblock_update(self.learner.hyper, self.disc_hyper, self.sac, self.disc_state,
+                                    tb, eb, nz)
+                return {"discriminator_loss": out["loss"][0], "predicted_rewards": out["rewards"],
+                        "alphas": out["alpha"], "entropies": -out["log_probs"],
+                        "Q_values": out["Q_values"]}
+            return self.update(step, *({k: v[0] for k, v in d.items()} for d in (tb, eb, nz)))
 
     def run_updates(self, step, batches, expert_batches, draws, n_updates: int):
         """The iteration's n_updates in units, in order; the last one's aux."""
@@ -583,7 +612,8 @@ class Trainer:
         outputs)."""
         obs = env_state["obs"].clone()  # the step overwrites the state
         if actions is None:
-            actions = self.actor.sample(obs, generator=self.gen)[0]
+            with self._work(*ACTOR, write=False):
+                actions = self.actor.sample(obs, generator=self.gen)[0]
         _, out = self.env.step(env_state, actions)
         return obs, actions, out
 
@@ -623,7 +653,8 @@ class Trainer:
         """Every tensor an iteration updates, by name: the SAC state, the
         discriminator's (GMMIL's carry, PWIL's pools), AdRIL's flip, the
         replay ring with its scalars. A captured iteration replays against
-        these very tensors."""
+        these very tensors. Under the tensor-parallel layout, a sharded
+        leaf's is this rank's block."""
         out = {}
 
         def add(prefix, v):
@@ -641,6 +672,8 @@ class Trainer:
             add("relabel", self.relabel)
         for k in COLUMNS + ("idx", "full", "num_trajectories"):
             add(f"replay.{k}", getattr(self.replay, k))
+        if getattr(self, "layout", None):
+            out.update(self.layout.blocks())
         return out
 
     # ------------------------------------------------------------- phases
@@ -650,18 +683,36 @@ class Trainer:
             torch.cuda.synchronize(self.device)
 
     def evaluate(self):
+        """The greedy policy's returns over `evaluation.episodes` envs seeded
+        from seed + 7919. With `evaluation.on_host` (iltpu's default) from
+        one numpy copy of the actor, the actions copied to the envs each
+        step and the returns summed in float64 (iltpu's `_greedy_fn` loop);
+        else through the device forward."""
         cfg = self.cfg
         n = cfg.evaluation.episodes
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 7919)
         env = make_env(cfg.env, n, absorbing=cfg.imitation.absorbing, device=self.device,
                        generator=gen)
         st = env.reset()
+        if cfg.evaluation.get("on_host", True):
+            with self._work(*ACTOR, write=False):
+                greedy = host_greedy_fn(self.actor, self.sac["a"])
+            reads = HostReads(self.device)
+            obs = reads.wait(reads.start([st["obs"]]))[0]
+            done, returns = np.zeros(n, bool), np.zeros(n)
+            while not done.all():
+                st, out = env.step(st, reads.to_device(greedy(obs)))
+                r, d, obs = reads.wait(reads.start([out["reward"], out["done"], st["obs"]]))
+                returns += np.where(done, 0.0, r)
+                done |= d
+            return returns.tolist()
         done = torch.zeros(n, dtype=torch.bool, device=self.device)
         returns = torch.zeros(n, device=self.device)
-        while not bool(done.all()):
-            st, out = env.step(st, self.actor.greedy_action(st["obs"]))
-            returns += torch.where(done, 0.0, out["reward"])
-            done |= out["done"]
+        with self._work(*ACTOR, write=False):
+            while not bool(done.all()):
+                st, out = env.step(st, self.actor.greedy_action(st["obs"]))
+                returns += torch.where(done, 0.0, out["reward"])
+                done |= out["done"]
         return returns.tolist()
 
     def _normalized(self, returns):
@@ -697,21 +748,23 @@ class Trainer:
         self.metrics["test_steps"].append(step)
         self.metrics["test_returns"].append(test_returns)
         self.metrics["test_returns_normalized"].append(normalized)
-        if not self.writer:
-            return
-        # iltpu's agent_best: rewritten on a strict improvement over this
-        # run's scores and over the score inside an existing snapshot of the
-        # port's (one with only iltpu's header.pkl gives no floor)
-        best = os.path.join(self.out_dir, self.prefix + "agent_best")
-        if not self._best_seeded:
-            self._best_seeded = True
-            try:
-                self._best_prior = float(load_aux(best)["score"])
-            except (OSError, EOFError, KeyError, pickle.UnpicklingError):
-                pass  # no snapshot of the port's, or an unreadable one: no floor
-        score = self.score[-1]
-        if score > max(max(self.score[:-1], default=float("-inf")), self._best_prior):
-            save_checkpoint(best, self._best_tree(step, score), aux={"step": step, "score": score})
+        with self._work("sac.", write=False):  # every rank: rank 0 alone knows the floor
+            if not self.writer:
+                return
+            # iltpu's agent_best: rewritten on a strict improvement over this
+            # run's scores and over the score inside an existing snapshot of the
+            # port's (one with only iltpu's header.pkl gives no floor)
+            best = os.path.join(self.out_dir, self.prefix + "agent_best")
+            if not self._best_seeded:
+                self._best_seeded = True
+                try:
+                    self._best_prior = float(load_aux(best)["score"])
+                except (OSError, EOFError, KeyError, pickle.UnpicklingError):
+                    pass  # no snapshot of the port's, or an unreadable one: no floor
+            score = self.score[-1]
+            if score > max(max(self.score[:-1], default=float("-inf")), self._best_prior):
+                save_checkpoint(best, self._best_tree(step, score),
+                                aux={"step": step, "score": score})
 
     def _best_tree(self, step: int, score: float) -> Dict:
         return dict(convert.agent_tree(self.sac), step=np.asarray(step), score=np.asarray(score))
@@ -720,12 +773,13 @@ class Trainer:
         """iltpu's run outputs: `agent/` (actor, critic, log_alpha) and, for
         the trained discriminators, `discriminator/`, as checkpoint
         directories in iltpu's leaf order; `metrics.pkl`. Rank 0's only."""
-        if not self.writer:
-            return
-        pre = os.path.join(self.out_dir, self.prefix)
-        save_checkpoint(pre + "agent", convert.agent_tree(self.sac))
-        if self.algorithm in TRAINABLE_DISCRIMINATORS:  # as iltpu: not GMMIL's
-            save_checkpoint(pre + "discriminator", convert.disc_params_tree(self))
+        with self._work("sac.", "disc.", write=False):
+            if not self.writer:
+                return
+            pre = os.path.join(self.out_dir, self.prefix)
+            save_checkpoint(pre + "agent", convert.agent_tree(self.sac))
+            if self.algorithm in TRAINABLE_DISCRIMINATORS:  # as iltpu: not GMMIL's
+                save_checkpoint(pre + "discriminator", convert.disc_params_tree(self))
         with open(pre + "metrics.pkl", "wb") as f:
             pickle.dump(self.metrics, f)
 
@@ -739,23 +793,26 @@ class Trainer:
     def _checkpoint(self, step: int, updates_done: int):
         """The whole state (iltpu's layout) and, in the port's header, the
         step, metrics, score, update count, the generator's state and the
-        rings' spare rows. Rank 0's only."""
+        rings' spare rows. Rank 0's only (every rank gathers the whole
+        leaves under the tensor-parallel layout)."""
         self._flush_logs()
-        if not self.writer:
-            return
-        save_checkpoint(
-            os.path.join(self.out_dir, self.prefix + "checkpoint"),
-            convert.train_state_tree(self),
-            aux={"step": step, "metrics": self.metrics, "score": self.score,
-                 "updates_done": updates_done, "generator": self.gen.get_state().numpy(),
-                 "spare_rows": self._spare_rows(), "replay_size": self.replay.size},
-        )
+        with self._work(write=False):
+            if not self.writer:
+                return
+            save_checkpoint(
+                os.path.join(self.out_dir, self.prefix + "checkpoint"),
+                convert.train_state_tree(self),
+                aux={"step": step, "metrics": self.metrics, "score": self.score,
+                     "updates_done": updates_done, "generator": self.gen.get_state().numpy(),
+                     "spare_rows": self._spare_rows(), "replay_size": self.replay.size},
+            )
 
     @torch.no_grad()
     def _resume(self, path: str):
         """Copy a checkpoint into the tensors this trainer built (the SAC
         state, the rings, the discriminator's, which other objects share),
-        then the generator's state: before any graph is captured. The ring
+        then the generator's state: before any graph is captured, and before
+        the tensor-parallel layout keeps its blocks of the whole leaves. The ring
         keeps the checkpoint's size, as iltpu's does (memory.size is
         clamped to the run's steps): a ring of another size is rebuilt
         first, before anything holds it."""
@@ -784,18 +841,19 @@ class Trainer:
     # ------------------------------------------------------- pretraining
 
     def _expert_batch(self):
-        return replay_sample(self.expert, self.cfg.training.batch_size, self.gen)
+        return self._samples([(self.expert, self.cfg.training.batch_size, None)])[0]
 
     def bc_pretrain(self):
         """BC pretraining of the SAC actor with a fresh AdamW state of its
         own (the actor's SAC moments and clock stay untouched)."""
         cfg = self.cfg.bc_pretraining
         p = self.sac["a"]
-        st = {"p": p, "m": [torch.zeros_like(x) for x in p], "v": [torch.zeros_like(x) for x in p],
-              "t": torch.zeros(1, device=self.device)}
-        for _ in range(cfg.iterations):
-            behavioural_cloning_update(self.actor, st, self._expert_batch(),
-                                       lr=cfg.learning_rate, weight_decay=cfg.weight_decay)
+        with self._work(*ACTOR):
+            st = {"p": p, "m": [torch.zeros_like(x) for x in p],
+                  "v": [torch.zeros_like(x) for x in p], "t": torch.zeros(1, device=self.device)}
+            for _ in range(cfg.iterations):
+                behavioural_cloning_update(self.actor, st, self._expert_batch(),
+                                           lr=cfg.learning_rate, weight_decay=cfg.weight_decay)
 
     def pretrain_discriminator(self):
         """DRIL: BC of the dropout ensemble, then its threshold over the
@@ -803,18 +861,20 @@ class Trainer:
         from the first batch-size expert rows."""
         icfg = self.cfg.imitation
         opt = dict(lr=icfg.learning_rate, weight_decay=icfg.weight_decay, generator=self.gen)
-        states, actions = self.expert.rows("states"), self.expert.rows("actions")
-        if self.algorithm == "DRIL":
+        with self._work(*UPDATE):
+            dril = self.algorithm == "DRIL"
+            update = behavioural_cloning_update if dril else target_estimation_update
             for _ in range(icfg.pretraining.iterations):
-                behavioural_cloning_update(self.disc, self.disc_state, self._expert_batch(),
-                                           train_dropout=True, **opt)
-            self.dril_threshold = self.disc.uncertainty_threshold(
-                states, actions, icfg.quantile_cutoff, generator=self.gen)
-        else:
-            for _ in range(icfg.pretraining.iterations):
-                target_estimation_update(self.disc, self.disc_state, self._expert_batch(), **opt)
-            B = self.cfg.training.batch_size
-            self.disc.set_sigma(self.disc_state, states[:B], actions[:B])
+                update(self.disc, self.disc_state, self._expert_batch(),
+                       **(dict(train_dropout=True) if dril else {}), **opt)
+            with self._work("expert.", write=False):
+                states, actions = self.expert.rows("states"), self.expert.rows("actions")
+                if dril:
+                    self.dril_threshold = self.disc.uncertainty_threshold(
+                        states, actions, icfg.quantile_cutoff, generator=self.gen)
+                else:
+                    B = self.cfg.training.batch_size
+                    self.disc.set_sigma(self.disc_state, states[:B], actions[:B])
 
     # ---------------------------------------------------------------- run
 
@@ -844,8 +904,9 @@ class Trainer:
                 start_time = time.time()
         if self.algorithm == "PWIL" and cfg.imitation.mix_expert_data != "none" and fresh:
             # the expert rows' rewards become PWIL's, before any transfer
-            self.expert.rows("rewards").copy_(self.disc.relabel(*(
-                self.expert.rows(k) for k in ("states", "actions", "terminals", "timeouts"))))
+            with self._work("expert.", write=False):
+                self.expert.rows("rewards").copy_(self.disc.relabel(*(
+                    self.expert.rows(k) for k in ("states", "actions", "terminals", "timeouts"))))
         if cfg.imitation.mix_expert_data == "prefill_memory" and fresh:
             replay_transfer(self.replay, self.expert)
         if cfg.training.get("on_device_loop"):  # whatever the acting flags say, as iltpu
@@ -895,7 +956,8 @@ class Trainer:
         self.profiler = window = ProfilerWindow(
             cfg.get("profiling") if self.writer else None, self.device, self.prefix)
         if host_act:
-            host_actor = HostActor(self.actor, self.sac["a"])
+            with self._work(*ACTOR, write=False):
+                host_actor = HostActor(self.actor, self.sac["a"])
             act_rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, 0xAC7]))
             actions = host_actor.sample(reads.wait(reads.start([env_state["obs"]]))[0], act_rng)
 
@@ -909,7 +971,8 @@ class Trainer:
                 pending = reads.start([acted[2]["reward"], acted[2]["done"], env_state["obs"]])
                 aux = self._updates_of(step, self.front_of(step, acted, n_updates), n_updates)
                 host_actor.refresh()  # the params of the previous iteration's sync
-                host_actor.start_sync(self.sac["a"])
+                with self._work(*ACTOR, write=False):
+                    host_actor.start_sync(self.sac["a"])
                 rewards, dones, obs = reads.wait(pending)
                 actions = host_actor.sample(obs, act_rng)
             elif pipeline:

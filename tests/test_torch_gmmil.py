@@ -242,7 +242,6 @@ def test_kernel_flags_iltpu_refuses_raise_value_error(tmp_path, flag):
 @pytest.mark.parametrize("override,item", [
     ("env_backend=native", "Native hopper env"),
     ("expert_data.source=hdf5", "D4RL hdf5"),
-    ("parallel.data_axis=data parallel.shard_params=true", "Tensor-parallel layout"),
     ("env=hopper", "Native hopper env"),
 ])
 def test_refuses_what_is_not_ported(tmp_path, override, item):

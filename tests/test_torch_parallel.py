@@ -1,5 +1,6 @@
-"""Data parallel in the port (`iltpu_torch.parallel`, `parallel.data_axis`)
-against iltpu's mesh and against the port's own one-process run.
+"""Data parallel in the port (`iltpu_torch.parallel`, `parallel.data_axis`),
+and the tensor-parallel layout (`parallel.shard_params`) over it, against
+iltpu's mesh and against the port's own one-process run.
 
 The ranks are jax-free processes (tests/torch_parallel_worker.py) in a gloo
 group on the CPU, started twice for the module: one group of 2 ranks and
@@ -7,7 +8,9 @@ one of 4, each running every case of its world. The test process computes
 the references: iltpu's `_transition_core` on the 8-device virtual mesh
 (tests/conftest.py) for GAIL on the autograd path, AdRIL on the SAC kernel
 and PWIL, with iltpu's draws handed across (`_iltpu_noise`), and the port's
-one-process runs. Tolerance: the chain tolerance, rtol 1e-4 / atol 1e-5."""
+one-process runs. Tolerance: the chain tolerance, rtol 1e-4 / atol 1e-5.
+Under the layout the numbers must equal the same world's data-parallel run
+bit for bit."""
 
 import json
 import os
@@ -26,7 +29,10 @@ from iltpu.config import load_config as jax_load_config
 from iltpu.trainer import Trainer as JaxTrainer
 from iltpu_torch import convert
 from iltpu_torch.config import load_config
+from iltpu_torch.parallel import DataMesh, param_shardings
+from iltpu_torch.parallel.tensor import port_name
 from iltpu_torch.trainer import Trainer
+from iltpu_torch.utils.checkpoint import flatten
 from iltpu_torch.updates import adversarial
 from test_torch_convert import assert_trees_close, jax_disc_tree, jax_sac_tree
 from test_torch_trainer import _iltpu_noise, _step_data
@@ -81,17 +87,18 @@ def assert_flat_close(got, want, what):
 # ------------------------------------------------------------ references
 
 
-def iltpu_reference(name, root):
-    """iltpu's _transition_core on the 8-device mesh, 3 iterations x 8
-    updates at batch 16, from iltpu's initial state; the port trainer's
-    inputs (that state in its layout, the env steps, iltpu's draws) to
+def iltpu_reference(name, root, shard=False):
+    """iltpu's _transition_core on the 8-device mesh (with `shard`, under
+    its parallel.shard_params layout), 3 iterations x 8 updates at batch
+    16, from iltpu's initial state; the port trainer's inputs (that state
+    in its layout, the env steps, iltpu's draws; the same with `shard`) to
     <name>.inputs.npz. Returns (the port trainer, iltpu's states and aux
     after each iteration)."""
-    args = W.COMMON[:-1] + W.ILTPU_CASES[name]
-    jt = JaxTrainer(jax_load_config(args + ["parallel.data_axis=data"]),
-                    out_dir=os.path.join(root, f"{name}.jax"))
+    args = W.COMMON[:-1] + W.ILTPU_CASES[name] + ["parallel.data_axis=data"]
+    args += ["parallel.shard_params=true"] if shard else []
+    jt = JaxTrainer(jax_load_config(args), out_dir=os.path.join(root, f"{name}.{shard}.jax"))
     assert jt.mesh is not None and jt.mesh.devices.size == 8
-    tt = Trainer(load_config(args + ["platform=cpu"]), out_dir=os.path.join(root, f"{name}.torch"))
+    tt = Trainer(load_config(W.COMMON + W.ILTPU_CASES[name]), out_dir=os.path.join(root, f"{name}.torch"))
     state = jt.state
     convert.load_sac_tree_(tt.sac, jax_sac_tree(state["sac"]))
     if tt.algorithm == "GAIL":
@@ -116,6 +123,9 @@ def iltpu_reference(name, root):
     return tt, want
 
 
+SHARD_ILTPU = ("gail_autograd", "adril_sac_kernel")
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every reference, then the 2-rank and the 4-rank groups."""
@@ -123,18 +133,29 @@ def runs(tmp_path_factory):
     two, four = os.path.join(root, "world2"), os.path.join(root, "world4")
     os.makedirs(two)
     iltpu = {name: iltpu_reference(name, two) for name in W.ILTPU_CASES}
-    single = {name: W.run_core(W.self_trainer(name, os.path.join(root, f"single.{name}")))
-              for name in W.SELF_CASES}
+    iltpu_shard = {name: iltpu_reference(name, two, shard=True)[1] for name in SHARD_ILTPU}
+    singles = {name: W.self_trainer(name, os.path.join(root, f"single.{name}"))
+               for name in W.SELF_CASES}
+    single = {name: W.drive(t, name) for name, t in singles.items()}
+    plain = W.self_trainer("gail_autograd", os.path.join(root, "plain_ckpt"))
+    W.run_core(plain)
+    plain._checkpoint(W.ITERS * plain.cfg.num_envs, W.ITERS * W.UPDATES)
     resumed = W.dryrun(os.path.join(root, "single_dryrun"), 0)
     single_dryrun = {**W.state_arrays(resumed), "start_step": np.asarray(resumed.start_step)}
     jobs = [{"id": "primitives", "kind": "primitives"}]
     jobs += [{"id": f"self_{n}", "kind": "self", "name": n} for n in W.SELF_CASES]
+    jobs += [{"id": f"shard_{n}", "kind": "shard", "name": n} for n in W.SHARD_CASES]
     spawn_ranks(two, 2, jobs + [{"id": "multihost", "kind": "multihost"}]
                 + [{"id": f"iltpu_{n}", "kind": "iltpu", "name": n} for n in W.ILTPU_CASES]
-                + [{"id": "dryrun", "kind": "dryrun"}])
+                + [{"id": f"shard_iltpu_{n}", "kind": "iltpu", "name": n, "shard": True}
+                   for n in SHARD_ILTPU]
+                + [{"id": "shard_ckpt", "kind": "shard_ckpt",
+                    "plain": os.path.join(root, "plain_ckpt", "checkpoint")},
+                   {"id": "dryrun", "kind": "dryrun"}])
     spawn_ranks(four, 4, jobs + [{"id": "refusals", "kind": "refusals"},
                                  {"id": "mesh_bound", "kind": "mesh_bound"}])
-    return {"root": root, 2: two, 4: four, "iltpu": iltpu, "single": single,
+    return {"root": root, 2: two, 4: four, "iltpu": iltpu, "iltpu_shard": iltpu_shard,
+            "single": single, "singles": singles, "plain": W.whole_arrays(plain),
             "single_dryrun": single_dryrun}
 
 
@@ -198,7 +219,12 @@ def test_slice_matches_iltpu_mesh(runs, name):
     bit; two all-reduces an update on the autograd SAC path (one more for
     the discriminator step), none on the SAC kernel."""
     tt, want = runs["iltpu"][name]
-    got = [result(runs[2], f"iltpu_{name}", r) for r in range(2)]
+    assert_matches_iltpu(tt, want, [result(runs[2], f"iltpu_{name}", r) for r in range(2)], name)
+
+
+def assert_matches_iltpu(tt, want, got, name):
+    """`test_slice_matches_iltpu_mesh`'s checks of the ranks' results `got`
+    against iltpu's `want`, through the port trainer `tt`."""
     for k in got[0]:
         np.testing.assert_array_equal(got[1][k], got[0][k], err_msg=f"rank 1 {k}")
     per_update = {"gail_autograd": 3, "adril_sac_kernel": 0, "pwil": 2}[name]
@@ -297,15 +323,15 @@ def test_dryrun_gail_two_ranks_checkpoint_resume(runs):
 
 def test_refusals(runs, tmp_path):
     """batch_size=30 at 4 ranks fails iltpu's AssertionError (as iltpu's
-    does on its mesh, tests/test_parallel.py); parallel.shard_params names
-    the ROADMAP item; fused_update_scan keeps iltpu's ValueError."""
+    does on its mesh, tests/test_parallel.py); GAIL with
+    parallel.shard_params builds at 4 ranks, its actor's weights among the
+    sharded leaves; fused_update_scan keeps iltpu's ValueError."""
     for rank in range(4):
-        msg = str(result(runs[4], "refusals", rank)["assertion"])
+        got = result(runs[4], "refusals", rank)
+        msg = str(got["assertion"])
         assert msg == "batch_size 30 must divide the 4-device data mesh", msg
+        assert {"sac.a[0]", "sac.a[2]", "disc.p[0]"} <= set(got["shard_leaves"].tolist())
     dp = ["parallel.data_axis=data", "platform=cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, 'Tensor-parallel layout'"):
-        Trainer(load_config(W.COMMON + ["algorithm=GAIL", "parallel.shard_params=true"] + dp),
-                out_dir=str(tmp_path))
     fused = ["algorithm=GAIL", "training.sac_pallas=true", "training.disc_pallas=true",
              "training.fused_update_scan=true"]
     with pytest.raises(ValueError, match="single-device"):
@@ -320,6 +346,180 @@ def test_cli_spawns_its_ranks(tmp_path):
         "algorithm=GAIL", "steps=200", "evaluation.episodes=2", "check_time_usage=true",
         "logging.interval=40", "reinforcement.actor.hidden_size=16",
         "reinforcement.critic.hidden_size=16", "parallel.data_axis=data", "parallel.num_devices=2",
+        f"output_dir={tmp_path}"]
+    r = subprocess.run([sys.executable, "-m", "iltpu_torch.train", *args], cwd=str(tmp_path),
+                       env=dict(os.environ, PYTHONPATH=W.REPO, OMP_NUM_THREADS="1"),
+                       capture_output=True, text=True, timeout=JOIN_SECONDS)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+    assert len(lines) == 1 and np.isfinite(lines[0]["mean_normalized_score"]), r.stdout
+    runs_made = os.listdir(os.path.join(tmp_path, "GAIL_pointmass"))
+    assert [os.path.join(tmp_path, "GAIL_pointmass", d) for d in runs_made] == [lines[0]["out_dir"]]
+    for name in ("agent", "discriminator", "agent_best", "metrics.pkl", "config.yaml"):
+        assert os.path.exists(os.path.join(lines[0]["out_dir"], name))
+
+
+# ------------------------------------------ the tensor-parallel layout
+
+
+def front_gathers(names, per_iteration=True):
+    """The gathers a front makes: the sampled rows of the sharded ring
+    columns (one), and PWIL's pools where they are sharded."""
+    rows = int(per_iteration and any(n.startswith("replay.") for n in names))
+    return rows + int("disc.expert_weights[0]" in names)
+
+
+def expected_gathers(name, names):
+    """The all-gathers of a SHARD case's chain: an update unit's one, a
+    front's (`front_gathers`), and on the on-device loop an act's one."""
+    if name == "device_loop":  # 4 iterations without updates, then ITERS x 2 iterations
+        return (4 * (1 + front_gathers(names, False))
+                + W.ITERS * 2 * (1 + front_gathers(names) + W.UPDATES // 2))
+    units = W.UPDATES // (4 if name == "kblock4" else 1)
+    return W.ITERS * (front_gathers(names) + units)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", list(W.SHARD_CASES))
+def test_shard_params_matches_data_parallel(runs, name, world):
+    """Under parallel.shard_params every iteration's whole state (the
+    leaves gathered) and aux equal the same world's data-parallel run bit
+    for bit, and one process's within the chain tolerance; every rank's
+    whole state equals rank 0's; the all-reduces are data parallel's, and
+    the all-gathers one an update unit plus the fronts' and acts'."""
+    got = [result(runs[world], f"shard_{name}", r) for r in range(world)]
+    want = result(runs[world], f"self_{name}")
+    chain = [k for k in want if k.startswith("it")]
+    for r in range(world):
+        for k in chain:
+            np.testing.assert_array_equal(got[r][k], want[k], err_msg=f"rank {r} {k}")
+    assert int(got[0]["collectives"]) == int(want["collectives"])
+    names = got[0]["layout/names"].tolist()
+    assert int(got[0]["gathers"]) == expected_gathers(name, names), names
+    for it in range(W.ITERS):
+        for what in ("state", "aux"):
+            assert_flat_close(iteration(got[0], it, what), iteration(runs["single"][name], it, what),
+                              f"{name} at {world} ranks under the layout, iteration {it} {what}")
+
+
+def expected_layout(t, world, rank=0):
+    """{port name: this rank's columns} by iltpu's rule on the one-process
+    trainer `t`'s train_state_tree."""
+    tree = convert.train_state_tree(t)
+    specs, paths = flatten(param_shardings(DataMesh(None, rank, world, "data", None), tree))
+    return {port_name(p, t.disc): c for p, c in zip(paths, specs) if c is not None}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_state_of_record(runs, world):
+    """Each rank's state of record after the chain: exactly the leaves
+    iltpu's rule shards (on the one-process trainer's state) hold the
+    rank's column block, equal to that block of the rank's whole tensor
+    bit for bit and of one process's within the chain tolerance, and
+    concatenating to the whole across the ranks; every other tensor is
+    whole; the expert ring's sharded columns hold their blocks; the
+    parameters' whole tensors hold no storage between works."""
+    last = f"it{W.ITERS - 1}/state/"
+    for name in W.SHARD_CASES:
+        t = runs["singles"][name]
+        single = iteration(runs["single"][name], W.ITERS - 1, "state")
+        got = [result(runs[world], f"shard_{name}", r) for r in range(world)]
+        for r, g in enumerate(got):
+            assert int(g["released"]) == 0, name
+            layout = expected_layout(t, world, r)
+            names = g["layout/names"].tolist()
+            assert names == sorted(layout), (name, names)
+            cols = dict(zip(names, (slice(a, b) for a, b in g["layout/cols"].tolist())))
+            assert cols == layout, name
+            for k, v in single.items():
+                rec, whole = g[f"record/{k}"], g[last + k]
+                if k in cols:
+                    assert rec.shape == whole.shape[:-1] + (whole.shape[-1] // world,), (name, k)
+                    np.testing.assert_array_equal(rec, whole[..., cols[k]], err_msg=f"{name} {k}")
+                    np.testing.assert_allclose(rec, v[..., cols[k]], err_msg=f"{name} {k}", **TOL)
+                else:
+                    np.testing.assert_array_equal(rec, whole, err_msg=f"{name} {k}")
+            for col in W.COLUMNS:
+                k = f"expert.{col}[0]"
+                want = getattr(t.expert, col).numpy()
+                np.testing.assert_array_equal(g[f"expert/{col}"], want[..., cols[k]] if k in cols else want)
+        for k in got[0]["layout/names"].tolist():
+            if k.startswith("expert."):
+                continue
+            np.testing.assert_array_equal(
+                np.concatenate([g[f"record/{k}"] for g in got], -1), got[0][last + k], err_msg=k)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_greedy_matches_replicated(runs, world):
+    """The port of iltpu's test_param_shardings_shard_weight_last_axis: the
+    sharded actor's greedy forward (its weights gathered) equals a
+    replicated actor's with the same parameters, on every rank."""
+    obs = torch.from_numpy(np.random.default_rng(5).normal(size=(6, 5)).astype(np.float32))
+    t = runs["singles"]["gail_kernels"]
+    for r in range(world):
+        got = result(runs[world], "shard_gail_kernels", r)
+        W.load_state(t, iteration(got, W.ITERS - 1, "state"))
+        np.testing.assert_array_equal(got["greedy"], t.actor.greedy_action(obs).detach().numpy())
+
+
+@pytest.mark.parametrize("name", SHARD_ILTPU)
+def test_shard_params_matches_iltpu_mesh(runs, name):
+    """Two ranks under the layout against iltpu's transition_core with
+    parallel.shard_params on its 8-device mesh (the checks of
+    test_slice_matches_iltpu_mesh), and against the same two ranks' data
+    parallel bit for bit."""
+    tt, _ = runs["iltpu"][name]
+    got = [result(runs[2], f"shard_iltpu_{name}", r) for r in range(2)]
+    plain = result(runs[2], f"iltpu_{name}")
+    for k, v in plain.items():
+        if k != "gathers":
+            np.testing.assert_array_equal(got[0][k], v, err_msg=k)
+    chain = [{k: v for k, v in g.items() if not k.startswith(("layout/", "expert/", "gathers"))}
+             for g in got]
+    assert_matches_iltpu(tt, runs["iltpu_shard"][name], chain, name)
+
+
+@pytest.mark.parametrize("direction", ["sharded_to_plain", "plain_to_sharded"])
+def test_checkpoints_across_layouts(runs, tmp_path, direction):
+    """A checkpoint written by two ranks under the layout (rank 0 gathers
+    and writes) resumes in one process without it, and one written by one
+    process resumes under the layout at two ranks (each keeps its blocks),
+    with equal state."""
+    got = result(runs[2], "shard_ckpt", 0)
+    part = lambda pre: {k[len(pre):]: v for k, v in got.items() if k.startswith(pre)}
+    if direction == "sharded_to_plain":
+        ckpt = os.path.join(runs[2], "ckpt.rank0", "written", "checkpoint")
+        t = Trainer(load_config(W.COMMON + W.SELF_CASES["gail_autograd"][0]
+                                + [f"checkpointing.resume={ckpt}"]), out_dir=str(tmp_path))
+        assert_flat_equal(W.state_arrays(t), part("written/"), direction)
+        return
+    assert_flat_equal(part("resumed/"), runs["plain"], direction)
+    names = got["layout/names"].tolist()
+    assert names, "nothing sharded"
+    cols = dict(zip(names, (slice(a, b) for a, b in got["layout/cols"].tolist())))
+    record = part("resumed_record/")
+    for k, v in runs["plain"].items():
+        np.testing.assert_array_equal(record[k], v[..., cols[k]] if k in cols else v, err_msg=k)
+
+
+def assert_flat_equal(got, want, what):
+    assert sorted(got) == sorted(want), f"{what}: keys differ"
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=f"{what} {k}")
+
+
+def test_cli_shard_params_two_ranks(tmp_path):
+    """The port of iltpu's test_trainer_shard_params_update_runs: `python -m
+    iltpu_torch.train parallel.data_axis=data parallel.shard_params=true
+    parallel.num_devices=2 platform=cpu ...` (GAIL on pointmass) gives one
+    JSON line with a finite score and one run directory with iltpu's
+    outputs."""
+    args = [a for a in W.COMMON if not a.startswith(("steps", "reinforcement"))] + [
+        "algorithm=GAIL", "steps=200", "training.start=100", "training.batch_size=32",
+        "evaluation.interval=150", "evaluation.episodes=2", "logging.interval=50",
+        "reinforcement.actor.hidden_size=16", "reinforcement.critic.hidden_size=16",
+        "parallel.data_axis=data", "parallel.shard_params=true", "parallel.num_devices=2",
         f"output_dir={tmp_path}"]
     r = subprocess.run([sys.executable, "-m", "iltpu_torch.train", *args], cwd=str(tmp_path),
                        env=dict(os.environ, PYTHONPATH=W.REPO, OMP_NUM_THREADS="1"),

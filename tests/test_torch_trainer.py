@@ -311,9 +311,10 @@ def test_cli_other_algorithms_on_cpu(tmp_path, alg):
 
 
 def test_port_imports_neither_jax_nor_iltpu(tmp_path):
-    """Every module of the port (train_all, sweep, analysis and parallel
-    named too), a plain CLI run, a data-parallel one (a one-rank gloo
-    group), a two-job `-m` run, and a pipelined run that checkpoints,
+    """Every module of the port (train_all, sweep, analysis, parallel and its
+    tensor-parallel layout named too), a plain CLI run, a data-parallel one
+    (a one-rank gloo group) and one under parallel.shard_params, a two-job
+    `-m` run, and a pipelined run that checkpoints,
     resumed: beside an `agent_best/` that holds only iltpu's header.pkl (a
     pickled JAX treedef, never opened), neither JAX, iltpu nor PyYAML is
     imported."""
@@ -327,7 +328,8 @@ import glob, importlib, pkgutil, sys
 import iltpu_torch
 for m in pkgutil.walk_packages(iltpu_torch.__path__, "iltpu_torch."):
     importlib.import_module(m.name)
-import iltpu_torch.analysis, iltpu_torch.parallel, iltpu_torch.sweep, iltpu_torch.train_all
+import iltpu_torch.analysis, iltpu_torch.parallel, iltpu_torch.parallel.tensor, iltpu_torch.sweep
+import iltpu_torch.train_all
 from iltpu_torch.train import main
 from iltpu_torch.trainer import Trainer
 from iltpu_torch.config import load_config
@@ -336,6 +338,9 @@ main({CLI + ['platform=cpu', 'training.fused_update_scan=false', 'training.sac_p
              'training.disc_pallas=false', 'parallel.data_axis=data',
              f'output_dir={tmp_path / "dp"}']!r})
 assert iltpu_torch.parallel.allreduce_mean_.launches > 0
+main({CLI + ['platform=cpu', 'training.fused_update_scan=false', 'parallel.data_axis=data',
+             'parallel.shard_params=true', f'output_dir={tmp_path / "tp"}']!r})
+assert iltpu_torch.parallel.tensor.allgather_blocks.launches > 0
 scores = main({['-m', 'seed=1,2'] + CLI + ['platform=cpu', f'output_dir={tmp_path / "multi"}']!r})
 assert len(scores) == 2 and len(glob.glob({str(tmp_path / 'multi')!r} + "/multirun/*/?/config.yaml")) == 2
 main({first!r})
