@@ -152,9 +152,38 @@ of JAX or `iltpu`. Phases, each printing its results:
    chunk (a fresh process's first autograd steps) against the same chunk
    run again, bit for bit, and its ms an update (one card staging through
    the host: not a scaling figure).
+9. the tensor-parallel layout (`parallel.shard_params=true`): (9a) NCCL at
+   world size 1 against data_axis alone, bit for bit, eager and replayed;
+   (9b) two gloo ranks on the card against one rank; (9c) GAIL's kernel
+   path through `Trainer.run`, plain / data_axis / shard_params in turns;
+10. the MuJoCo envs (`env_backend=native`): (10a) the C++ stepper built
+   with g++ from the tree against `third_party/mujoco`, the libmujoco the
+   process mapped (it must be the copy decoded from the tree's
+   `third_party/mujoco/libmujoco-3.10.0.gz.b64` into the tree's
+   `iltpu_torch/_build/`, with MuJoCo 3.10.0's sha256),
+   512 hopper envs x 1,000 steps of seeded actions twice from one seed,
+   every output bit-equal (auto-resets and the absorbing bit included),
+   the host ms of one step and of one step through the trainer's
+   `HostEnv`; (10b) iltpu's main path, bench.py's configuration: GAIL on
+   512 hopper envs with the SAC and GAIL kernels and the fused scan,
+   training.start=100, hopper's expert data, 4,096 steps through
+   `Trainer.run`, plain, pipelined, host acting, update_block=16
+   pipelined, pipelined and plain again, in turns: the updates run must
+   be the ones owed and each kernel launched once an update (the K-blocked
+   one once per 16); transition_core at hopper's shapes on the stepper's
+   rows, card against CPU at 1e-4 / 1e-5; the D4RL-normalised scores
+   printed, not judged; (10c) SAC with the autograd update on ant (64
+   envs, 2,048 steps, ant's expert data) and GAIL on the kernels on
+   walker2d and halfcheetah (16 envs, 1,024 steps); (10d) sac_update at
+   (S, A) = (18, 6) and (112, 8) and gail_update at D = 24 against their
+   plain versions, and the refusals of ant's 120 discriminator inputs
+   (gail_update, kblock_update: 'GAIL kernel coverage') and 120-feature
+   PWIL atoms (pwil_transport), by their messages.
 
 Then the steady rates and the pretraining times with the nvidia-smi line, one `kernels` JSON
-line, the nvidia-smi line, and as the last line {"ok": true, "device":
+line (the per-update and K-blocked kernels at hopper's shapes with their
+launches on phase 10b's main path, the row sums and PWIL's transport on
+their pointmass paths), the nvidia-smi line, and as the last line {"ok": true, "device":
 {...}}. Any failure raises and exits non-zero, and without CUDA or without
 the package beside it the script exits 1 at once.
 """
@@ -956,13 +985,14 @@ def float64_sac(learner):
     return wide_update
 
 
-def check_against_cpu(dev, extra=()):
+def check_against_cpu(dev, extra=(), rows=None):
     """transition_core on the card (kernels, or the autograd updates where
     the flags say so) against the CPU (plain versions, autograd), 3
     iterations x 8 updates, from one state (DRIL and RED pretrained for 50
     iterations on the card first), with a third run on the CPU whose SAC
     steps are computed in float64 as the arbiter of the SAC state (see
-    `compare`); returns the worst error and the launches the card's run
+    `compare`); each iteration's 4 env rows are random, or `rows()`'s (an
+    env's step); returns the worst error and the launches the card's run
     made."""
     import torch
     from iltpu_torch import convert
@@ -988,9 +1018,10 @@ def check_against_cpu(dev, extra=()):
     worst = (0.0, 0.0)
     before = counts()
     for it in range(3):
-        data = [torch.randn(n, S, generator=g), torch.tanh(torch.randn(n, A, generator=g)),
-                torch.randn(n, generator=g), torch.randn(n, S, generator=g),
-                (torch.rand(n, generator=g) < 0.3).float(), torch.zeros(n)]
+        data = rows() if rows else [
+            torch.randn(n, S, generator=g), torch.tanh(torch.randn(n, A, generator=g)),
+            torch.randn(n, generator=g), torch.randn(n, S, generator=g),
+            (torch.rand(n, generator=g) < 0.3).float(), torch.zeros(n)]
         noise = cpu.draw_noise(8)
         for key in ("replay", "expert"):  # raw integers, reduced modulo the limit
             noise[key] = torch.randint(0, 2**62, (8 * 16,), generator=g)
@@ -1818,6 +1849,266 @@ def host_acting_costs(dev, N=512, n=50):
     return d2h, h2d, forward, sync
 
 
+# Phase 10: the MuJoCo envs on the C++ stepper built against third_party/mujoco.
+HOPPER = ("env=hopper", "env_backend=native",
+          f"expert_data.source={os.path.join(REPO, 'data', 'hopper_expert.npz')}")
+
+
+def native_env(name):
+    """The env args of `name` on the stepper, with its expert data."""
+    return (f"env={name}", "env_backend=native",
+            f"expert_data.source={os.path.join(REPO, 'data', name + '_expert.npz')}")
+
+
+def check_stepper(dev, N=512, steps=1000):
+    """10a: the stepper built from the repo, libmujoco mapped from the copy
+    decoded from the tree's third_party/, 512 hopper envs x 1,000 steps of seeded actions twice
+    from one seed, every output (auto-resets and the absorbing bit
+    included) bit-equal; the host ms of one step, and of one step through
+    the trainer's adapter (`HostEnv`: the actions' copy to the host, the C
+    call, the packed block's copy to the card), with the C call inside it
+    and each of the two copies alone. Returns (step ms, adapter ms, the C
+    call's ms inside the adapter, actions-to-host ms, block-to-card ms)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from iltpu_torch.envs import native
+    from iltpu_torch.envs.vecenv import HostEnv
+
+    t0 = time.time()
+    lib = native.ensure_built()
+    built_s = time.time() - t0
+    env = native.NativeVecEnv("hopper", N, seed=17)
+    with open("/proc/self/maps") as f:
+        maps = sorted({line.split()[-1] for line in f if "libmujoco" in line})
+    if maps != [native.LIBMUJOCO] or not native.LIBMUJOCO.startswith(REPO + os.sep):
+        raise AssertionError(f"stepper: libmujoco mapped from {maps}, not from "
+                             f"{native.LIBMUJOCO} in the tree")
+    with open(maps[0], "rb") as f:
+        mapped_sha = hashlib.sha256(f.read()).hexdigest()
+    if mapped_sha != native.LIBMUJOCO_SHA256:
+        raise AssertionError(f"stepper: the mapped libmujoco has sha256 {mapped_sha}, "
+                             f"not {native.LIBMUJOCO_SHA256}")
+    print(f"stepper: {os.path.relpath(lib, REPO)} built in {built_s:.2f} s with g++; libmujoco "
+          f"mapped from {maps}, decoded from "
+          f"{os.path.relpath(native.LIBMUJOCO_PACKED, REPO)}, sha256 {mapped_sha}")
+
+    def run():
+        h, times, ends, terms = hashlib.sha256(), [], 0, 0
+        h.update(env.reset(17).tobytes())
+        rng = np.random.default_rng(3)
+        for _ in range(steps):
+            a = rng.uniform(-1, 1, (N, env.action_size)).astype(np.float32)
+            t = time.perf_counter()
+            out = env.step(a)
+            times.append(1e3 * (time.perf_counter() - t))
+            for x in out:
+                h.update(x.tobytes())
+            ends += int((out[2] + out[3]).sum())
+            terms += int(out[2].sum())
+        return h.hexdigest(), ends, terms, times
+
+    first, second = run(), run()
+    if first[:3] != second[:3]:
+        raise AssertionError(f"stepper: two runs from one seed differ: {first[:3]} vs {second[:3]}")
+    if first[2] == 0:
+        raise AssertionError("stepper: no episode ended in 1,000 steps: no reset was checked")
+    step_ms = float(np.median(first[3] + second[3]))
+    env.close()
+
+    adapter = HostEnv(native.NativeVecEnv("hopper", N, seed=17), dev, 17)
+    state = adapter.reset()
+    g = torch.Generator(device=dev).manual_seed(5)
+    inner, c_step = [], adapter.env.step
+
+    def timed_step(a):  # the C call inside the adapter's step, on the host's clock
+        t = time.perf_counter()
+        out = c_step(a)
+        inner.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    adapter.env.step = timed_step
+    times, d2h, h2d = [], [], []
+    block = torch.empty((N, adapter._width), pin_memory=True)
+    for _ in range(200):
+        a = torch.rand(N, 3, generator=g, device=dev) * 2 - 1
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        adapter.step(state, a)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()  # each copy alone, waited for
+        buf, event = adapter.fetch(a)
+        event.synchronize()
+        d2h.append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        block.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        h2d.append(1e3 * (time.perf_counter() - t))
+    adapter.env.step = c_step
+    adapter.close()
+    adapter_ms, inner_ms = float(np.median(times)), float(np.median(inner))
+    d2h_ms, h2d_ms = float(np.median(d2h)), float(np.median(h2d))
+    print(f"stepper: {N} hopper envs x {steps} steps twice from one seed: bit-equal (sha256 "
+          f"{first[0][:16]}), {first[1]} episode ends ({first[2]} terminal) a run; host ms a step "
+          f"{step_ms:.4f} (mean {np.mean(first[3] + second[3]):.4f}); through HostEnv, 200 steps "
+          f"(actions to the host, the step, the packed block to the card) {adapter_ms:.4f}, of "
+          f"which the C call {inner_ms:.4f} (medians; the rest, {adapter_ms - inner_ms:.4f}, is "
+          f"the copies, the packing and the outputs' views); alone: the actions ({N} x 3) to the "
+          f"host {d2h_ms:.4f}, the block ({N} x {adapter._width} floats) to the card {h2d_ms:.4f}")
+    return step_ms, adapter_ms, inner_ms, d2h_ms, h2d_ms
+
+
+def native_rows(name, n=4, seed=23):
+    """`rows()` of check_against_cpu: each call one step of n envs of the
+    stepper under seeded actions, as CPU tensors (obs, actions, rewards,
+    next_obs, terminals, timeouts)."""
+    import numpy as np
+    import torch
+    from iltpu_torch.envs.native import NativeVecEnv
+
+    env = NativeVecEnv(name, n, seed=seed)
+    obs = [env.reset()]
+    rng = np.random.default_rng(seed)
+
+    def rows():
+        a = rng.uniform(-1, 1, (n, env.action_size)).astype(np.float32)
+        next_obs, r, term, tout, after = env.step(a)
+        out = [obs[0], a, r, next_obs, term, tout]
+        obs[0] = after
+        return [torch.from_numpy(np.array(x)) for x in out]
+
+    return rows
+
+
+def check_refusals(dev):
+    """10d: the GAIL step and the K-blocked kernel refuse ant's
+    discriminator input (112 + 8 = 120), PWIL's transport its 120-feature
+    atoms, each by its message."""
+    import torch
+    from iltpu_torch.ops.gail_update import gail_update
+    from iltpu_torch.ops.kblock_update import kblock_update
+    from iltpu_torch.ops.pwil_transport import pwil_transport
+
+    hyper, st, steps = gail_case(112, 8, 256, True, 3, dev)
+    args, mix = steps[0]
+    sac_hyper, gail_hyper, sac_st, disc_st, batches, expert, noise = kblock_case(112, 8, 2, True,
+                                                                                 0.0, dev)
+    atoms, pools, queries, offsets, reset, kw = pwil_case(dev, 64, 1000, 120, 64, 1000, False, 5)
+    for name, call, want in (
+        ("gail_update", lambda: gail_update(hyper, st, *args, mix), "'GAIL kernel coverage'"),
+        ("kblock_update", lambda: kblock_update(sac_hyper, gail_hyper, sac_st, disc_st, batches,
+                                                expert, noise), "'GAIL kernel coverage'"),
+        ("pwil_transport", lambda: pwil_transport(atoms, pools, queries, offsets, reset, **kw),
+         "at most 64 features, got 120"),
+    ):
+        try:
+            call()
+        except NotImplementedError as e:
+            if want not in str(e):
+                raise AssertionError(f"{name} at ant's shapes: refused with {e!r}, not {want}")
+            print(f"refusal {name} at ant's shapes: NotImplementedError({str(e)[:160]!r}...)")
+        else:
+            raise AssertionError(f"{name} took ant's shapes, which it has no variant for")
+    torch.cuda.synchronize()
+
+
+def check_mujoco(dev, results, rates, pre, launches, smi):
+    """Phase 10 (10a-10d): adds to `results` the kernels' errors and times
+    at the new shapes, to `rates` and `pre` each run's, and to `launches`
+    the per-update and K-blocked kernels' counts on the main path (10b,
+    pipelined as bench.py runs it, and update_block=16)."""
+    def per_update(t):
+        return launches_of(sac_update=t.updates_done, gail_update=t.updates_done)
+
+    def blocked(t):
+        k, rest = schedule(t.cfg, 16)
+        return launches_of(sac_update=rest, gail_update=rest, kblock_update=k // 16)
+
+    def none(t):
+        return launches_of()
+
+    def timing(t):
+        return (f"{t[0]:.4f} ms on the device ({t[1]:.4f} ms host-paced; plain {t[2]:.4f} ms, "
+                f"bound {t[3]:.5f} ms by {t[4]})")
+
+    def rate(k):
+        return f"{rates[k]:.1f}" if k in rates else "not run"
+
+    t10 = time.time()
+    step_ms, adapter_ms, inner_ms, d2h_ms, h2d_ms = check_stepper(dev)  # 10a
+
+    def owed(expect):  # the launches of `expect`, once the updates run are the schedule's
+        def check(t):
+            if t.updates_done != sum(schedule(t.cfg, 1)):
+                raise AssertionError(f"{t.updates_done} updates run, {sum(schedule(t.cfg, 1))} owed")
+            return expect(t)
+        return check
+
+    main_path = (*HOPPER, "training.start=100")
+    for name, extra, expect in (  # 10b, in turns
+        ("hopper", (), per_update),
+        ("hopper_pipeline", ("training.pipeline=true",), per_update),
+        ("hopper_host_acting", ("training.host_acting=true",), per_update),
+        ("hopper_kblock16_pipeline", ("training.update_block=16", "training.pipeline=true"),
+         blocked),
+        ("hopper_pipeline_again", ("training.pipeline=true",), per_update),
+        ("hopper_again", (), per_update),
+    ):
+        counted, rates[name], pre[name] = run_trainer(name, (*main_path, *extra), owed(expect))
+        if name == "hopper_pipeline":  # the main path: bench.py's default acting
+            launches.update(sac_update=counted["sac_update"], gail_update=counted["gail_update"])
+        if name == "hopper_kblock16_pipeline":
+            launches["kblock_update"] = counted["kblock_update"]
+    err, launched = check_against_cpu(dev, HOPPER, rows=native_rows("hopper"))
+    if launched != launches_of(sac_update=24, gail_update=24):
+        raise AssertionError(f"reference hopper: launches {launched}")
+    print(f"reference: transition_core GAIL hopper (state 12, action 3, the stepper's rows) on the "
+          f"card vs the CPU, 3 x 8 updates: max_abs_err {err[0]:.3g}, max_rel_err {err[1]:.3g}, "
+          f"launches {launched}")
+    small = ("num_envs=16", "steps=1024", "training.start=256", "training.timing_skip_steps=512",
+             "memory.size=10000")
+    for name, extra, expect in (  # 10c
+        ("ant_sac_autograd", (*native_env("ant"), *alg_args("SAC", False), "num_envs=64",
+                              "steps=2048", "training.timing_skip_steps=1024",
+                              "memory.size=10000"), none),
+        ("walker2d", (*native_env("walker2d"), *small), per_update),
+        ("halfcheetah", (*native_env("halfcheetah"), *small), per_update),
+    ):
+        counted, rates[name], pre[name] = run_trainer(name, extra, owed(expect))
+    for S, A, where in ((18, 6, "walker2d/halfcheetah"), (112, 8, "ant")):  # 10d
+        err, times = (0.0, 0.0), None
+        for min_alpha in (0.0, 0.05):
+            e, t = check_sac(S, A, min_alpha, dev)
+            err, times = worse(err, e), times or t
+        results[("sac", where)] = (err[0], *times, *sac_bound_ms(S, A, 256, 256))
+        print(f"kernel sac_update {where} S={S} A={A}: max_abs_err {err[0]:.3g}, max_rel_err "
+              f"{err[1]:.3g}, {timing(results[('sac', where)][1:])}")
+    err = (0.0, 0.0)
+    for bce in (True, False):
+        e, t, case = check_gail(18, 6, bce, dev)
+        err = worse(err, e)
+        if bce:
+            times = (*t, *gail_bound_ms(18, 6, 256, 64, case))
+    print(f"kernel gail_update walker2d/halfcheetah S=18 A=6 (D=24): max_abs_err {err[0]:.3g}, "
+          f"max_rel_err {err[1]:.3g}, {timing(times)}")
+    check_refusals(dev)
+    print("MuJoCo envs, steady env-steps/s: hopper GAIL on the kernels at 512 envs: plain "
+          f"{rates['hopper']:.1f} and {rates['hopper_again']:.1f}, pipelined "
+          f"{rates['hopper_pipeline']:.1f} and {rates['hopper_pipeline_again']:.1f}, host acting "
+          f"{rates['hopper_host_acting']:.1f}, update_block=16 pipelined "
+          f"{rates['hopper_kblock16_pipeline']:.1f} (pointmass in this call: plain "
+          f"{rate('gail')} and {rate('gail_again')}, pipelined "
+          f"{rate('gail_pipeline')}, host acting {rate('gail_host_acting')}, "
+          f"update_block=16 pipelined {rate('gail_kblock16_pipeline')}); ant SAC autograd "
+          f"(64 envs) {rates['ant_sac_autograd']:.1f}, walker2d GAIL (16 envs) "
+          f"{rates['walker2d']:.1f}, halfcheetah GAIL (16 envs) {rates['halfcheetah']:.1f}; the "
+          f"stepper's host ms a 512-env hopper step {step_ms:.4f}, through HostEnv "
+          f"{adapter_ms:.4f} (the C call in it {inner_ms:.4f}; the actions' copy {d2h_ms:.4f}, "
+          f"the block's {h2d_ms:.4f}); on {smi}; phase 10 took {time.time() - t10:.1f} s")
+
+
 # Phase 7's GAIL runs: phase 5's kernel path at a small size
 SMALL_ARGS = [a for a in TRAINER_ARGS if not a.startswith(
     ("num_envs", "steps", "training.start", "training.timing", "memory.size"))] + [
@@ -2335,6 +2626,10 @@ def main():
               for way in ("plain", "dp", "shard"))
           + f" on {smi}; phase 9 took {time.time() - t9:.1f} s")
 
+    # 10. the MuJoCo envs: the stepper, iltpu's main path (GAIL on 512 hopper envs, bench.py's
+    # configuration), the other envs and SAC, the kernels at each env's shapes
+    check_mujoco(dev, results, rates, pre, launches, smi)
+
     # the row-sum kernel's launches on its path: both of its entries
     launches["gaussian_rowsum"] += launches.pop("gmmil_witness_reward")
     print("trainer steady env-steps/s: " + ", ".join(
@@ -2342,19 +2637,21 @@ def main():
     print("trainer pretraining ms an iteration: " + ", ".join(
         f"{k} {v:.4f}" for k, v in pre.items() if v is not None) + f" on {smi}")
 
-    # the kernels line: main-path shapes (pointmass), launches from each kernel's path
+    # the kernels line: each at its path's shapes, launches from that path's run: the per-update
+    # and K-blocked kernels on the main path (hopper, 10b), the row sums on GMMIL's (5c) and
+    # PWIL's transport on PWIL's (5e), both on pointmass
     rows = []
-    for name, key, replaces in (
-        ("sac_update", "sac", "iltpu/ops/pallas_sac.py:564"),
-        ("gail_update", "gail", "iltpu/ops/pallas_gail.py:319"),
-        ("kblock_update", "kblock", "iltpu/ops/pallas_fused_block.py:241"),
-        ("gaussian_rowsum", "rowsum", "iltpu/ops/pallas_pairwise.py:101"),
-        ("pwil_transport", "pwil", "iltpu/rewards/pwil.py:107"),
+    for name, key, replaces, path in (
+        ("sac_update", "sac", "iltpu/ops/pallas_sac.py:564", "hopper"),
+        ("gail_update", "gail", "iltpu/ops/pallas_gail.py:319", "hopper"),
+        ("kblock_update", "kblock", "iltpu/ops/pallas_fused_block.py:241", "hopper"),
+        ("gaussian_rowsum", "rowsum", "iltpu/ops/pallas_pairwise.py:101", "pointmass"),
+        ("pwil_transport", "pwil", "iltpu/rewards/pwil.py:107", "pointmass"),
     ):
-        err, ms, paced_ms, plain_ms, bound, by = results[(key, "pointmass")]
+        err, ms, paced_ms, plain_ms, bound, by = results[(key, path)]
         rows.append({
             "name": name, "route": "cuda", "source": f"iltpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": err,
+            "replaces": replaces, "path": path, "launches": launches[name], "max_abs_err": err,
             "ms": ms, "host_paced_ms": paced_ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "library_ms": None,
         })

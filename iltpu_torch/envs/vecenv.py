@@ -1,14 +1,22 @@
-"""Vectorised array env: the port of `VecEnv` from `iltpu/envs/jaxenv.py`.
+"""The trainer's envs: the array env (the port of `VecEnv` from
+`iltpu/envs/jaxenv.py`) and `HostEnv`, the same contract over a MuJoCo env
+stepped on the host.
 
-N envs step together on the device: actions clipped to the env's bounds,
-per-env auto-reset to a fresh initial state when an episode ends, the
-reference's terminal/timeout split (a time-limit end is a timeout, and
+`VecEnv`: N envs step together on the device: actions clipped to the env's
+bounds, per-env auto-reset to a fresh initial state when an episode ends,
+the reference's terminal/timeout split (a time-limit end is a timeout, and
 wins over a termination on the same step), and the DAC absorbing
 indicator bit appended to observations.
+
+`HostEnv` wraps a host env (`native.NativeVecEnv`, the C++ stepper, or
+gymnasium's `host.HostVecEnv`), which has the same semantics on the host.
+`make_env` builds either by `env_backend`, as iltpu's `_make_env`.
 """
 
+import warnings
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from iltpu_torch.envs.classic import ENVS
@@ -80,12 +88,155 @@ class VecEnv:
         return state, out
 
 
+class HostEnv:
+    """A host env (`NativeVecEnv` or `HostVecEnv`) behind `VecEnv`'s
+    contract: `reset()` -> a state dict and `step(state, actions)` ->
+    (state, out), `state["obs"]` updated in place and `out` holding
+    `next_obs`, `reward`, `terminal`, `timeout` and `done` on the device.
+
+    A step makes one copy of the actions to the host (float32; none when
+    they are given as a numpy array, as host acting gives them), one C
+    call, and one copy to the device of one pinned block packed as iltpu
+    packs it (`iltpu/trainer.py:1537-1548`: obs, actions, reward,
+    next_obs, terminal, timeout, obs_after; the step column, which the
+    trainer writes on the device, left out). `out` also holds the
+    observations acted on and the actions as the block's columns, and
+    under "host" the rewards, dones and next observations to act on as
+    the numpy arrays the env returned, which the host reads without a copy
+    back from the device.
+
+    Host envs are seeded with an int, as iltpu seeds them: `reset` starts
+    every env from `seed` (iltpu's `self.env.reset(cfg.seed)`), and the
+    torch generator that `VecEnv.reset` takes is ignored.
+    """
+
+    def __init__(self, env, device=None, seed: int = 0):
+        self.env, self.seed = env, seed
+        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.num_envs = env.num_envs
+        self.obs = None  # the observations to act on, on the host
+        S, A = env.obs_size, env.action_size
+        edges = np.cumsum([0, S, A, 1, S, 1, 1, S])
+        names = ("obs", "actions", "reward", "next_obs", "terminal", "timeout", "obs_after")
+        self._cols = {k: slice(int(a), int(b)) for k, a, b in zip(names, edges, edges[1:])}
+        self._width = int(edges[-1])
+        self._turn = 0
+        self._blocks = [None, None]  # two pinned blocks on the card, each with its copy's event
+        self._actions = None  # the pinned actions on the card
+
+    @property
+    def obs_size(self) -> int:
+        return self.env.obs_size
+
+    @property
+    def action_size(self) -> int:
+        return self.env.action_size
+
+    @property
+    def max_episode_steps(self) -> int:
+        return self.env.max_episode_steps
+
+    def reset(self, generator: Optional[torch.Generator] = None) -> Dict:
+        """Every env from `seed`, whatever the generator."""
+        self.obs = self.env.reset(self.seed)
+        return {"obs": torch.from_numpy(self.obs).to(self.device)}
+
+    def fetch(self, actions: torch.Tensor):
+        """Begin copying device actions to the host; `step` takes what this
+        returns (and waits for it)."""
+        if self.device.type != "cuda":
+            return actions.to(torch.float32).numpy().copy(), None
+        if self._actions is None:
+            self._actions = torch.empty(actions.shape, dtype=torch.float32, pin_memory=True)
+        buf = self._actions
+        buf.copy_(actions, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return buf, event
+
+    def _block(self) -> torch.Tensor:
+        """A block to pack into: pinned on the card (the other of two, once
+        its last copy to the device is done), fresh on the CPU."""
+        if self.device.type != "cuda":
+            return torch.empty((self.num_envs, self._width))
+        self._turn ^= 1
+        if self._blocks[self._turn] is None:
+            buf = torch.empty((self.num_envs, self._width), pin_memory=True)
+            self._blocks[self._turn] = [buf, None]
+        buf, event = self._blocks[self._turn]
+        if event is not None:
+            event.synchronize()
+        return buf
+
+    def step(self, state: Dict, actions) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+        """One step of every env; `actions` on the device, a numpy array, or
+        what `fetch` returned."""
+        if isinstance(actions, torch.Tensor):
+            actions = self.fetch(actions)
+        if isinstance(actions, tuple):
+            buf, event = actions
+            if event is not None:
+                event.synchronize()
+            actions = buf.numpy() if isinstance(buf, torch.Tensor) else buf
+        actions = np.asarray(actions, np.float32)
+        next_obs, rewards, terminals, timeouts, obs_after = self.env.step(actions)
+        block = self._block()
+        np.concatenate([self.obs, actions, rewards[:, None], next_obs, terminals[:, None],
+                        timeouts[:, None], obs_after], axis=1, out=block.numpy())
+        if self.device.type == "cuda":
+            dev = block.to(self.device, non_blocking=True)
+            self._blocks[self._turn][1] = torch.cuda.Event()
+            self._blocks[self._turn][1].record()
+        else:
+            dev = block
+        c = self._cols
+        out = {k: dev[:, c[k]] for k in ("obs", "actions", "next_obs")}
+        out.update({k: dev[:, c[k].start] for k in ("reward", "terminal", "timeout")})
+        out["done"] = (out["terminal"] + out["timeout"]) > 0
+        state["obs"].copy_(dev[:, c["obs_after"]])
+        out["host"] = {"reward": rewards, "done": (terminals + timeouts) > 0, "obs": obs_after}
+        self.obs = obs_after
+        return state, out
+
+    def close(self):
+        self.env.close()
+
+
+BACKENDS = ("jax", "native", "auto", "mujoco")
+
+
+def host_env(name: str, num_envs: int, *, absorbing: bool, seed: int, backend: str):
+    """iltpu's `_make_env` for the host backends: `native` builds the C++
+    stepper (raising where it cannot), `auto` takes it where it builds and
+    gymnasium's envs otherwise (with a warning), `mujoco` takes gymnasium's."""
+    from iltpu_torch.envs.host import HostVecEnv
+
+    if backend in ("native", "auto"):
+        from iltpu_torch.envs import native
+
+        try:
+            native.ensure_built()
+        except (OSError, RuntimeError) as e:
+            if backend == "native":
+                raise
+            warnings.warn(f"env_backend=auto: the native stepper did not build ({e}); "
+                          "stepping gymnasium's envs instead")
+        else:
+            return native.NativeVecEnv(name, num_envs, absorbing=absorbing, seed=seed)
+    return HostVecEnv(name, num_envs, absorbing=absorbing, seed=seed)
+
+
 def make_env(name: str, num_envs: int, *, absorbing: bool, device=None,
-             generator: Optional[torch.Generator] = None) -> VecEnv:
+             generator: Optional[torch.Generator] = None, backend: str = "jax", seed: int = 0):
+    """The env of `env_backend` `backend`: the array env on the device for
+    `jax` (drawing from `generator`), else a `HostEnv` seeded with `seed`."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown env_backend {backend!r}: one of {BACKENDS}")
+    if backend != "jax":
+        return HostEnv(host_env(name, num_envs, absorbing=absorbing, seed=seed, backend=backend),
+                       device, seed)
     if name not in ENVS:
         raise NotImplementedError(
-            f"env {name!r} has no array version in the port (pointmass, pendulum); "
-            "the MuJoCo envs wait for MuJoCo in the repository: ROADMAP.md, "
-            "'Native hopper env'"
-        )
+            f"env {name!r} has no array version in the port (pointmass, pendulum): "
+            "env_backend=native, auto or mujoco steps the MuJoCo envs on the host")
     return VecEnv(ENVS[name](), num_envs, absorbing=absorbing, device=device, generator=generator)

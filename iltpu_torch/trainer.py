@@ -10,6 +10,19 @@ iteration; the on-device loop (`training.on_device_loop=true`) once per
 chunk of iterations, which on the card replay CUDA graphs
 (`iltpu_torch/graphs.py`).
 
+The envs are built by `env_backend`, as iltpu builds them: `jax` steps the
+array envs (pointmass, pendulum) on the device; `native` the MuJoCo envs
+(hopper, walker2d, halfcheetah, ant) by the C++ stepper built against
+`third_party/mujoco` (`envs/native.py`); `auto` the stepper where it
+builds, else gymnasium's; `mujoco` gymnasium's envs (`envs/host.py`), where
+gymnasium is installed. A MuJoCo env steps on the host behind
+`envs.vecenv.HostEnv`: each step copies the actions to the host and one
+packed block of its outputs to the device. Its runs take the host loop
+(`training.on_device_loop=true` too, as in iltpu), evaluate through
+`envs.host.evaluate_policy` on the stepper (`native`, `auto`) or gymnasium
+(`mujoco`), normalise by the D4RL scores of `envs/scores.py`, and with
+`save_trajectories=true` write `trajectories.pkl` from gymnasium's envs.
+
 The per-update body follows iltpu's `update_fn`: the reward by algorithm
 -> optional expert mixing (`mix_expert_data=mixed_batch`, not for AdRIL)
 -> optional BC auxiliary step on the actor's own AdamW state -> the SAC
@@ -58,12 +71,12 @@ back into the tensors the trainer built. The run writes `agent/`,
 `discriminator/` and the best evaluation's `agent_best/` as
 `utils.checkpoint` directories, and `metrics.pkl`. `profiling.trace_dir`
 opens iltpu's profiler window over the host loop (`ProfilerWindow`:
-torch.profiler, a Chrome trace). Other env backends raise
-NotImplementedError naming the ROADMAP.md item; kernel flags that iltpu
-refuses raise iltpu's ValueError. `evaluation.on_host` (iltpu's default,
-true) evaluates through a numpy copy of the actor
-(`models.host_inference.host_greedy_fn`); false, through the device
-forward.
+torch.profiler, a Chrome trace). `render=true` on a MuJoCo env and
+`expert_data.source=hdf5` raise NotImplementedError naming the ROADMAP.md
+item; kernel flags that iltpu refuses raise iltpu's ValueError.
+`evaluation.on_host` (iltpu's default, true) evaluates through a numpy copy
+of the actor (`models.host_inference.host_greedy_fn`); false, through the
+device forward.
 
 `parallel.data_axis` runs data parallel (`iltpu_torch.parallel`), one
 process (a rank) a device, on `cuda:<local rank>`: a data-parallel run is
@@ -109,7 +122,8 @@ from iltpu_torch.data import (
     replay_transfer,
 )
 from iltpu_torch.data.replay import COLUMNS
-from iltpu_torch.envs import make_env
+from iltpu_torch.envs import SPECS, make_env
+from iltpu_torch.envs.host import evaluate_policy
 from iltpu_torch.models import SoftActor, TwinCritic
 from iltpu_torch.models.actor import DRIL_ENSEMBLE_SIZE
 from iltpu_torch.models.distributions import beta_sample
@@ -198,8 +212,8 @@ def check_supported(cfg: DotDict) -> None:
             "training.fused_update_scan=true requires algorithm=GAIL with training.sac_pallas "
             "and training.disc_pallas, no bc_aux_loss, and a single-device (mesh-free) run"
         )
-    if cfg.env_backend != "jax":
-        raise _not_ported(f"env_backend={cfg.env_backend}", "Native hopper env")
+    if cfg.render and cfg.env_backend != "jax":  # iltpu renders only the MuJoCo envs
+        raise _not_ported("render=true", "Render")
 
 
 def _load_expert_dataset(cfg: DotDict, env) -> Dict[str, np.ndarray]:
@@ -280,11 +294,12 @@ class Trainer:
         self.gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
         self.env = make_env(cfg.env, cfg.num_envs, absorbing=cfg.imitation.absorbing,
-                            device=dev, generator=self.gen)
+                            device=dev, generator=self.gen, backend=cfg.env_backend, seed=cfg.seed)
+        self.host_env = cfg.env_backend != "jax"  # a MuJoCo env, stepped on the host
         S, A = self.env.obs_size, self.env.action_size
         self.state_size, self.action_size = S, A
-        self.norm_min = self.env.env.ref_min_score
-        self.norm_max = self.env.env.ref_max_score
+        ref = SPECS[cfg.env] if self.host_env else self.env.env
+        self.norm_min, self.norm_max = ref.ref_min_score, ref.ref_max_score
 
         raw = _load_expert_dataset(cfg, self.env)
         if cfg.expert_data.get("terminals_to_timeouts", False):
@@ -605,17 +620,37 @@ class Trainer:
         return aux
 
     @torch.no_grad()
-    def act_env(self, env_state: Dict, actions: Optional[torch.Tensor] = None):
+    def sample_actions(self, env_state: Dict) -> torch.Tensor:
+        """The actor's sample from the envs' observations."""
+        with self._work(*ACTOR, write=False):
+            return self.actor.sample(env_state["obs"], generator=self.gen)[0]
+
+    @torch.no_grad()
+    def act_env(self, env_state: Dict, actions=None):
         """Act from the envs' observations (the actor's sample, unless
-        `actions` are given) and step the envs, their state in place.
-        Returns (the observations acted on, the actions, the env's
-        outputs)."""
-        obs = env_state["obs"].clone()  # the step overwrites the state
+        `actions` are given: on the device, or for a MuJoCo env a numpy
+        array or what `HostEnv.fetch` returned) and step the envs, their
+        state in place. Returns (the observations acted on, the actions,
+        the env's outputs)."""
         if actions is None:
-            with self._work(*ACTOR, write=False):
-                actions = self.actor.sample(obs, generator=self.gen)[0]
+            actions = self.sample_actions(env_state)
+        if self.host_env:  # the packed block holds both
+            _, out = self.env.step(env_state, actions)
+            return out["obs"], out["actions"], out
+        obs = env_state["obs"].clone()  # the step overwrites the state
         _, out = self.env.step(env_state, actions)
         return obs, actions, out
+
+    def _reads(self, reads: HostReads, out: Dict, env_state: Optional[Dict] = None):
+        """Begin the host's reads of an env step's rewards and dones (and,
+        given `env_state`, of the observations to act on next), for
+        `reads.wait`; a MuJoCo env returned them on the host already."""
+        host = out.get("host")
+        if host is not None:
+            keys = ("reward", "done", "obs")[:3 if env_state is not None else 2]
+            return [torch.from_numpy(host[k]) for k in keys], None
+        extra = [env_state["obs"]] if env_state is not None else []
+        return reads.start([out["reward"], out["done"]] + extra)
 
     def front_of(self, step, acted, n_updates: int):
         """`front` on what `act_env` returned."""
@@ -682,21 +717,42 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _greedy_fn(self):
+        """iltpu's `_greedy_fn`: numpy observations -> numpy greedy actions,
+        from one numpy copy of the actor with `evaluation.on_host` (iltpu's
+        default), else through the device forward."""
+        if self.cfg.evaluation.get("on_host", True):
+            with self._work(*ACTOR, write=False):
+                return host_greedy_fn(self.actor, self.sac["a"])
+
+        @torch.no_grad()
+        def greedy(obs: np.ndarray) -> np.ndarray:
+            x = torch.from_numpy(np.asarray(obs, np.float32)).to(self.device)
+            with self._work(*ACTOR, write=False):
+                return self.actor.greedy_action(x).cpu().numpy()
+
+        return greedy
+
     def evaluate(self):
         """The greedy policy's returns over `evaluation.episodes` envs seeded
         from seed + 7919. With `evaluation.on_host` (iltpu's default) from
         one numpy copy of the actor, the actions copied to the envs each
         step and the returns summed in float64 (iltpu's `_greedy_fn` loop);
-        else through the device forward."""
+        else through the device forward. A MuJoCo env's episodes run in
+        iltpu's `evaluate_policy`, on the stepper for `native` and `auto`
+        (whichever `auto` took) and on gymnasium's envs for `mujoco`."""
         cfg = self.cfg
         n = cfg.evaluation.episodes
+        if self.host_env:
+            return evaluate_policy(cfg.env, self._greedy_fn(), n, absorbing=cfg.imitation.absorbing,
+                                   seed=cfg.seed + 7919, env_cls=type(self.env.env)
+                                   if cfg.env_backend in ("native", "auto") else None)
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 7919)
         env = make_env(cfg.env, n, absorbing=cfg.imitation.absorbing, device=self.device,
                        generator=gen)
         st = env.reset()
         if cfg.evaluation.get("on_host", True):
-            with self._work(*ACTOR, write=False):
-                greedy = host_greedy_fn(self.actor, self.sac["a"])
+            greedy = self._greedy_fn()
             reads = HostReads(self.device)
             obs = reads.wait(reads.start([st["obs"]]))[0]
             done, returns = np.zeros(n, bool), np.zeros(n)
@@ -909,7 +965,8 @@ class Trainer:
                     self.expert.rows(k) for k in ("states", "actions", "terminals", "timeouts"))))
         if cfg.imitation.mix_expert_data == "prefill_memory" and fresh:
             replay_transfer(self.replay, self.expert)
-        if cfg.training.get("on_device_loop"):  # whatever the acting flags say, as iltpu
+        # whatever the acting flags say, as iltpu; a MuJoCo env steps on the host loop
+        if cfg.training.get("on_device_loop") and not self.host_env:
             self._device_loop()
         else:
             self._host_loop()
@@ -932,9 +989,11 @@ class Trainer:
         issues the next iteration's act and env step before this one's
         updates and reads through a pinned copy that does not wait for
         them; host acting samples the next actions in numpy while the
-        updates run. A resumed run continues from the checkpoint's step with
-        the update count the schedule had reached there (iltpu's restarts
-        from 0 and makes up every update in its first iteration)."""
+        updates run. A MuJoCo env returns its rewards and dones on the host,
+        and under pipelined acting steps once the updates are issued, while
+        the device runs them. A resumed run continues from the checkpoint's
+        step with the update count the schedule had reached there (iltpu's
+        restarts from 0 and makes up every update in its first iteration)."""
         cfg = self.cfg
         N = cfg.num_envs
         host_act = bool(cfg.training.get("host_acting"))
@@ -959,7 +1018,8 @@ class Trainer:
             with self._work(*ACTOR, write=False):
                 host_actor = HostActor(self.actor, self.sac["a"])
             act_rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, 0xAC7]))
-            actions = host_actor.sample(reads.wait(reads.start([env_state["obs"]]))[0], act_rng)
+            obs = self.env.obs if self.host_env else reads.wait(reads.start([env_state["obs"]]))[0]
+            actions = host_actor.sample(obs, act_rng)
 
         while step < cfg.steps:
             window.at(step)
@@ -967,8 +1027,8 @@ class Trainer:
             n_updates = self._updates_owed(new_step) - updates_done
             updates_done += n_updates
             if host_act:
-                acted = self.act_env(env_state, reads.to_device(actions))
-                pending = reads.start([acted[2]["reward"], acted[2]["done"], env_state["obs"]])
+                acted = self.act_env(env_state, actions if self.host_env else reads.to_device(actions))
+                pending = self._reads(reads, acted[2], env_state)
                 aux = self._updates_of(step, self.front_of(step, acted, n_updates), n_updates)
                 host_actor.refresh()  # the params of the previous iteration's sync
                 with self._work(*ACTOR, write=False):
@@ -978,17 +1038,23 @@ class Trainer:
             elif pipeline:
                 if acted is None:
                     acted = self.act_env(env_state)
-                    pending = reads.start([acted[2]["reward"], acted[2]["done"]])
+                    pending = self._reads(reads, acted[2])
                 front = self.front_of(step, acted, n_updates)
-                mine = pending
+                mine, fetched = pending, None
                 if new_step < cfg.steps:  # the next act, from the params before these updates
-                    acted = self.act_env(env_state)
-                    pending = reads.start([acted[2]["reward"], acted[2]["done"]])
+                    if self.host_env:  # its host step runs once the updates are issued
+                        fetched = self.env.fetch(self.sample_actions(env_state))
+                    else:
+                        acted = self.act_env(env_state)
+                        pending = self._reads(reads, acted[2])
                 aux = self._updates_of(step, front, n_updates)
+                if fetched is not None:
+                    acted = self.act_env(env_state, fetched)
+                    pending = self._reads(reads, acted[2])
                 rewards, dones = reads.wait(mine)
             else:
                 out, aux = self.iteration(env_state, step, n_updates)
-                rewards, dones = reads.wait(reads.start([out["reward"], out["done"]]))
+                rewards, dones = reads.wait(self._reads(reads, out))
             step = new_step
             if steady_t0 is None and timing_skip and step >= timing_skip:
                 self._sync()
@@ -1128,7 +1194,17 @@ class Trainer:
 
     def _finish(self) -> float:
         self._flush_logs()
+        cfg = self.cfg
+        if cfg.save_trajectories and self.host_env:  # gymnasium's envs, whatever the backend
+            _, trajectories = evaluate_policy(
+                cfg.env, self._greedy_fn(), cfg.evaluation.episodes,
+                absorbing=cfg.imitation.absorbing, seed=cfg.seed + 104729, return_trajectories=True)
+            if self.writer:
+                with open(os.path.join(self.out_dir, self.prefix + "trajectories.pkl"), "wb") as f:
+                    pickle.dump(trajectories, f)
         self._save()
+        if self.host_env:  # its threads and MuJoCo's data
+            self.env.close()
         return float(np.mean(self.score)) if self.score else 0.0
 
 

@@ -240,9 +240,9 @@ def test_kernel_flags_iltpu_refuses_raise_value_error(tmp_path, flag):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("env_backend=native", "Native hopper env"),
+    ("render=true env=hopper env_backend=native", "Render"),
     ("expert_data.source=hdf5", "D4RL hdf5"),
-    ("env=hopper", "Native hopper env"),
+    ("render=true env=walker2d env_backend=mujoco", "Render"),
 ])
 def test_refuses_what_is_not_ported(tmp_path, override, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, '{item}'"):

@@ -315,7 +315,7 @@ def test_run_trial_pool_equals_serial_and_raises(tmp_path):
     pooled = torch_train_all.run_trial(base, str(tmp_path / "pool"), serial=False, envs=envs)
     serial = torch_train_all.run_trial(base, str(tmp_path / "serial"), serial=True, envs=envs)
     assert pooled == serial
-    with pytest.raises(NotImplementedError, match="Native hopper env"):
+    with pytest.raises(NotImplementedError, match="'hopper' has no array version"):
         torch_train_all.run_trial(base, str(tmp_path / "bad"), serial=False, envs=["hopper"])
 
 

@@ -60,6 +60,10 @@ TUNEDLIKE = [
     "imitation.entropy_bonus=0.01",
 ]
 
+# iltpu's main path at a small size: hopper on the C++ stepper, its expert data
+HOPPER = ["env=hopper", "env_backend=native",
+          f"expert_data.source={os.path.join(REPO, 'data', 'hopper_expert.npz')}"]
+
 
 def _step_data(key, n, S, A):
     ks = jax.random.split(key, 4)
@@ -117,12 +121,14 @@ def _iltpu_noise(state, base_key, step, n_updates, B, A, mixup, dril=None):
 
 @pytest.mark.parametrize(
     "extra,block",
-    [((), 1), (TUNEDLIKE, 1), ((), 4), (TUNEDLIKE, 4)],
-    ids=["bce_sn", "mixup_airl", "bce_sn-kblock4", "mixup_airl-kblock4"],
+    [((), 1), (TUNEDLIKE, 1), ((), 4), (TUNEDLIKE, 4), (HOPPER, 1)],
+    ids=["bce_sn", "mixup_airl", "bce_sn-kblock4", "mixup_airl-kblock4", "hopper_native"],
 )
 def test_transition_core_matches_iltpu(tmp_path, extra, block):
     """update_block=4 takes iltpu's K-blocked kernel (two launches of 4 per
-    iteration) and the port's kblock_update."""
+    iteration) and the port's kblock_update; hopper_native is iltpu's main
+    path (hopper's shapes, its expert data, the stepper built by each
+    package)."""
     args = BASE + list(extra) + [f"training.update_block={block}"]
     jt = JaxTrainer(jax_load_config(args), out_dir=str(tmp_path / "jax"))
     tt = Trainer(load_config(args + ["platform=cpu"]), out_dir=str(tmp_path / "torch"))
@@ -141,7 +147,7 @@ def test_transition_core_matches_iltpu(tmp_path, extra, block):
             state, base_key, jnp.asarray(step, jnp.int32), data["obs"], data["actions"],
             data["rewards"], data["next_obs"], data["terminals"], data["timeouts"], n_updates=8,
         )
-        noise = _iltpu_noise(state, base_key, step, 8, B, A, bool(extra))
+        noise = _iltpu_noise(state, base_key, step, 8, B, A, extra == TUNEDLIKE)
         t = {k: torch.from_numpy(np.array(v)) for k, v in data.items()}
         taux = tt.transition_core(
             step, t["obs"], t["actions"], t["rewards"], t["next_obs"], t["terminals"],
@@ -312,7 +318,9 @@ def test_cli_other_algorithms_on_cpu(tmp_path, alg):
 
 def test_port_imports_neither_jax_nor_iltpu(tmp_path):
     """Every module of the port (train_all, sweep, analysis, parallel and its
-    tensor-parallel layout named too), a plain CLI run, a data-parallel one
+    tensor-parallel layout named too), a plain CLI run, a hopper run on the
+    C++ stepper (which imports neither MuJoCo's bindings nor gymnasium
+    either), a data-parallel one
     (a one-rank gloo group) and one under parallel.shard_params, a two-job
     `-m` run, and a pipelined run that checkpoints,
     resumed: beside an `agent_best/` that holds only iltpu's header.pkl (a
@@ -334,6 +342,8 @@ from iltpu_torch.train import main
 from iltpu_torch.trainer import Trainer
 from iltpu_torch.config import load_config
 main({CLI + ['platform=cpu', f'output_dir={tmp_path}']!r})
+main({[a for a in CLI if not a.startswith("env")] + HOPPER + ['platform=cpu',
+                                                             f'output_dir={tmp_path / "hop"}']!r})
 main({CLI + ['platform=cpu', 'training.fused_update_scan=false', 'training.sac_pallas=false',
              'training.disc_pallas=false', 'parallel.data_axis=data',
              f'output_dir={tmp_path / "dp"}']!r})
@@ -349,7 +359,8 @@ t = Trainer(load_config({CLI + ['platform=cpu', 'steps=300', 'training.pipeline=
                         + ["checkpointing.resume=" + ckpt]), out_dir={str(tmp_path / 'resume')!r})
 assert t.start_step == 200, t.start_step
 t.run()
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "iltpu", "yaml"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "iltpu", "yaml", "mujoco", "gymnasium"))
 assert not bad, bad
 print("clean")
 """
@@ -362,26 +373,195 @@ print("clean")
 def test_gpu_entry_point_raises_without_cuda(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for platform in ([], ["platform=gpu"]):
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            Trainer(load_config(BASE + platform), out_dir=str(tmp_path))
+        for args in (BASE, BASE + HOPPER):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                Trainer(load_config(args + platform), out_dir=str(tmp_path))
 
 
 @pytest.mark.parametrize("override,error,match", [
     ("expert_data.source=hdf5", NotImplementedError, "ROADMAP.md, 'D4RL hdf5'"),
     ("imitation.discriminator.reward_shaping=true", ValueError, "training.disc_pallas=true supports"),
     ("imitation.state_only=true", ValueError, "training.disc_pallas=true supports"),
-    ("env_backend=native", NotImplementedError, "ROADMAP.md, 'Native hopper env'"),
+    ("render=true env=hopper env_backend=native", NotImplementedError, "ROADMAP.md, 'Render'"),
     ("reinforcement.critic.depth=3", ValueError, "training.sac_pallas=true requires"),
     ("imitation.loss_function=PUGAIL", ValueError, "training.disc_pallas=true supports"),
 ])
 def test_refuses_pwil_gail_options_and_kernel_shapes(tmp_path, override, error, match):
-    """D4RL's hdf5 expert data and other env backends are not ported; the
-    kernel flags refuse what iltpu refuses (the GAIL input options on the
+    """D4RL's hdf5 expert data and rendering a MuJoCo env are not ported;
+    the kernel flags refuse what iltpu refuses (the GAIL input options on the
     GAIL kernel among them), with its ValueError."""
     base = BASE if error is ValueError else COMMON + ["algorithm=GAIL"]
-    args = base + TUNEDLIKE[:1] + [override, "platform=cpu"]
+    args = base + TUNEDLIKE[:1] + override.split() + ["platform=cpu"]
     with pytest.raises(error, match=match):
         Trainer(load_config(args), out_dir=str(tmp_path))
     if error is ValueError:
         with pytest.raises(ValueError):
             JaxTrainer(jax_load_config(args[:-1]), out_dir=str(tmp_path / "jax"))
+
+
+def _pair(tmp_path, args):
+    """iltpu's trainer and the port's on `args`, the port's SAC and GAIL
+    state copied from iltpu's."""
+    jt = JaxTrainer(jax_load_config(args), out_dir=str(tmp_path / "jax"))
+    tt = Trainer(load_config(args + ["platform=cpu"]), out_dir=str(tmp_path / "torch"))
+    convert.load_sac_tree_(tt.sac, jax_sac_tree(jt.state["sac"]))
+    if tt.algorithm == "GAIL":
+        convert.load_disc_tree_(tt.disc_state, jax_disc_tree(jt.state["disc"], jt.state["disc_opt"]))
+    return jt, tt
+
+
+def test_host_loop_on_hopper_matches_iltpu(tmp_path):
+    """Three host-loop iterations on the stepper from given actions: iltpu's
+    env step, packed block and `_post_step` (8 updates each) against the
+    port's `act_env` with the same numpy actions (host acting's way in: no
+    device actions) and its front and updates with iltpu's draws. The ring's
+    rows are bit-equal, the block's columns are iltpu's packing, the state
+    within 1e-4 / 1e-5."""
+    jt, tt = _pair(tmp_path, BASE + HOPPER)
+    state, N, B = jt.state, 4, 16
+    S, A = jt.env.obs_size, jt.env.action_size
+    obs = jt.env.reset(jt.cfg.seed)
+    env_state = tt._reset_env()
+    np.testing.assert_array_equal(env_state["obs"].numpy(), obs)
+    rng = np.random.default_rng(6)
+    tol = dict(rtol=1e-4, atol=1e-5)
+    for it in range(3):
+        step, base_key = it * N, jax.random.key(21 + it)
+        actions = rng.uniform(-1, 1, (N, A)).astype(np.float32)
+        next_obs, rewards, terminals, timeouts, obs_after = jt.env.step(actions)
+        packed = np.concatenate([obs, actions, rewards[:, None], next_obs, terminals[:, None],
+                                 timeouts[:, None], obs_after, np.full((N, 1), float(step))],
+                                axis=1).astype(np.float32)
+        state, aux, _ = jt._post_step(state, base_key, jnp.asarray(packed), n_updates=8)
+        acted = tt.act_env(env_state, actions)
+        out = acted[2]
+        got = np.concatenate([acted[0], acted[1], out["reward"][:, None], out["next_obs"],
+                              out["terminal"][:, None], out["timeout"][:, None],
+                              env_state["obs"]], axis=1)
+        np.testing.assert_array_equal(got, packed[:, :-1], err_msg=f"iteration {it} block")
+        noise = _iltpu_noise(state, base_key, step, 8, B, A, False)
+        taux = tt._updates_of(step, tt.front(step, acted[0], acted[1], out["reward"],
+                                             out["next_obs"], out["terminal"], out["timeout"], 8,
+                                             noise), 8)
+        for col in ("step", "states", "actions", "rewards", "next_states", "terminals", "timeouts",
+                    "weights"):
+            np.testing.assert_array_equal(tt.replay.rows(col).numpy(),
+                                          np.asarray(getattr(state["replay"], col)), err_msg=col)
+        what = f"iteration {it}"
+        assert_trees_close(convert.sac_tree(tt.sac), jax_sac_tree(state["sac"]), what=what, **tol)
+        for k, v in aux.items():
+            np.testing.assert_allclose(taux[k].numpy(), np.asarray(v), err_msg=f"{what} {k}", **tol)
+        obs = obs_after
+
+
+@pytest.mark.parametrize("on_host", ["true", "false"])
+def test_evaluate_on_hopper_matches_iltpu(tmp_path, on_host):
+    """`Trainer.evaluate` on the stepper from iltpu's actor parameters: the
+    returns of iltpu's `evaluate` (`evaluate_policy` on its stepper, seeded
+    seed + 7919), through the numpy actor or the device forward."""
+    args = [a for a in COMMON if not a.startswith("evaluation.episodes")] + HOPPER + [
+        "algorithm=SAC", "evaluation.episodes=3", f"evaluation.on_host={on_host}"]
+    jt, tt = _pair(tmp_path, args)
+    got, want = tt.evaluate(), jt.evaluate()
+    assert len(got) == 3 and np.all(np.asarray(want) != 0)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_cli_hopper_native_on_cpu(tmp_path):
+    """iltpu's main path through the CLI at a small size on the stepper:
+    iltpu's outputs, the D4RL-normalised scores of hopper and, with
+    save_trajectories, gymnasium's greedy episodes."""
+    args = [a for a in CLI if a != "env=pointmass" and not a.startswith("env_backend")] + HOPPER + [
+        "training.pipeline=true", "save_trajectories=true", "platform=cpu",
+        f"output_dir={tmp_path}"]
+    r = subprocess.run(
+        [sys.executable, "-m", "iltpu_torch.train", *args], cwd=str(tmp_path),
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    summary = json.loads(r.stdout.strip().splitlines()[-1])
+    out = summary["out_dir"]
+    for name in ("agent", "agent_best", "discriminator", "metrics.pkl", "config.yaml",
+                 "trajectories.pkl"):
+        assert os.path.exists(os.path.join(out, name)), name
+    with open(os.path.join(out, "metrics.pkl"), "rb") as f:
+        metrics = pickle.load(f)
+    returns = np.asarray(metrics["test_returns"][-1])
+    norm = (returns - -20.272305) / (3234.3 - -20.272305)
+    np.testing.assert_allclose(metrics["test_returns_normalized"][-1], norm)
+    assert summary["mean_normalized_score"] == pytest.approx(float(np.mean(norm)))
+    assert metrics["train_returns"] and metrics["update_steps"] == []  # logging.interval=0
+    with open(os.path.join(out, "trajectories.pkl"), "rb") as f:
+        trajectories = pickle.load(f)
+    assert len(trajectories) == 2 and trajectories[0]["states"].shape[1] == 12
+
+
+@pytest.mark.parametrize("acting", ["on_device_loop", "host_acting"])
+def test_mujoco_env_takes_the_host_loop(tmp_path, monkeypatch, acting):
+    """training.on_device_loop=true on the stepper runs the host loop, as
+    iltpu does (a MuJoCo step cannot be captured), and host acting samples
+    from the env's numpy observations, never reading them from the device."""
+    monkeypatch.setattr(Trainer, "_device_loop", lambda self: pytest.fail("the on-device loop ran"))
+    args = [a for a in COMMON if not a.startswith("steps")] + HOPPER + [
+        "algorithm=GAIL", "steps=120", f"training.{acting}=true", "platform=cpu"]
+    t = Trainer(load_config(args), out_dir=str(tmp_path))
+    starts = []
+    real = t._reads
+
+    def spy(reads, out, env_state=None):
+        starts.append("host" in out)
+        return real(reads, out, env_state)
+
+    t._reads = spy
+    t.run()
+    assert t.step_done == 120 and t.updates_done == 120 - 64 + 1
+    assert starts and all(starts)
+
+
+@pytest.mark.parametrize("layout", ["data_axis", "shard_params"])
+def test_data_parallel_on_hopper_matches_one_process(tmp_path, layout):
+    """Two gloo ranks on the stepper (each steps the same envs from the same
+    seed), data parallel and under the tensor-parallel layout, with host
+    acting: the one-process run's score within 1e-4 / 1e-5."""
+    args = [a for a in CLI if not a.startswith("env")] + HOPPER + [
+        "training.fused_update_scan=false", "training.host_acting=true", "platform=cpu"]
+    extra = ["parallel.data_axis=data", "parallel.num_devices=2"]
+    if layout == "shard_params":
+        extra.append("parallel.shard_params=true")
+    scores = []
+    for i, more in enumerate(([], extra)):
+        r = subprocess.run(
+            [sys.executable, "-m", "iltpu_torch.train", *args, *more, f"output_dir={tmp_path / str(i)}"],
+            cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+            capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stderr[-3000:]
+        scores.append(json.loads(r.stdout.strip().splitlines()[-1])["mean_normalized_score"])
+    np.testing.assert_allclose(scores[1], scores[0], rtol=1e-4, atol=1e-5)
+
+
+EXPERT_FILES = ["ant_expert", "ant_expert_v2", "halfcheetah_expert", "hopper_expert",
+                "hopper_expert_v2", "walker2d_expert", "walker2d_expert_v2"]
+
+
+@pytest.mark.parametrize("name", EXPERT_FILES)
+def test_expert_data_at_each_env_width(tmp_path, name):
+    """Each committed expert file through the port's and iltpu's trainers on
+    its env's stepper (ant's 111 observations + the absorbing bit among
+    them; the files that are not v2 with expert_data.terminals_to_timeouts):
+    the expert buffers equal, row for row."""
+    env = name.split("_expert")[0]
+    args = [a for a in COMMON if not a.startswith(("env", "imitation.trajectories"))] + [
+        "algorithm=SAC", f"env={env}", "env_backend=native", "imitation.trajectories=0",
+        f"expert_data.source={os.path.join(REPO, 'data', name + '.npz')}",
+        f"expert_data.terminals_to_timeouts={str('v2' not in name).lower()}"]
+    jt = JaxTrainer(jax_load_config(args), out_dir=str(tmp_path / "jax"))
+    tt = Trainer(load_config(args + ["platform=cpu"]), out_dir=str(tmp_path / "torch"))
+    width = {"ant": 112, "halfcheetah": 18, "hopper": 12, "walker2d": 18}[env]
+    assert tt.state_size == jt.state_size == width
+    expert = jt.state["expert"]
+    for col in ("states", "actions", "rewards", "next_states", "terminals", "timeouts", "weights"):
+        np.testing.assert_array_equal(tt.expert.rows(col).numpy(), np.asarray(getattr(expert, col)),
+                                      err_msg=col)
+    assert int(tt.expert.num_trajectories) == int(expert.num_trajectories)
+    if "v2" not in name:  # every end a timeout: no absorbing rows
+        assert not tt.expert.rows("terminals").any()
