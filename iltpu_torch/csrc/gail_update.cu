@@ -32,6 +32,18 @@
 //    32 rows run in one pass.
 // The K-blocked kernel (kblock_update.cu) runs the same `gail::step`.
 //
+// The tiled variants hold the whole batch and 16 warps' partial gradients
+// in shared memory, so they take inputs of up to 32 features, and not
+// width 128 with batch 1024. The wide variant (gail_core.cuh) takes every
+// other shape up to 128 features and width 128, at any batch, by streaming
+// the rows through shared memory 32 at a time. At ant's largest shape
+// (batch 1024, D = 120, width 128) the step is about 0.28 GFLOP (the loss
+// rows' forward and weight gradient, the penalty rows' forward, g, q and
+// weight gradient, the reward rows): bound by operations, 4.2 us at the
+// card's fp32 rate and 0.56 ms at one SM's, the floor of a one-block step.
+// What keeps it to one block: the K-blocked kernel runs the step on block
+// 0 beside SAC, and the block fixes every sum's order.
+//
 // The state is updated in place. Pointer order of `iltpu_gail_update`:
 //   W1 (D, Hd), b1, W2 (Hd, 1), b2, u1, v1, u2, v2 (null without spectral
 //   norm), AdamW m (4), v (4), the step clock (1,), e_s, e_a, e_w, p_s, p_a,
@@ -49,11 +61,14 @@ __global__ void __launch_bounds__(gail::THREADS) gail_kernel(const __grid_consta
 
 }  // namespace
 
-// Dynamic shared memory of a step; 0 where the kernel has no variant for
-// (D, Hd). A launch needs 0 < bytes <= iltpu_gail_smem_limit().
+// Dynamic shared memory of a step; 0 where no variant takes (D, Hd). A
+// launch needs 0 < bytes <= iltpu_gail_smem_limit().
 extern "C" long long iltpu_gail_smem_bytes(int B, int D, int Hd) {
   return (long long)gail::smem_bytes(B, D, Hd);
 }
+
+// The variant a step of (B, D, Hd) runs: 0 tiled, 1 wide.
+extern "C" int iltpu_gail_variant(int B, int D, int Hd) { return gail::routes_wide(B, D, Hd) ? 1 : 0; }
 
 extern "C" long long iltpu_gail_smem_limit() { return (long long)gail::SMEM_LIMIT; }
 

@@ -88,7 +88,7 @@ namespace {
 typedef long long ll;
 typedef unsigned long long u64;
 
-constexpr int MAX_D = 64;
+constexpr int MAX_D = 128;      // features an atom (ant's: 120); s_q holds a query row
 constexpr int K = 32;           // candidates a selection pass yields: one a lane
 constexpr int U = 4;            // atoms a lane takes per step of a pass
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size
@@ -181,6 +181,7 @@ __device__ __forceinline__ void tree_merge(u64 (*s_key)[2 * K], float (*s_mass)[
 template <int T, int FC>
 __global__ void __launch_bounds__(T, T == 128 ? 4 : 1) pwil_kernel(const __grid_constant__ PArgs a) {
   constexpr int W = T / 32;
+  static_assert(T >= MAX_D, "a thread a feature loads the query row");
   // per warp: its buffer of candidates (up to 63), whose first K slots hold
   // its sorted list for the merges
   __shared__ u64 s_key[W][2 * K];

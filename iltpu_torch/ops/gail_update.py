@@ -8,11 +8,12 @@
 
 `gail_update` is the entry. On CUDA tensors it launches the hand-written
 kernel of `csrc/gail_update.cu` (built by nvcc at first use; one block
-whose working set is in shared memory, so it takes inputs of up to 32
-features and widths up to 128, see `smem_bytes`) and raises if the launch
-fails or the shape does not fit; on CPU tensors it runs `gail_update_plain`,
-the same explicit formulas in PyTorch, which the CPU tests pin to iltpu's
-autodiff.
+whose working set is in shared memory: a tiled variant holding the whole
+batch where it fits, else the wide variant streaming the rows, so it takes
+inputs of up to 128 features and widths up to 128 at any batch, see
+`smem_bytes` and `variant`) and raises if the launch fails or the shape is
+past those limits; on CPU tensors it runs `gail_update_plain`, the same
+explicit formulas in PyTorch, which the CPU tests pin to iltpu's autodiff.
 
 The TPU kernel differentiates the penalty by tracing jax.grad inside the
 kernel; here its parameter gradient is derived by hand. For a row x with
@@ -163,28 +164,43 @@ def _bind(lib):
         lib.iltpu_gail_update.restype = ctypes.c_int
         lib.iltpu_gail_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.iltpu_gail_smem_bytes.restype = ctypes.c_longlong
+        lib.iltpu_gail_variant.argtypes = [ctypes.c_int] * 3
+        lib.iltpu_gail_variant.restype = ctypes.c_int
         lib.iltpu_gail_smem_limit.argtypes = []
         lib.iltpu_gail_smem_limit.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
 
+VARIANTS = ("tiled", "wide")
+MAX_D = MAX_HD = 128  # the wide variant's input features and width, at most
+
+
 @functools.lru_cache(maxsize=None)
 def smem_bytes(B: int, D: int, Hd: int) -> int:
-    """The step's dynamic shared memory on the card (the batch rows, the
-    weights and 16 warps' partial gradients); raises NotImplementedError
-    where the kernel cannot take the shape: input D = S + A above 32, width
-    Hd above 128, D above 16 with Hd above 64, or more than a block's shared
-    memory (the plain version, on CPU tensors, takes any shape)."""
+    """The step's dynamic shared memory on the card, of the variant the
+    kernel routes the shape to (`variant`): the tiled variants hold the
+    batch rows, the weights and 16 warps' partial gradients (inputs up to
+    32, width 128 at inputs up to 16, and as far as a block's shared memory
+    goes); the wide variant the weights and one chunk of 32 rows (inputs up
+    to 128, width up to 128, any batch). Raises NotImplementedError where
+    no variant can take the shape (the plain version, on CPU tensors, takes
+    any shape)."""
     lib = _bind(build.load("gail_update"))
     n, limit = lib.iltpu_gail_smem_bytes(B, D, Hd), lib.iltpu_gail_smem_limit()
-    if n == 0 or n > limit:
+    if B < 1 or n == 0 or n > limit:
         raise NotImplementedError(
-            f"the gail_update kernel cannot take batch {B}, input {D}, width {Hd}: it has "
-            f"no variant past input 32, width 128, or input 16 with width 64, and a block "
-            f"has {limit} bytes of shared memory (this shape needs {n or 'no variant'}); "
-            "ROADMAP.md, 'GAIL kernel coverage'")
+            f"the gail_update kernel cannot take batch {B}, input {D}, width {Hd}: it takes "
+            f"inputs of 1 to {MAX_D} features and widths of 1 to {MAX_HD} (the tiled variants "
+            f"up to 32 features and as far as a block's {limit} bytes of shared memory hold "
+            f"the batch; this shape needs {n or 'no variant'})")
     return n
+
+
+@functools.lru_cache(maxsize=None)
+def variant(B: int, D: int, Hd: int) -> str:
+    """The variant the kernel runs at (B, D, Hd): 'tiled' or 'wide'."""
+    return VARIANTS[_bind(build.load("gail_update")).iltpu_gail_variant(B, D, Hd)]
 
 
 def state_tensors(st: Dict) -> List[torch.Tensor]:
@@ -237,10 +253,10 @@ def gail_update(
     return out
 
 
-def launch(lib, h: GAILHyper, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix, stream: int):
-    """Pack the operands and call the library's C entry on `stream`;
-    raises if the launch failed. Outputs come from torch.empty; the step
-    needs no scratch (its working set is in shared memory)."""
+def c_args(h: GAILHyper, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix):
+    """The C entries' arguments before the stream (the pointer array, the
+    shape, the options), with the outputs they write: (args, loss (1,),
+    rewards (B,)), the outputs from torch.empty."""
     B, S = p_s.shape
     A = p_a.shape[1]
     Hd = st["p"][0].shape[1]
@@ -249,11 +265,18 @@ def launch(lib, h: GAILHyper, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mi
     rewards = torch.empty(B, device=dev)
     ptrs = state_pointers(st) + [t.data_ptr() for t in (e_s, e_a, e_w, p_s, p_a, p_w, eps_gp)]
     ptrs += [0 if mix is None else mix.data_ptr(), loss.data_ptr(), rewards.data_ptr()]
-    rc = lib.iltpu_gail_update(
-        (ctypes.c_void_p * len(ptrs))(*ptrs), B, S, A, Hd, int(bool(st["sn"])), int(mix is None),
-        REWARD_FUNCTIONS.index(h.reward_function),
-        h.grad_penalty, h.lr, h.weight_decay, h.entropy_bonus, stream,
-    )
+    args = ((ctypes.c_void_p * len(ptrs))(*ptrs), B, S, A, Hd, int(bool(st["sn"])),
+            int(mix is None), REWARD_FUNCTIONS.index(h.reward_function),
+            h.grad_penalty, h.lr, h.weight_decay, h.entropy_bonus)
+    return args, loss, rewards
+
+
+def launch(lib, h: GAILHyper, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix, stream: int):
+    """Pack the operands and call the library's C entry on `stream`;
+    raises if the launch failed. The step needs no scratch (its working set
+    is in shared memory)."""
+    args, loss, rewards = c_args(h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix)
+    rc = lib.iltpu_gail_update(*args, stream)
     if rc != 0:
         raise RuntimeError(f"gail_update kernel launch failed with CUDA error {rc}")
     return loss, rewards

@@ -110,7 +110,7 @@ def kblock_update(
     if device == "cpu":
         return kblock_update_plain(sac_hyper, gail_hyper, sac_st, disc_st, batches,
                                    expert_batches, noise)
-    gu.smem_bytes(B, D, Hd)  # raises where the GAIL step cannot take the shape
+    gu.smem_bytes(B, D, Hd)  # raises where no GAIL variant can take the shape
     aux = launch(_bind(build.load("kblock_update")), sac_hyper, gail_hyper, sac_st, disc_st,
                  batches, expert_batches, noise, torch.cuda.current_stream(ops[0].device).cuda_stream)
     kblock_update.launches += 1

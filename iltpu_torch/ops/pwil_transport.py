@@ -40,7 +40,7 @@ import torch
 
 from iltpu_torch.ops import build, operands
 
-MAX_D = 64  # features per atom the kernel takes
+MAX_D = 128  # features per atom the kernel takes (ant's atoms: 120)
 
 
 def distances(atoms: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:

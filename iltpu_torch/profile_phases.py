@@ -3,6 +3,7 @@ phase by phase.
 
     python -m iltpu_torch.profile_phases        # the SAC update
     python -m iltpu_torch.profile_phases gail   # the GAIL step
+    python -m iltpu_torch.profile_phases gail --shape 1024,120,128 [--variant wide]
     python -m iltpu_torch.profile_phases pwil   # PWIL's transport
 
 Needs one CUDA card. The SAC mode builds `csrc/sac_phases.cu` (the update of
@@ -13,12 +14,17 @@ of each of the 29 phases (barrier included) and of the whole kernel, and
 the time of one bare barrier crossing over every block. The GAIL mode
 builds `csrc/gail_phases.cu` (the step of `csrc/gail_update.cu` with a
 barrier and a timestamp after each of its six phases) and runs the bench
-configuration (BCE, spectral norm, AIRL, penalty 1; batch 256, width 64) at
-pointmass (state 5, action 2) and hopper (state 12, action 3) shapes, five
-steps each after a warm-up, printing one JSON line per shape: the median
-microseconds of each phase and of the step from its first stamp to its
-last. The PWIL mode builds `csrc/pwil_phases.cu` (the transport kernel
-with each CTA's thread 0 summing the SM cycles of each phase of each row)
+configuration (BCE, spectral norm, AIRL, penalty 1), five steps each after
+a warm-up, at each `--shape B,D,Hd` (batch, input D = S + A, width; an
+env's D takes its split, e.g. ant's 120 = 112 + 8) or, by default, at
+pointmass's and hopper's (batch 256, D 7 and 15, width 64), at the wide
+variant's corners (1024,120,128; 256,120,64; 1024,24,128; 1024,15,128) and
+at 256,24,64 in both variants; `--variant tiled|wide` stamps that variant
+at each `--shape` (default: the routed one). It prints one JSON line per
+shape: the variant, the median microseconds of each phase and of the step
+from its first stamp to its last. The PWIL mode builds
+`csrc/pwil_phases.cu` (the transport kernel with each CTA's thread 0
+summing the SM cycles of each phase of each row)
 and runs the 25-segment relabelling (25,000 rows, 25,000 atoms of d 15),
 PWIL@25's hopper-sized env step (512 pools x 25,000 atoms) and a
 pointmass-sized one (512 x 505 atoms, d 7), printing one JSON line each:
@@ -29,10 +35,10 @@ CTA's pass reads and the rate that gives; first, how many clusters of 2 to
 name and power limit.
 """
 
+import argparse
 import ctypes
 import json
 import subprocess
-import sys
 
 import torch
 
@@ -131,16 +137,49 @@ def barrier_us(lib, dev, n=2000):
 
 def _bind_gail(lib):
     if not hasattr(lib, "_typed"):
-        lib.iltpu_gail_phases_update.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 2)
+        head = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [ctypes.c_int]
+        lib.iltpu_gail_phases_update.argtypes = head + [ctypes.c_void_p] * 2
         lib.iltpu_gail_phases_update.restype = ctypes.c_int
+        lib.iltpu_gail_phases_step.argtypes = head + [ctypes.c_void_p]
+        lib.iltpu_gail_phases_step.restype = ctypes.c_int
+        lib.iltpu_gail_phases_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.iltpu_gail_phases_smem_bytes.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
 
-def gail_phases(lib, dev, S, A, B=256, Hd=64, runs=5):
+def variant_smem_bytes(B, D, Hd, variant):
+    """The dynamic shared memory of a step of `variant` ('tiled' or 'wide')
+    at (B, D, Hd); 0 where it cannot take the shape."""
+    lib = _bind_gail(build.load("gail_phases"))
+    return lib.iltpu_gail_phases_smem_bytes(B, D, Hd, gu.VARIANTS.index(variant))
+
+
+def variant_step(variant, h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix=None):
+    """One unstamped GAIL step in place, as gail_update's kernel runs it but
+    of `variant` ('tiled' or 'wide') whatever the route: to time the two at
+    a shape both take. Returns (loss, rewards); gail_update's launch count
+    does not move."""
+    lib = _bind_gail(build.load("gail_phases"))
+    args, loss, rewards = gu.c_args(h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix)
+    rc = lib.iltpu_gail_phases_step(*args, gu.VARIANTS.index(variant),
+                                    torch.cuda.current_stream(p_s.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"profile_phases: GAIL {variant} step failed with CUDA error {rc}")
+    return loss, rewards
+
+
+# (state, action) of the envs' discriminator inputs D = S + A
+ENV_SPLIT = {5: (4, 1), 7: (5, 2), 15: (12, 3), 24: (18, 6), 120: (112, 8)}
+GAIL_SHAPES = ((256, 7, 64, None), (256, 15, 64, None), (1024, 120, 128, None),
+               (256, 120, 64, None), (1024, 24, 128, None), (1024, 15, 128, None),
+               (256, 24, 64, "tiled"), (256, 24, 64, "wide"))
+
+
+def gail_phases(lib, dev, S, A, B=256, Hd=64, runs=5, variant=None):
     """Median us of each phase and of the step over `runs` steps of the bench
-    configuration, each on the state the last one left."""
+    configuration, each on the state the last one left; `variant` ('tiled'
+    or 'wide'; None: the routed one) as variant_step's."""
     g = torch.Generator(device=dev).manual_seed(S)
     h = gu.GAILHyper(1.0, 3e-5, 10.0, "AIRL", "BCE", 0.0)
     st = GAILDiscriminator(S, A, hidden_size=Hd, spectral_norm=True, reward_function="AIRL",
@@ -159,7 +198,8 @@ def gail_phases(lib, dev, S, A, B=256, Hd=64, runs=5):
     for _ in range(runs + 1):  # the first run warms up
         rc = lib.iltpu_gail_phases_update(
             ptrs, B, S, A, Hd, 1, 1, gu.REWARD_FUNCTIONS.index(h.reward_function), h.grad_penalty,
-            h.lr, h.weight_decay, h.entropy_bonus, stamps.data_ptr(), stream)
+            h.lr, h.weight_decay, h.entropy_bonus,
+            -1 if variant is None else gu.VARIANTS.index(variant), stamps.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"profile_phases: GAIL launch failed with CUDA error {rc}")
         torch.cuda.synchronize()
@@ -243,12 +283,25 @@ def pwil_phases(lib, dev, P, N, d, R, T, segments):
     }
 
 
-def main():
+def _args(argv):
+    parser = argparse.ArgumentParser(prog="python -m iltpu_torch.profile_phases")
+    parser.add_argument("mode", nargs="?", default="sac", choices=("sac", "gail", "pwil"))
+    parser.add_argument("--shape", action="append", default=[],
+                        help="gail: B,D,Hd (batch, input S + A, width); repeatable")
+    parser.add_argument("--variant", choices=gu.VARIANTS,
+                        help="gail: the variant to stamp at each --shape")
+    args = parser.parse_args(argv)
+    shapes = []
+    for text in args.shape:
+        B, D, Hd = (int(x) for x in text.split(","))
+        shapes.append((B, D, Hd, args.variant))
+    return args.mode, shapes or list(GAIL_SHAPES)
+
+
+def main(argv=None):
+    mode, shapes = _args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_phases: CUDA is not available; it measures the card")
-    mode = sys.argv[1] if len(sys.argv) > 1 else "sac"
-    if mode not in ("sac", "gail", "pwil"):
-        raise SystemExit(f"profile_phases: unknown mode {mode!r}; use sac, gail or pwil")
     dev = torch.device("cuda")
     if mode == "sac":
         lib = _bind(build.load("sac_phases"))
@@ -269,11 +322,13 @@ def main():
             print(json.dumps(pwil_phases(lib, dev, P, N, d, R, T, segments)))
     else:
         lib = _bind_gail(build.load("gail_phases"))
-        for S, A, where in ((5, 2, "pointmass"), (12, 3, "hopper")):
-            per_phase, total = gail_phases(lib, dev, S, A)
+        for B, D, Hd, variant in shapes:
+            S, A = ENV_SPLIT.get(D, (D - 1, 1))
+            variant = variant or gu.variant(B, D, Hd)
+            per_phase, total = gail_phases(lib, dev, S, A, B, Hd, variant=variant)
             print(json.dumps({
-                "shape": f"{where} S={S} A={A}", "step_us": total,
-                "smem_bytes": gu.smem_bytes(256, S + A, 64),
+                "shape": f"B={B} S={S} A={A} Hd={Hd}", "variant": variant, "step_us": total,
+                "smem_bytes": variant_smem_bytes(B, D, Hd, variant),
                 "phases_us": {f"{i} {name}": round(t, 2) for i, (name, t) in
                               enumerate(zip(GAIL_PHASES, per_phase))},
             }))

@@ -1,7 +1,7 @@
 """The port's tests that need a CUDA card (marked `cuda`; each skips without
-one): PWIL's transport kernel against its plain version, and a chunk of
-the on-device loop replayed from CUDA graphs against the same chunk run
-eagerly. This file imports neither JAX nor iltpu, so it also runs where
+one): PWIL's transport kernel and the GAIL step's wide variant against
+their plain versions, and a chunk of the on-device loop replayed from CUDA
+graphs against the same chunk run eagerly. This file imports neither JAX nor iltpu, so it also runs where
 JAX is absent:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from iltpu_torch.config import load_config
+from iltpu_torch.ops import gail_update as gu
 from iltpu_torch.ops.pwil_transport import pwil_transport, pwil_transport_plain
+from iltpu_torch.rewards import GAILDiscriminator
 from iltpu_torch.trainer import Trainer
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -38,6 +40,7 @@ PWIL_CASES = {
     "ragged_cluster": (20, 30001, 15, 1000, None, 1.0),
     "exhausted": (16, 600, 7, 1000, None, 0.0006),
     "d64_cluster": (2, 30000, 64, 200, None, 1.0),
+    "d120_ant": (64, 5000, 120, 1000, None, 0.05),
 }
 
 
@@ -46,7 +49,8 @@ PWIL_CASES = {
 def test_pwil_kernel_matches_plain(cuda, case):
     """Bit-equal pools and close rewards over three steps: one CTA a pool,
     clusters of CTAs a pool, ties, more than 32 atoms a row, a cluster no
-    slice divides, pools that run out, the 64 features the kernel takes."""
+    slice divides, pools that run out, 64 features and ant's 120 with more
+    than 32 atoms a row."""
     P, N, d, T, grid, mass = PWIL_CASES[case]
     g = torch.Generator(device=cuda).manual_seed(N)
     if grid:
@@ -85,6 +89,33 @@ def test_pwil_kernel_segments_match_plain(cuda):
     want = pwil_transport_plain(atoms, pp, queries, offsets, reset, **kw)
     assert torch.equal(kp, pp)
     torch.testing.assert_close(got, want, **TOL)
+
+
+# (batch, state, action, width): ant's 120 inputs, and width 128 at batch
+# 1024 on hopper's 15: both past the tiled variants
+WIDE_SHAPES = {"ant": (64, 112, 8, 64), "hopper_1024x128": (1024, 12, 3, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(WIDE_SHAPES))
+@pytest.mark.parametrize("loss", ["BCE", "Mixup"])
+def test_gail_wide_variant_matches_plain(cuda, shape, loss):
+    """One step of the routed (wide) variant against the plain version at
+    the one-step tolerance: the state, the loss and the rewards."""
+    B, S, A, Hd = WIDE_SHAPES[shape]
+    assert gu.variant(B, S + A, Hd) == "wide"
+    g = torch.Generator(device=cuda).manual_seed(B + S)
+    h = gu.GAILHyper(1.0, 3e-5, 10.0, "AIRL", loss, 0.01)
+    st = GAILDiscriminator(S, A, hidden_size=Hd, spectral_norm=True, device=cuda).init(g)
+    r = lambda *shape: torch.randn(*shape, generator=g, device=cuda)
+    u = lambda n: torch.rand(n, generator=g, device=cuda)
+    batch = [r(B, S), torch.tanh(r(B, A)), 1 + u(B), r(B, S), torch.tanh(r(B, A)), 1 + u(B), u(B)]
+    mix = u(B) if loss == "Mixup" else None
+    plain = {k: [t.clone() for t in v] if isinstance(v, list) else v.clone() for k, v in st.items()}
+    got = gu.gail_update(h, st, *batch, mix)
+    want = gu.gail_update_plain(h, plain, *batch, mix)
+    for a, b in zip([*gu.state_tensors(st), *got], [*gu.state_tensors(plain), *want]):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-6)
 
 
 SMALL = [

@@ -3,8 +3,10 @@ the CUDA kernel's CPU twin with the hand-derived penalty gradient) against
 iltpu's fused kernel in interpret mode (`gail_update_pallas`, whose
 gradients come from jax.grad traced in the kernel) and against
 `adversarial_imitation_update` + `predict_reward`, over the grids of
-tests/test_pallas_gail.py, chained 3 steps. The draws are iltpu's own for
-each key, handed to the port."""
+tests/test_pallas_gail.py, chained 3 steps; and against iltpu's kernel at
+the envs' input widths (walker2d's and halfcheetah's 18 + 6, ant's 112 + 8)
+and discriminator widths 64 and 128. The draws are iltpu's own for each
+key, handed to the port."""
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +29,7 @@ S, A, B = 7, 3, 32
 LR, WD, GP = 3e-5, 10.0, 1.0
 
 
-def _batch(seed):
+def _batch(seed, S=S, A=A):
     rng = np.random.default_rng(seed)
     f32 = lambda x: np.asarray(x, np.float32)
     return {
@@ -54,9 +56,9 @@ def _draws(key, loss_function, mixup_alpha):
 
 
 def _compare(reference, spectral_norm, reward_function, gp, loss_function="BCE",
-             entropy_bonus=0.0, mixup_alpha=1.0, key=42):
+             entropy_bonus=0.0, mixup_alpha=1.0, key=42, S=S, A=A, Hd=64):
     disc = GAILDiscriminator(
-        S, A, hidden_size=64, depth=1, spectral_norm=spectral_norm,
+        S, A, hidden_size=Hd, depth=1, spectral_norm=spectral_norm,
         reward_function=reward_function,
     )
     params = disc.init(jax.random.key(0))
@@ -64,7 +66,7 @@ def _compare(reference, spectral_norm, reward_function, gp, loss_function="BCE",
     opt = optim.init(params)
     actor = SoftActor(S, A, hidden_size=16, depth=2)
     actor_params = actor.init(jax.random.key(1))
-    trans, expert = _batch(2), _batch(3)
+    trans, expert = _batch(2, S, A), _batch(3, S, A)
     jt = {k: jnp.asarray(v) for k, v in trans.items()}
     je = {k: jnp.asarray(v) for k, v in expert.items()}
     cfg = AdversarialConfig(
@@ -130,6 +132,24 @@ def test_bce(reference, spectral_norm, reward_function, gp):
 def test_mixup(reference, spectral_norm, reward_function, entropy_bonus, mixup_alpha):
     _compare(reference, spectral_norm, reward_function, 0.436, "Mixup",
              entropy_bonus, mixup_alpha, key=43)
+
+
+# the envs' discriminator inputs (S, A) x widths; (7, 3) at 64 is the grids' above
+ENV_WIDTHS = [(7, 3, 128), (18, 6, 64), (18, 6, 128), (112, 8, 64), (112, 8, 128)]
+
+
+@pytest.mark.parametrize("S_,A_,Hd", ENV_WIDTHS)
+def test_bce_at_env_widths(S_, A_, Hd):
+    """The bench configuration (spectral norm, AIRL, penalty 1) against
+    iltpu's kernel at each env's input width: the card's tiled variants
+    take the narrow inputs, its wide variant ant's."""
+    _compare("pallas", True, "AIRL", GP, S=S_, A=A_, Hd=Hd)
+
+
+@pytest.mark.parametrize("S_,A_,Hd", ENV_WIDTHS)
+def test_mixup_at_env_widths(S_, A_, Hd):
+    """The tuned GAIL@10 configuration (Mixup, entropy bonus) likewise."""
+    _compare("pallas", False, "AIRL", 0.436, "Mixup", 0.0248, 1.0, key=43, S=S_, A=A_, Hd=Hd)
 
 
 def test_wrapper_refuses_mixed_devices_and_a_wrong_mix():

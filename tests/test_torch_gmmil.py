@@ -79,7 +79,7 @@ def test_weighted_median(ties):
     assert got.shape == () and float(got) == float(want)  # a value picked from x: exact
 
 
-@pytest.mark.parametrize("nx,ny,d", [(37, 600, 7), (256, 256, 15), (5, 129, 3)])
+@pytest.mark.parametrize("nx,ny,d", [(37, 600, 7), (256, 256, 15), (5, 129, 3), (64, 256, 120)])
 def test_rowsum_matches_pallas_kernel(nx, ny, d):
     x, y = _rows(5, nx, d), _rows(6, ny, d, 1.5)
     w = _weights(7, ny) / ny

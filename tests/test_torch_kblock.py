@@ -45,7 +45,7 @@ CONFIGS = {
 }
 
 
-def _inputs(seed, K=K):
+def _inputs(seed, K=K, S=S, A=A):
     rng = np.random.default_rng(seed)
     f32 = lambda x: np.asarray(x, np.float32)
     policy = {
@@ -70,7 +70,7 @@ def _inputs(seed, K=K):
     return policy, expert, noise
 
 
-def _setup(cfg):
+def _setup(cfg, S=S, A=A):
     learner = SACLearner(
         SoftActor(S, A, hidden_size=H, depth=2), TwinCritic(S, A, hidden_size=H, depth=2),
         learning_rate=3e-4, weight_decay=1e-2, discount=0.97, entropy_target=-1.0,
@@ -91,9 +91,19 @@ def _torch(d):
 @pytest.mark.parametrize("K", KS)
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_kblock_matches_iltpu(name, K):
+    _kblock_matches_iltpu(name, K)
+
+
+def test_kblock_matches_iltpu_at_ant_widths():
+    """Ant's state 112 + action 8: 120 discriminator inputs, the card's wide
+    GAIL variant; two micro-updates."""
+    _kblock_matches_iltpu("bce_sn", 2, S=112, A=8)
+
+
+def _kblock_matches_iltpu(name, K, S=S, A=A):
     cfg = CONFIGS[name]
-    learner, sac, disc, params, opt = _setup(cfg)
-    policy, expert, noise = _inputs(3, K)
+    learner, sac, disc, params, opt = _setup(cfg, S, A)
+    policy, expert, noise = _inputs(3, K, S, A)
     if cfg["loss"] == "BCE":
         noise.pop("mix")
         tgt = np.stack([

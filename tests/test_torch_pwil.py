@@ -166,8 +166,12 @@ def _stress(kind, seed=4, envs=6, n=300, S=4, A=2, steps=3):
     - drained: pools of tiny random masses (and some spent atoms), so an
       agent atom of 1/T takes about 100 of them, past two selections of 32;
     - exhausted: pools holding less mass than one agent atom, one of them
-      empty from the start."""
+      empty from the start;
+    - ant_drained: drained's pools over ant's 120-feature atoms (state 112,
+      action 8), the card kernel's widest."""
     rng = np.random.default_rng(seed)
+    if kind == "ant_drained":
+        S, A = 112, 8
     if kind == "grid_ties":
         S, A = 3, 1
         es = rng.integers(0, 3, (n, S)).astype(np.float32)
@@ -179,7 +183,7 @@ def _stress(kind, seed=4, envs=6, n=300, S=4, A=2, steps=3):
         es, ea = _expert(seed, n, S, A)
         s = np.asarray(rng.normal(size=(steps, envs, S)) * 1.5, np.float32)
         a = np.asarray(np.tanh(rng.normal(size=(steps, envs, A))), np.float32)
-        if kind == "drained":
+        if kind in ("drained", "ant_drained"):
             pools = np.asarray(rng.uniform(0, 2e-5, (envs, n)), np.float32)
             pools[rng.uniform(size=(envs, n)) < 0.2] = 0.0
         else:
@@ -227,7 +231,7 @@ def _sorted_walk(pool, dist, weight):
     return pool, cost
 
 
-@pytest.mark.parametrize("kind", ["grid_ties", "drained", "exhausted"])
+@pytest.mark.parametrize("kind", ["grid_ties", "drained", "exhausted", "ant_drained"])
 def test_stress_inputs_match_iltpu(kind):
     """compute_reward on the selection kernel's hard inputs, step by step
     against iltpu's jitted, vmapped one: pools equal, rewards close."""

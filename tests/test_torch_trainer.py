@@ -63,6 +63,9 @@ TUNEDLIKE = [
 # iltpu's main path at a small size: hopper on the C++ stepper, its expert data
 HOPPER = ["env=hopper", "env_backend=native",
           f"expert_data.source={os.path.join(REPO, 'data', 'hopper_expert.npz')}"]
+# ant: 112 + 8 = 120 discriminator inputs, the card's wide GAIL variant
+ANT = ["env=ant", "env_backend=native",
+       f"expert_data.source={os.path.join(REPO, 'data', 'ant_expert.npz')}"]
 
 
 def _step_data(key, n, S, A):
@@ -121,14 +124,15 @@ def _iltpu_noise(state, base_key, step, n_updates, B, A, mixup, dril=None):
 
 @pytest.mark.parametrize(
     "extra,block",
-    [((), 1), (TUNEDLIKE, 1), ((), 4), (TUNEDLIKE, 4), (HOPPER, 1)],
-    ids=["bce_sn", "mixup_airl", "bce_sn-kblock4", "mixup_airl-kblock4", "hopper_native"],
+    [((), 1), (TUNEDLIKE, 1), ((), 4), (TUNEDLIKE, 4), (HOPPER, 1), (ANT, 1)],
+    ids=["bce_sn", "mixup_airl", "bce_sn-kblock4", "mixup_airl-kblock4", "hopper_native",
+         "ant_native"],
 )
 def test_transition_core_matches_iltpu(tmp_path, extra, block):
     """update_block=4 takes iltpu's K-blocked kernel (two launches of 4 per
     iteration) and the port's kblock_update; hopper_native is iltpu's main
     path (hopper's shapes, its expert data, the stepper built by each
-    package)."""
+    package); ant_native the same on ant (120 discriminator inputs)."""
     args = BASE + list(extra) + [f"training.update_block={block}"]
     jt = JaxTrainer(jax_load_config(args), out_dir=str(tmp_path / "jax"))
     tt = Trainer(load_config(args + ["platform=cpu"]), out_dir=str(tmp_path / "torch"))
