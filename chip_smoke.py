@@ -108,7 +108,9 @@ of JAX or `iltpu`. Phases, each printing its results:
 6. graphs: on every path the on-device loop runs (GAIL per update and
    update_block=16, GMMIL, PWIL, SQIL, AdRIL, DRIL, RED on the SAC kernel,
    the autograd SAC update, RED and the GAIL step on autograd, GAIL Mixup
-   at alpha 0.5 with its Beta draw in the captured front), a chunk
+   at alpha 0.5 with its Beta draw in the captured front, and GAIL at
+   batch 512, per update and update_block=16, whose step is the wide
+   variant's cluster launch inside the graph), a chunk
    replayed from CUDA graphs against the same chunk run eagerly on the card
    from the same state and generator state, at full widths: equal bit for
    bit, with the same launches;
@@ -177,11 +179,14 @@ of JAX or `iltpu`. Phases, each printing its results:
    walker2d and halfcheetah (16 envs, 1,024 steps); (10d) the kernels at
    every shape iltpu's configurations give: sac_update at (S, A) = (18, 6)
    and (112, 8); the coverage sweep (the six envs' D = S + A x widths 32,
-   64, 128 x batches 128-1024: the GAIL step's variant and shared memory,
-   the K-blocked kernel's cooperative grid, none refused); gail_update
-   where its wide variant runs, (B, D, Hd) = (1024, 120, 128), (256, 120,
-   64), (1024, 24, 128) and (1024, 15, 128), BCE and Mixup, and at (256,
-   24, 64) tiled and wide in turns; kblock_update at ant's (256, 120, 64)
+   64, 128 x batches 128-1024: the GAIL step's variant, its blocks (the
+   wide variant's cluster, one a segment of the rows) and shared memory,
+   the K-blocked kernel's cooperative grid and its split into GAIL and SAC
+   blocks, none refused); gail_update's wide variant at (B, D, Hd) =
+   (1024, 120, 128), (256, 120, 64), (1024, 24, 128) and (1024, 15, 128),
+   BCE and Mixup, against its plain version with a float64 run of the
+   plain formulas as the arbiter, and at hopper's (256, 15, 64) tiled and
+   wide in turns; kblock_update at ant's (256, 120, 64)
    as 3b; the row sums at 256 x 256, D 120; PWIL's transport at ant's
    120-feature atoms (512 pools x 5,000 atoms; the relabelling of 25 x
    1,000 rows over 25,000 atoms), pools bit-equal; sac_update at (112, 8),
@@ -192,8 +197,11 @@ of JAX or `iltpu`. Phases, each printing its results:
    GAIL at those widths on walker2d and hopper (16 envs), each kernel
    launched once an owed update; the first chunk (8 updates) of
    transition_core on ant's stepper rows, card against CPU at 1e-4 / 1e-5
-   (GAIL per update and update_block=4, PWIL, GMMIL); each run's steady
-   env-steps/s.
+   (GAIL per update and update_block=4, PWIL, GMMIL), then two more chunks
+   of GAIL per update judged on the SAC state: the card's distance from
+   the float64 run at most max(1.0, the CPU's) x the chain tolerance,
+   both printed; each run's steady env-steps/s beside
+   the one-block wide GAIL step's (`ONE_BLOCK_RATES`).
 
 Then the steady rates and the pretraining times with the nvidia-smi line, one `kernels` JSON
 line (the per-update and K-blocked kernels at hopper's shapes with their
@@ -214,6 +222,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 MEM_RATE = 3.35e12  # bytes/s, H100 SXM HBM3
 FP32_RATE = 67e12  # FLOP/s, H100 SXM fp32 without tensor cores
+TF32_RATE = 495e12  # FLOP/s, H100 SXM dense TF32 on the tensor cores
 TOL_STEP = (2e-5, 2e-6)
 TOL_CHAIN = (1e-4, 1e-5)
 TOL_PWIL = (1e-5, 1e-6)  # the transport's rewards: the distances' rounding
@@ -401,6 +410,23 @@ def device_ms(fn, n=60):
     return times[n // 2]
 
 
+def issue_us(fn, n=60):
+    """Host time to issue a call, in us: the mean over n calls queued while a
+    sleep kernel holds the stream, so the host never waits for the device."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(50.0 * cycles_per_ms()))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / n
+
+
 def traced_ms(fn, n=10):
     """Device time of a call from a torch.profiler trace of n calls: the
     union of its kernels' intervals, per call; and the kernels, memsets and
@@ -519,10 +545,14 @@ def check_sac_shape(S, A, where, dev, results, B=256, cancelling=False):
           f"{err[1]:.3g}, {timing(results[('sac', where)][1:])}")
 
 
-def bound_ms(flops, nbytes):
-    """The least time for the work: operations over the fp32 rate against
-    bytes over the memory rate, the larger; and which one it is."""
-    t_ops, t_bytes = flops / FP32_RATE, nbytes / MEM_RATE
+def bound_ms(flops, nbytes, tc_flops=0.0):
+    """The least time for the work: the operations over their unit's rate
+    (`flops` in fp32 on the CUDA cores; `tc_flops`, products run in 3xTF32,
+    three TF32 products each on the tensor cores, over a third of the TF32
+    rate), the larger of the two, against the bytes over the memory rate,
+    the larger; and which one it is."""
+    t_ops = max(flops / FP32_RATE, tc_flops / (TF32_RATE / 3))
+    t_bytes = nbytes / MEM_RATE
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -587,9 +617,10 @@ def gail_case(S, A, B, bce, seed, dev, Hd=64, sn=None, alpha=1.0, **changes):
 
 
 def check_gail(S, A, bce, dev, B=256, Hd=64, timed=True, variant=None, **case):
-    """The GAIL step against its plain version, one step and a chain of 5;
-    with `timed`, its times. `variant` ('tiled' or 'wide') runs that
-    variant through the phase timer's unstamped entry
+    """The GAIL step against its plain version, one step and a chain of 5,
+    with the plain formulas run in float64 from the same state as the
+    arbiter (`compare`); with `timed`, its times. `variant` ('tiled' or
+    'wide') runs that variant through the phase timer's unstamped entry
     (profile_phases.variant_step: a measurement, the launch counter does
     not move) instead of gail_update's routed one."""
     import functools
@@ -601,18 +632,22 @@ def check_gail(S, A, bce, dev, B=256, Hd=64, timed=True, variant=None, **case):
     kernel, plain = gu.gail_update, gu.gail_update_plain
     if variant is not None:
         kernel = functools.partial(profile_phases.variant_step, variant)
+    double = lambda xs: [None if x is None else x.double() for x in xs]
     worst = (0.0, 0.0)
     for n, tol in ((1, TOL_STEP), (5, TOL_CHAIN)):
         k_st, p_st = clone(st), clone(st)
+        d_st = {k: double(v) if isinstance(v, list) else v.double() for k, v in st.items()}
         for i in range(n):
             args, mix = steps[i]
             kl, kr = kernel(hyper, k_st, *args, mix)
             pl, pr = plain(hyper, p_st, *args, mix)
+            dl, dr = plain(hyper, d_st, *double(args), *double([mix]))
         worst = worse(worst, compare(
             f"gail {variant or gu.variant(B, S + A, Hd)} S={S} A={A} B={B} Hd={Hd} {hyper} "
             f"sn={bool(st['sn'])} {n}-step",
             [*leaves(k_st), ("loss", kl), ("rewards", kr)],
-            [*leaves(p_st), ("loss", pl), ("rewards", pr)], tol, k_st, p_st))
+            [*leaves(p_st), ("loss", pl), ("rewards", pr)], tol, k_st, p_st,
+            reference=[(k, t.float()) for k, t in (*leaves(d_st), ("loss", dl), ("rewards", dr))]))
     if not timed:
         return worst, None, None
     args, mix = steps[0]
@@ -709,9 +744,9 @@ def check_autograd_gail(S, A, bce, dev):
                    median_ms(lambda: autograd(g_st, args, mix)))
 
 
-# The GAIL step's other variants (inputs padded to 8, 16 or 32 features,
-# widths to 1, 2 or 4 warps' lanes; W~1 from shared memory where both are
-# large), a ragged batch, the GAIL and FAIRL heads, no penalty, and Mixup
+# The GAIL step at other shapes (inputs of 4 to 28 features, widths of 16 to
+# 128; the routed variant, and the tiled one too where the route passed it
+# over), a ragged batch, the GAIL and FAIRL heads, no penalty, and Mixup
 # with spectral norm: (S, A, B, Hd, bce, changes to gail_case).
 GAIL_VARIANTS = (
     (3, 1, 256, 16, True, {"grad_penalty": 0.0, "reward_function": "GAIL"}),
@@ -721,9 +756,12 @@ GAIL_VARIANTS = (
 )
 
 
-def gail_flops(B, Hd, st, args, mix):
-    """The products of one step (the penalty's W~1^T g product only for the
-    hidden units this data switches on)."""
+def gail_flops(B, Hd, st, args, mix, wide=False):
+    """The operations of one step (the penalty's W~1^T g product only for
+    the hidden units this data switches on): (fp32 FLOP, 3xTF32 FLOP). The
+    wide variant runs the products over the D inputs (Z = X W~1, g, q and
+    the weight gradients) on the tensor cores in 3xTF32; the rest, and
+    everything of the tiled variants, is fp32."""
     import torch
 
     e_s, e_a, e_w, p_s, p_a, p_w, eps_gp = args
@@ -732,21 +770,27 @@ def gail_flops(B, Hd, st, args, mix):
     W1, b1 = st["p"][0], st["p"][1]
     gx = eps_gp[:, None] * torch.cat([e_s, e_a], 1) + (1 - eps_gp[:, None]) * torch.cat([p_s, p_a], 1)
     active = float(((gx @ W1 + b1) > 0).float().mean())  # sigma > 0 keeps the sign
-    flops = 2 * R * (D * Hd + Hd)  # loss rows
-    flops += 2 * B * D * Hd * (2 + active)  # penalty rows: forward, g, W~1^T g
-    flops += 2 * (R + B) * (D * Hd + Hd)  # weight gradients
-    return flops + 2 * B * (D * Hd + Hd) + 4 * D * Hd  # reward rows, power iteration
+    # the loss rows, the penalty rows (forward, g, W~1^T g), the weight
+    # gradients, the reward rows
+    products = 2 * D * Hd * (R + B * (2 + active) + (R + B) + B)
+    rest = 2 * Hd * (R + (R + B) + B) + 4 * D * Hd  # the width-Hd terms, power iteration
+    return (rest, products) if wide else (rest + products, 0.0)
 
 
-def gail_bound_ms(S, A, B, Hd, case):
-    """The products over the fp32 rate, against each input read and each
-    output written once over the memory rate."""
+def gail_bound_ms(S, A, B, Hd, case, variant=None):
+    """The operations over their unit's rate (`gail_flops`; `variant` the
+    routed one unless given), against each input read and each output
+    written once over the memory rate."""
+    from iltpu_torch.ops import gail_update as gu
+
     hyper, st, args, mix = case
+    wide = (variant or gu.variant(B, S + A, Hd)) == "wide"
     D = S + A
     params = D * Hd + 2 * Hd + 1
     state = 3 * params + (2 * Hd + D + 1 if st["sn"] else 0) + 1
     batch = 2 * B * (D + 1) + B + (0 if mix is None else B)
-    return bound_ms(gail_flops(B, Hd, st, args, mix), 4 * (2 * state + batch + B + 1))
+    flops, tc_flops = gail_flops(B, Hd, st, args, mix, wide)
+    return bound_ms(flops, 4 * (2 * state + batch + B + 1), tc_flops)
 
 
 def kblock_case(S, A, K, bce, min_alpha, dev, alpha=1.0):
@@ -830,16 +874,18 @@ def check_kblock(S, A, bce, min_alpha, dev, timed, alpha=1.0):
                 paced_ms = median_ms(lambda: kblock_update(*args), n=20)
                 per_ms = device_ms(lambda: per_update_calls(*args), n=5)
                 plain_ms = median_ms(lambda: kblock_update_plain(*args), n=10)
-                flops = K * sac_flops(S, A, 256, 256) + sum(
-                    gail_flops(256, 64, disc_st, [expert["states"][k], expert["actions"][k],
-                                                 expert["weights"][k], batches["states"][k],
-                                                 batches["actions"][k], batches["weights"][k],
-                                                 noise["eps_gp"][k]],
-                               None if bce else noise["mix"][k]) for k in range(K))
+                wide = gu.variant(256, S + A, 64) == "wide"
+                gail = [gail_flops(256, 64, disc_st, [expert["states"][k], expert["actions"][k],
+                                                      expert["weights"][k], batches["states"][k],
+                                                      batches["actions"][k], batches["weights"][k],
+                                                      noise["eps_gp"][k]],
+                                   None if bce else noise["mix"][k], wide) for k in range(K)]
+                flops = K * sac_flops(S, A, 256, 256) + sum(f for f, _ in gail)
                 state = su.state_tensors(sac_st) + gu.state_tensors(disc_st)
                 nbytes = 4 * (2 * numel(state) + numel(_batch_operands(batches, expert, noise))
                               + 3 * 256 + 2)
-                out = (ms, paced_ms, per_ms, plain_ms, *bound_ms(flops, nbytes))
+                out = (ms, paced_ms, per_ms, plain_ms,
+                       *bound_ms(flops, nbytes, sum(t for _, t in gail)))
     return worst, same, out
 
 
@@ -1131,7 +1177,7 @@ def distance_from(reference, got, tol):
     return most, past
 
 
-def check_against_cpu(dev, extra=(), rows=None, iterations=3, watched=0):
+def check_against_cpu(dev, extra=(), rows=None, iterations=3, watched=0, out=None):
     """transition_core on the card (kernels, or the autograd updates where
     the flags say so) against the CPU (plain versions, autograd),
     `iterations` x 8 updates, from one state (DRIL and RED pretrained for 50
@@ -1140,10 +1186,14 @@ def check_against_cpu(dev, extra=(), rows=None, iterations=3, watched=0):
     launch's arithmetic is K per-update bodies), as the arbiter of the SAC
     state (see `compare`); each iteration's
     4 env rows are random, or `rows()`'s (an env's step). Then `watched`
-    more iterations, not judged: each prints how far the card's and the
-    CPU's SAC states lie from the float64 run's, in units of the chain
-    tolerance (`distance_from`). Returns the worst error and the launches
-    the card's run made in the judged iterations."""
+    more iterations, where the card's and the CPU's float32 chains have
+    carried their roundings further: each is judged on the SAC state by its
+    distance from the float64 run's in units of the chain tolerance
+    (`distance_from`), the card's at most max(1.0, the CPU's), so the kernel
+    stays at least as close to float64 as the CPU's float32 reference; both
+    printed. Outputs go to `out` (the repo's outputs/chip_smoke if None).
+    Returns the worst error and the launches the card's run made in the
+    iterations compared with the CPU."""
     import torch
     from iltpu_torch import convert
     from iltpu_torch.config import load_config
@@ -1151,9 +1201,9 @@ def check_against_cpu(dev, extra=(), rows=None, iterations=3, watched=0):
 
     args = [a for a in TRAINER_ARGS if not a.startswith(("num_envs", "steps", "memory"))]
     args += ["num_envs=4", "steps=300", "memory.size=1000", "training.batch_size=16",
-             "imitation.pretraining.iterations=50",
-             f"output_dir={os.path.join(REPO, 'outputs', 'chip_smoke')}", *extra]
-    out = os.path.join(REPO, "outputs", "chip_smoke")
+             "imitation.pretraining.iterations=50", *extra]
+    out = out or os.path.join(REPO, "outputs", "chip_smoke")
+    args.append(f"output_dir={out}")
     gpu = Trainer(load_config(args), out_dir=out)
     cpu = Trainer(load_config(args + ["platform=cpu"]), out_dir=out)
     ref = Trainer(load_config(args + ["platform=cpu"]), out_dir=out)
@@ -1186,8 +1236,12 @@ def check_against_cpu(dev, extra=(), rows=None, iterations=3, watched=0):
         if it >= iterations:
             (card, n_card), (host, n_host) = (distance_from(leaves(ref.sac), leaves(t.sac), TOL_CHAIN)
                                               for t in (gpu, cpu))
-            print(f"{name} sac, not judged: the card at most {card:.3g} x the chain tolerance from "
-                  f"float64 ({n_card} element(s) past it), the CPU {host:.3g} x ({n_host})")
+            verdict = (f"{name} sac: the card at most {card:.3g} x the chain tolerance from float64 "
+                       f"({n_card} element(s) past it), the CPU {host:.3g} x ({n_host}); the card "
+                       f"may reach max(1.0, the CPU's) = {max(1.0, host):.3g}")
+            if card > max(1.0, host):
+                raise AssertionError(verdict)
+            print(verdict)
             continue
         parts = [
             compare(f"{name} sac", leaves(gpu.sac), leaves(cpu.sac), TOL_CHAIN, gpu.sac, cpu.sac,
@@ -1357,6 +1411,9 @@ GRAPH_PATHS = (
     ("red", tuple(alg_args("RED"))), ("sac_autograd", tuple(alg_args("SAC", False))),
     ("red_autograd", tuple(alg_args("RED", False))), ("gail_autograd", tuple(alg_args("GAIL"))),
     ("gail_mixup05", MIXUP05),
+    # batch 512 routes pointmass's step to the wide variant: a cluster launch in the graph
+    ("gail_wide", ("training.batch_size=512",)),
+    ("gail_wide_kblock16", ("training.batch_size=512", "training.update_block=16")),
 )
 
 
@@ -2215,19 +2272,44 @@ def check_coverage():
         for Hd in DISC_WIDTHS:
             for B in BATCHES:
                 smem = gu.smem_bytes(B, D, Hd)
-                per_sm, sms, k_smem = kb.grid(lib, B, S, A, 256, Hd)
+                per_sm, sms, k_smem, k_gail = kb.grid(lib, B, S, A, 256, Hd)
                 if per_sm * sms < 2:
                     raise AssertionError(f"kblock_update B={B} D={D} Hd={Hd}: a cooperative grid "
                                          f"of {per_sm * sms} block(s)")
-                shapes.append(f"{B}x{Hd} {gu.variant(B, D, Hd)} {smem} B (K-blocked {per_sm}x{sms} "
-                              f"blocks, {k_smem} B)")
+                shapes.append(f"{B}x{Hd} {gu.variant(B, D, Hd)} on {gu.blocks(B, D, Hd)} block(s) "
+                              f"(segments, the cluster), {smem} B (K-blocked {per_sm}x{sms} blocks: "
+                              f"GAIL {k_gail} / SAC {per_sm * sms - k_gail}, {k_smem} B)")
         print(f"coverage {env} D={D}, batch x width: " + "; ".join(shapes))
+
+
+def check_route_turns(dev, S=12, A=3):
+    """10d: the GAIL step at hopper's (256, 15, 64), the main path's, in both
+    variants in turns (tiled, wide, wide, tiled, tiled, wide): each turn's
+    errors against the plain version, device, host-paced and host-issue
+    times, and each variant's bound."""
+    from iltpu_torch import profile_phases
+    from iltpu_torch.ops import gail_update as gu
+
+    turns = {}
+    for variant in ("tiled", "wide", "wide", "tiled", "tiled", "wide"):
+        e, t, (hyper, st, args, mix) = check_gail(S, A, True, dev, variant=variant)
+        st = clone(st)
+        issued = issue_us(lambda: profile_phases.variant_step(variant, hyper, st, *args, mix))
+        turns.setdefault(variant, []).append((e[0], *t, issued))
+    bounds = {v: gail_bound_ms(S, A, 256, 64, (hyper, st, args, mix), v) for v in turns}
+    print(f"kernel gail_update B=256 S={S} A={A} Hd=64 (D={S + A}), the routed variant "
+          f"{gu.variant(256, S + A, 64)}, in turns: " + "; ".join(
+              f"{v} max_abs_err {max(x[0] for x in r):.3g}, "
+              + " and ".join(f"{x[1]:.4f}" for x in r) + " ms on the device ("
+              + " and ".join(f"{x[2]:.4f}" for x in r) + " ms host-paced; issued in "
+              + " and ".join(f"{x[4]:.1f}" for x in r) + " us on the host), bound "
+              f"{bounds[v][0]:.5f} ms by {bounds[v][1]}" for v, r in turns.items()))
 
 
 def check_every_shape(dev, results):
     """10d: the coverage sweep; the GAIL step at WIDE_CORNERS, BCE and
-    Mixup, and at walker2d's (256, 24, 64) in both variants in turns
-    (tiled, wide, wide, tiled); the K-blocked kernel at ant's (256, 120, 64)
+    Mixup, and at hopper's (256, 15, 64) in both variants in turns
+    (`check_route_turns`); the K-blocked kernel at ant's (256, 120, 64)
     (K = 1, 2, 16 bit-identical to per-update calls, K = 5 against its plain
     version); the row sums at 256 x 256, D 120; PWIL's transport at ant's
     120-feature atoms (PWIL_ANT_CASES); the SAC step at ant's (112, 8) at
@@ -2245,20 +2327,11 @@ def check_every_shape(dev, results):
             if bce:
                 times = (*t, *gail_bound_ms(S, A, B, Hd, case))
         results[("gail", f"B={B} D={S + A} Hd={Hd}")] = (err[0], *times)
-        print(f"kernel gail_update {gu.variant(B, S + A, Hd)} B={B} S={S} A={A} Hd={Hd}, "
-              f"{gu.smem_bytes(B, S + A, Hd)} bytes of shared memory, BCE and Mixup: max_abs_err "
+        print(f"kernel gail_update {gu.variant(B, S + A, Hd)} B={B} S={S} A={A} Hd={Hd} on "
+              f"{gu.blocks(B, S + A, Hd)} blocks, {gu.smem_bytes(B, S + A, Hd)} bytes of shared "
+              f"memory a block, BCE and Mixup (float64 the arbiter): max_abs_err "
               f"{err[0]:.3g}, max_rel_err {err[1]:.3g}, {timing(times)}")
-    turns = {}
-    for variant in ("tiled", "wide", "wide", "tiled"):
-        e, t, case = check_gail(18, 6, True, dev, variant=variant)
-        turns.setdefault(variant, []).append((e[0], *t))
-    bound, by = gail_bound_ms(18, 6, 256, 64, case)
-    print("kernel gail_update B=256 S=18 A=6 Hd=64 (D=24), the routed variant "
-          f"{gu.variant(256, 24, 64)}, in turns: " + "; ".join(
-              f"{v} max_abs_err {max(x[0] for x in r):.3g}, "
-              + " and ".join(f"{x[1]:.4f}" for x in r) + " ms on the device ("
-              + " and ".join(f"{x[2]:.4f}" for x in r) + " ms host-paced)"
-              for v, r in turns.items()) + f"; bound {bound:.5f} ms by {by}")
+    check_route_turns(dev)
     check_kblock_configs(112, 8, "ant", dev, results)
     rowsum = check_rowsum(dev, ((256, 256, 120),))
     results[("rowsum", "ant")] = rowsum[("gmmil_witness_reward", 256, 256, 120)]
@@ -2287,16 +2360,24 @@ WIDE_RUNS = (
 )
 
 
+# Phase 11's steady env-steps/s when the wide GAIL step was one block on the
+# CUDA cores (PERF.md §5), beside which this run's print.
+ONE_BLOCK_RATES = {"ant_gail": 999.3, "ant_gail_kblock16": 1361.4, "ant_gail_wide128_b1024": 244.0,
+              "ant_pwil": 1813.2, "ant_gmmil": 1479.0, "walker2d_wide128_b1024": 366.5,
+              "hopper_wide128_b1024": 381.2}
+
+
 def check_wide_trainers(dev, rates, pre, smi):
     """Phase 11: WIDE_RUNS through `Trainer.run`, each kernel launched once an
     owed update (the transport once an iteration, the K-blocked kernel once
     per 16); then the first chunk (8 updates) of transition_core on ant's
     stepper rows, card against CPU at 1e-4 / 1e-5, on GAIL per update and
-    update_block=4, PWIL and GMMIL; on GAIL per update two more chunks
-    print, not judged, how far the card's and the CPU's SAC states lie from
-    the float64 run's (later chunks on ant take some of the SAC critic's
-    last-layer moments past the chain tolerance from it on the card:
-    ROADMAP.md, section 3). Returns each run's launch counts."""
+    update_block=4, PWIL and GMMIL; on GAIL per update two more chunks,
+    where the card's SAC state must lie at most max(1.0, the CPU's
+    distance) x the chain tolerance from the float64 run's (a moment of the
+    critic's last layer falls through zero in the second, so its carried
+    rounding meets a tolerance that shrank with it). Returns each run's
+    launch counts."""
     t11, counted = time.time(), {}
     for name, extra, expect in WIDE_RUNS:
         counted[name], rates[name], pre[name] = run_trainer(name, extra, owed(expect))
@@ -2314,8 +2395,8 @@ def check_wide_trainers(dev, rates, pre, smi):
         print(f"reference: transition_core ant {' '.join(extra) or 'GAIL'} (state 112, action 8, "
               f"the stepper's rows) on the card vs the CPU, the first chunk of 8 updates: max_abs_err "
               f"{err[0]:.3g}, max_rel_err {err[1]:.3g}, launches {launched}")
-    print("wide shapes, steady env-steps/s: " + ", ".join(
-        f"{name} {rates[name]:.1f}" for name, _, _ in WIDE_RUNS)
+    print("wide shapes, steady env-steps/s (the one-block wide step's): " + ", ".join(
+        f"{name} {rates[name]:.1f} ({ONE_BLOCK_RATES[name]})" for name, _, _ in WIDE_RUNS)
           + f" on {smi}; phase 11 took {time.time() - t11:.1f} s")
     return counted
 
@@ -2387,14 +2468,17 @@ SMALL_ARGS = [a for a in TRAINER_ARGS if not a.startswith(
 
 
 def kernel_names(*names):
-    """The `__global__` function of each source `csrc/<name>.cu`."""
+    """The `__global__` functions of each source `csrc/<name>.cu` (the GAIL
+    step's: the tiled variants' one-block kernel and the wide variant's
+    cluster kernel)."""
     out = {}
     for name in names:
         with open(os.path.join(REPO, "iltpu_torch", "csrc", f"{name}.cu")) as f:
-            found = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\) )?(\w+)\(", f.read())
-        if len(found) != 1:
-            raise AssertionError(f"{name}.cu: expected one __global__ function, found {found}")
-        out[name] = found[0]
+            found = re.findall(r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
+                               f.read())
+        if not found or "__launch_bounds__" in found:
+            raise AssertionError(f"{name}.cu: no __global__ function read: {found}")
+        out[name] = found
     return out
 
 
@@ -2432,8 +2516,9 @@ def check_profiler_window(results):
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     line = []
-    for name, fn in kernel_names("sac_update", "gail_update").items():
-        durs = [e["dur"] for e in kernels if re.search(rf"\b{fn}\b", e["name"])]
+    for name, fns in kernel_names("sac_update", "gail_update").items():
+        fn = "|".join(fns)
+        durs = [e["dur"] for e in kernels if re.search(rf"\b({fn})\b", e["name"])]
         if len(durs) != in_window:
             raise AssertionError(f"profiler window: {len(durs)} {fn} events in the trace, "
                                  f"{in_window} updates in the window")
@@ -2612,13 +2697,14 @@ def main():
     for S, A in ((5, 2), (12, 3)):
         print(f"build gail_update: S={S} A={A}: {gu.smem_bytes(256, S + A, 64)} bytes of dynamic "
               f"shared memory (batch 256, width 64)")
-        for name, (per_sm, sms, smem) in (
+        for name, (per_sm, sms, smem, *gail) in (
             ("sac_update", su.grid(build.load("sac_update"), 256, S, A, 256)),
             ("kblock_update", kb.grid(build.load("kblock_update"), 256, S, A, 256, 64)),
         ):
             print(f"build {name}: S={S} A={A}: {per_sm} co-resident block(s) of 512 threads per "
-                  f"SM x {sms} SMs = a cooperative grid of {per_sm * sms}, {smem} bytes of "
-                  f"dynamic shared memory a block")
+                  f"SM x {sms} SMs = a cooperative grid of {per_sm * sms}"
+                  + (f" ({gail[0]} run GAIL, the rest SAC)" if gail else "")
+                  + f", {smem} bytes of dynamic shared memory a block")
 
     # 3. kernels against their plain versions
     results = {}
@@ -2633,11 +2719,18 @@ def main():
         results[("gail", where)] = (err[0], *times)
         print(f"kernel gail_update {where} S={S} A={A}: max_abs_err {err[0]:.3g}, max_rel_err "
               f"{err[1]:.3g}, {timing(times)}")
+    from iltpu_torch import profile_phases
+
     for S, A, B, Hd, bce, case in GAIL_VARIANTS:
-        err, _, _ = check_gail(S, A, bce, dev, B=B, Hd=Hd, timed=False, **case)
-        print(f"kernel gail_update variant S={S} A={A} B={B} Hd={Hd} {'BCE' if bce else 'Mixup'} "
-              f"{case}: {gu.smem_bytes(B, S + A, Hd)} bytes of shared memory, max_abs_err "
-              f"{err[0]:.3g}, max_rel_err {err[1]:.3g}")
+        routed = gu.variant(B, S + A, Hd)
+        # where the route passes over a tiled variant that takes the shape, that one too
+        tiled_too = routed == "wide" and profile_phases.variant_smem_bytes(B, S + A, Hd, "tiled")
+        for variant in (None, "tiled") if tiled_too else (None,):
+            err, _, _ = check_gail(S, A, bce, dev, B=B, Hd=Hd, timed=False, variant=variant, **case)
+            print(f"kernel gail_update variant S={S} A={A} B={B} Hd={Hd} {'BCE' if bce else 'Mixup'} "
+                  f"{case}: {variant or routed}{' (routed)' if variant is None else ''}, "
+                  f"{profile_phases.variant_smem_bytes(B, S + A, Hd, variant or routed)} bytes of "
+                  f"shared memory, max_abs_err {err[0]:.3g}, max_rel_err {err[1]:.3g}")
     # the Mixup draw at alpha 0.5: Beta(0.5, 0.5) from the trainer's capture-safe sampler
     for S, A in ((5, 2), (12, 3)):
         err, _, _ = check_gail(S, A, False, dev, timed=False, alpha=0.5)

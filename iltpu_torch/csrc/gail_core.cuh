@@ -3,20 +3,25 @@
 // (kblock_update.cu) and the phase timer (gail_phases.cu), as the TPU's
 // `_gail_core` is shared by pallas_gail.py and pallas_fused_block.py.
 //
-// `gail::step` is run by ONE block of exactly THREADS threads (16 warps).
-// Every sum runs in an order that follows the block alone, so every kernel
-// that runs it gets the same bits. Its working set lives in dynamic shared
-// memory (smem_bytes(B, D, Hd)), not in global scratch. Two families of
-// variants, chosen by the shape (`routes_wide`):
+// Two families of variants, chosen by the shape (`routes_wide`): the tiled
+// variants (`gail::step`, one block) where they fit and were timed faster on
+// an H100 (inputs up to 8 features at batches up to 256, up to 16 at batches
+// up to 128 and widths up to 64), the wide variant (`step_wide`, several
+// blocks) everywhere else. Blocks are THREADS threads (16 warps). Every sum
+// runs in an order that follows the shape alone, so every kernel that runs a
+// step gets the same bits. The working sets live in dynamic shared memory
+// (smem_bytes(B, D, Hd)); only the wide variant's K-blocked exchange uses
+// global scratch.
 //
 // The tiled variants (`step_t`, `layout`) hold the whole batch:
 //  - the batch rows e = [e_s, e_a] and p = [p_s, p_a], each (B, DP): the
-//    D = S + A features padded with zeros to DP (8, 16 or 32), so a row is
+//    D = S + A features padded with zeros to DP (8 or 16), so a row is
 //    DP / 4 float4 broadcasts; the per-row weights, eps_gp and mix. The loss
 //    rows (e | p, or Mixup's mix e + (1 - mix) p) and the penalty rows
 //    (eps_gp e + (1 - eps_gp) p) are formed from them where they are used;
 //  - W~1 = W1 / sigma1 as (DP, HP), the hidden units padded with zeros to
-//    HP = 32 NU (NU = 1, 2 or 4), with b1, W2 and the spectral-norm vectors;
+//    HP = 32 NU (NU = 1, 2 or 4; DP NU <= 32), with b1, W2 and the
+//    spectral-norm vectors;
 //  - each warp's partial weight gradients (DP HP + 2 HP floats a warp),
 //    combined in warp order, a warp's row of the penalty's g = W~1 a, and
 //    the block sums.
@@ -26,9 +31,9 @@
 // global memory.
 //
 // Threads spread over rows x hidden units. Lane l of a warp owns the units
-// l + 32 u (u < NU), with their columns of W~1 in registers (read from
-// shared memory where DP NU > 32) and its partial weight gradients in
-// registers; a warp owns a contiguous slice of the rows. For a row, the
+// l + 32 u (u < NU), with their columns of W~1 and its partial weight
+// gradients in registers; a warp owns a contiguous slice of the rows. For a
+// row, the
 // warp forms the hidden units from the row's features (float4 broadcasts
 // from shared memory), and the dot product with w~2 is a butterfly of
 // shuffles that leaves the same bits in every lane. Loss rows go 32 at a
@@ -38,47 +43,57 @@
 // penalty's g = W~1 a sums over the units, so over the lanes: a transposing
 // shuffle reduction (transpose_sum) leaves each lane one of the DP sums.
 //
-// The wide variant (`step_wide`, `wide_layout`) takes what the tiled ones
-// cannot: inputs up to WIDE_D = 128 features (ant's 120), and the batches
-// and widths whose rows (2 B DP floats) and 16 warps' partials (16 (DP HP +
-// 2 HP)) pass a block's shared memory (width 128 at D = 15 or 24, batch
-// 1024). Its working set does not grow with the batch:
-//  - W~1 as (D4, HP + 1), D4 = D rounded up to 4, the odd row stride
-//    keeping the penalty's column reads (lanes over features) free of bank
-//    conflicts; b1, W2, w~2 and the spectral-norm vectors;
-//  - one chunk of RC = 32 rows at a time, read from global memory (the
-//    batch is a read-only input, L2-resident) into (RC, D4), formed as the
-//    tiled variants form them; its pre-activations Z = X W~1 (RC, HP), and
-//    for the penalty rows a = m * w~2, g = a W~1^T then c g (RC, D4), and
-//    q = (c g) W~1 (RC, HP).
-// Thread t owns unit j = t % HP in row group t / HP: it forms the chunk's
-// pre-activations of unit j (rows t / HP + GR i, D fmaf in feature order,
-// as the tiled variants), and owns the weight gradient of unit j at the
-// features t / HP + GR k (the DP x HP gradient split into 512 fixed tiles
-// of up to 32 entries, in registers), which it sums over the chunk's rows
-// in row order, chunk after chunk: the GEMMs X^T Delta of the loss rows
-// and (c g)^T a of the penalty rows, with no per-warp partials to combine.
-// A warp takes a chunk row's logit (a butterfly over the units) and its
-// squared |g|; the per-row loss terms are summed by lane r of warp 0 over
-// the chunks, then over the lanes.
+// The wide variant (`step_wide`, `wide_layout`) takes inputs up to WIDE_D =
+// 128 features (ant's 120) and widths up to 128 at any batch, on several
+// blocks. What bounds it at ant's largest shape (batch 1024, D 120, width
+// 128: ~0.28 GFLOP) is arithmetic: 0.56 ms at one SM's fp32 rate. So:
+//  - the rows (2B loss rows for BCE or B for Mixup, B penalty rows, B
+//    reward rows) are cut into wide_segments(B) = ceil(B / 32) (at most 16)
+//    segments, fixed by the shape; a block runs its segments, and the
+//    segments' partial sums (the weight gradients, b1's, w2's, b2's and the
+//    loss terms) are summed in segment order by the block whose slice of
+//    the entries holds them, the slices' shares of <G, W> likewise, so the
+//    bits follow the shape, not the blocks (`Ex`: a cluster's distributed
+//    shared memory in gail_update.cu, global scratch behind a barrier in
+//    kblock_update.cu). Each block computes sigma itself; the slices' owners
+//    run AdamW, and every block reads the new weights back for the power
+//    iteration (the same bits in each) and its segments' rewards;
+//  - a block streams its segments' rows through shared memory RC = 32 at a
+//    time, the next chunk landing by cp.async while this one is computed:
+//    W~1 as (DK, HP + 4), DK = D rounded up to 8; a chunk's rows (RC, XS),
+//    formed there (Mixup's and the penalty's mixed rows from the landed
+//    expert and policy rows); its pre-activations Z = X W~1, and for the
+//    penalty rows a = m * w~2, g = a W~1^T, then c g, and q = (c g) W~1;
+//  - those chunk products and the weight gradient's X^T dz and (c g)^T a
+//    run on the tensor cores, mma.sync m16n8k8 in 3xTF32 (each operand
+//    split into TF32 hi and lo parts; hi hi + hi lo + lo hi, fp32
+//    accumulation: about fp32's accuracy). A warp holds its tiles of the
+//    (D x HP) gradient in registers over the segment's chunks; the column
+//    sums of b1's and w2's gradients are each thread's over its rows, then
+//    the row groups in order; the per-row loss terms lane r of warp 0's.
 //
-// Phases, with barriers only between them: 0 state (and, tiled, the batch)
-// to shared memory, sigma; 1 loss rows; 2 penalty rows; 3 the weight
-// gradients (tiled: the warps' partials in warp order), through sigma,
-// AdamW; 4 one power iteration (v first, then u) on the updated weights; 5
-// the reward of the policy rows with the new parameters. The penalty's
+// Phases of a tiled step, with barriers only between them: 0 state and
+// batch to shared memory, sigma; 1 loss rows; 2 penalty rows; 3 the weight
+// gradients (the warps' partials in warp order), through sigma, AdamW; 4
+// one power iteration (v first, then u) on the updated weights; 5 the
+// reward of the policy rows with the new parameters. A wide step's: 0
+// state, sigma; 1 loss rows; 2 penalty rows; 3 the segments' partial sums
+// and the cross-block sums and dot products; 4 through sigma, AdamW; 5 the
+// new weights read back, power iteration; 6 reward rows. The penalty's
 // parameter gradient is derived by hand (ops/gail_update.py): per
 // interpolated row i, with a_i = m_i * w~2 and g_i = W~1 a_i, dP/dW~1 gets
 // c_i g_i a_i^T and dP/dw~2 gets c_i m_i * (W~1^T g_i), c_i = 2 gp g_w_i /
 // B; gradients then go through sigma = v^T W u with u and v held fixed.
 //
-// Full fp32. Every product that meets an add is written out as fmaf or
-// __fmul_rn, so no contraction is left to the compiler that could differ
-// between the kernels. Nothing is read through __ldg or
+// Full fp32 (the wide variant's chunk products 3xTF32). Every product that
+// meets an add is written out as fmaf, __fmul_rn or an mma, so no
+// contraction is left to the compiler that could differ between the
+// kernels. Nothing is read through __ldg or
 // `const __restrict__`: the state is updated in place.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -120,7 +135,7 @@ constexpr int RC = 32;       // rows of a chunk of the wide variant
 
 // The tiled variants: features padded to DP, units to 32 NU.
 __host__ __device__ inline int padded_features(int D) {
-  return D < 1 ? 0 : D <= 8 ? 8 : D <= 16 ? 16 : D <= 32 ? 32 : 0;
+  return D < 1 ? 0 : D <= 8 ? 8 : D <= 16 ? 16 : 0;
 }
 __host__ __device__ inline int unit_groups(int Hd) {
   return Hd < 1 ? 0 : Hd <= 32 ? 1 : Hd <= 64 ? 2 : Hd <= 128 ? 4 : 0;
@@ -165,43 +180,78 @@ __host__ __device__ inline Layout layout(int B, int DP, int HP) {
 }
 
 // Dynamic shared memory of the tiled variant of (D, Hd); 0 where none
-// takes it. A launch also needs it <= SMEM_LIMIT.
+// takes it (past 16 features, or 16 features at width 128: the wide variant
+// was faster at every such shape of iltpu's configurations, PERF.md §6).
+// A launch also needs it <= SMEM_LIMIT.
 __host__ __device__ inline size_t tiled_smem_bytes(int B, int D, int Hd) {
   const int dp = padded_features(D), nu = unit_groups(Hd);
-  if (B < 1 || !dp || !nu || dp * nu > 64) return 0;
+  if (B < 1 || !dp || !nu || dp * nu > 32) return 0;
   return sizeof(float) * (size_t)layout(B, dp, 32 * nu).total;
 }
 
-// The wide variant's offsets in floats; each 16-byte aligned.
+// The wide variant's offsets in floats; each 16-byte aligned. DK = D
+// rounded up to 8 (the products' depth over the features), DM = D rounded
+// up to 16 (the weight gradient's rows), XS = DM + 4 and WS = ZS = HP + 4
+// (row strides that spread a fragment's loads over the banks).
 struct WideLayout {
-  int wt, b1, w2, w2n, u1, v1, pv, pvn, pu, pun, pv2, scal, x, gq, z, am, q, rows, red, total;
+  int DK, DM, XS, WS, ZS;
+  int wt, b1, w2, w2n, u1, v1, pv, pvn, pu, pun, pv2, scal, rows, red, cs, dots;
+  int es[2], ps[2], gq, z, am, q;  // the chunk area
+  int part, total;
 };
 
 __host__ __device__ inline WideLayout wide_layout(int D, int HP) {
-  const int D4 = (D + 3) / 4 * 4;
   WideLayout L;
+  L.DK = (D + 7) / 8 * 8;
+  L.DM = (D + 15) / 16 * 16;
+  L.XS = L.DM + 4;
+  L.WS = L.ZS = HP + 4;
   int o = 0;
-  L.wt = take(o, D4 * (HP + 1));  // W~1 (raw W1 after AdamW), rows of stride HP + 1
+  L.wt = take(o, L.DK * L.WS);  // W~1 (raw W1 after AdamW), rows >= D zero
   L.b1 = take(o, HP);
   L.w2 = take(o, HP);       // raw W2
   L.w2n = take(o, HP);      // w~2 = W2 / sigma2
   L.u1 = take(o, HP);
-  L.v1 = take(o, D4);
-  L.pv = take(o, D4);       // the power iteration's, as the tiled layout's
-  L.pvn = take(o, D4);
+  L.v1 = take(o, L.DK);
+  L.pv = take(o, L.DK);     // the power iteration's, as the tiled layout's
+  L.pvn = take(o, L.DK);
   L.pu = take(o, HP);
   L.pun = take(o, HP);
   L.pv2 = take(o, HP);
   L.scal = take(o, 4);      // new b2, old u2, new u2
-  L.x = take(o, RC * D4);   // a chunk's rows
-  L.gq = take(o, RC * D4);  // the penalty rows' g, then c g
-  L.z = take(o, RC * HP);   // the chunk's pre-activations
-  L.am = take(o, RC * HP);  // the penalty rows' a = m * w~2
-  L.q = take(o, RC * HP);   // the penalty rows' (c g) W~1
-  L.rows = take(o, 4 * RC); // a chunk's d loss / d logit and its loss, entropy, penalty terms
+  L.rows = take(o, 4 * RC); // a chunk's loss, entropy, d loss / d logit, penalty terms
   L.red = take(o, 2 * WARPS);
+  L.cs = take(o, 2 * THREADS);  // the threads' column sums of b1's and w2's gradients
+  L.dots = take(o, 2);      // this block's slice of <G, W1> and <G, W2>
+  const int chunk = RC * L.XS;
+  L.part = o;               // a segment's partial sums (wide_partial_floats) reuse the chunk area
+  for (int s = 0; s < 2; ++s) {
+    L.es[s] = take(o, chunk);  // the expert rows landing, then the chunk's rows
+    L.ps[s] = take(o, chunk);  // the policy rows landing (mixed rows)
+  }
+  L.gq = take(o, chunk);    // the penalty rows' g, then c g
+  L.z = take(o, RC * L.ZS); // the chunk's pre-activations
+  L.am = take(o, RC * L.ZS);  // the penalty rows' a = m * w~2
+  L.q = take(o, RC * L.ZS);   // the penalty rows' masked (c g) W~1
   L.total = o;
   return L;
+}
+
+// A segment's partial sums: the W1 gradient (D, Hd), b1's and W2's (Hd
+// each), b2's, then the loss, entropy and penalty terms; the first
+// wide_entries of them are the parameters' gradient.
+__host__ __device__ inline int wide_entries(int D, int Hd) { return D * Hd + 2 * Hd + 1; }
+__host__ __device__ inline int wide_partial_floats(int D, int Hd) {
+  return (wide_entries(D, Hd) + 3 + 3) / 4 * 4;
+}
+
+// The row segments of a wide step, set by the batch alone: one a chunk of
+// RC policy rows, at most MAX_SEGMENTS. The bits of a step follow them, not
+// the blocks that run it.
+constexpr int MAX_SEGMENTS = 16;
+__host__ __device__ inline int wide_segments(int B) {
+  const int s = (B + RC - 1) / RC;
+  return s < 1 ? 1 : s > MAX_SEGMENTS ? MAX_SEGMENTS : s;
 }
 
 // Dynamic shared memory of the wide variant; 0 past WIDE_D features or
@@ -209,13 +259,20 @@ __host__ __device__ inline WideLayout wide_layout(int D, int HP) {
 __host__ __device__ inline size_t wide_smem_bytes(int D, int Hd) {
   const int nu = unit_groups(Hd);
   if (D < 1 || D > WIDE_D || !nu) return 0;
-  return sizeof(float) * (size_t)wide_layout(D, 32 * nu).total;
+  const WideLayout L = wide_layout(D, 32 * nu);
+  if (L.part + wide_partial_floats(D, Hd) > L.total) return 0;
+  return sizeof(float) * (size_t)L.total;
 }
 
-// The route: the wide variant takes every shape that no tiled variant fits.
+// The route, from both variants timed in turns on an H100 at every shape
+// of iltpu's configurations (PERF.md §6): a tiled variant where it fits
+// and won both turns, at inputs of up to 8 features and batches up to 256,
+// or up to 16 features (widths up to 64) at batches up to 128; the wide
+// variant at every other shape.
 __host__ __device__ inline bool routes_wide(int B, int D, int Hd) {
   const size_t tiled = tiled_smem_bytes(B, D, Hd);
-  return tiled == 0 || tiled > SMEM_LIMIT;
+  if (tiled == 0 || tiled > SMEM_LIMIT) return true;
+  return !(B <= 256 && (padded_features(D) == 8 || B <= 128));
 }
 
 // Dynamic shared memory of a step of the given variant, or of the routed
@@ -299,31 +356,19 @@ __device__ __forceinline__ int transposed_index(int lane) {
   return d;
 }
 
-// The lane's columns of W~1 (units lane + 32 u): in registers where
-// DP NU <= 32, else read from shared memory (offset s), where lanes read
-// consecutive words.
+// The lane's columns of W~1 (units lane + 32 u), in registers.
 template <int DP, int NU>
 struct Cols {
   static constexpr int HP = 32 * NU;
-  static constexpr bool REG = DP * NU <= 32;
-  float r[REG ? DP : 1][NU];
-  int s;
+  static_assert(DP * NU <= 32, "the tiled variants hold DP NU <= 32 columns a lane");
+  float r[DP][NU];
   __device__ __forceinline__ void load(int wt, int lane) {
-    s = wt + lane;
-    if constexpr (REG) {
 #pragma unroll
-      for (int d = 0; d < DP; ++d)
+    for (int d = 0; d < DP; ++d)
 #pragma unroll
-        for (int u = 0; u < NU; ++u) r[d][u] = gsm[s + d * HP + 32 * u];
-    }
+      for (int u = 0; u < NU; ++u) r[d][u] = gsm[wt + lane + d * HP + 32 * u];
   }
-  __device__ __forceinline__ float operator()(int d, int u) const {
-    if constexpr (REG) {
-      return r[d][u];
-    } else {
-      return gsm[s + d * HP + 32 * u];
-    }
-  }
+  __device__ __forceinline__ float operator()(int d, int u) const { return r[d][u]; }
 };
 
 // A row in shared memory, by offsets (16-byte aligned): a, or for MIXED
@@ -458,13 +503,13 @@ __device__ __forceinline__ float reward_of(float f, int reward_fn) {
 
 // One power iteration on the updated weights (raw W1 in shared memory,
 // rows of stride WS; W2 raw), from the old u: v first, then u. Writes the
-// new vectors to the state and to shared memory, leaves W~1 = W1 / sigma1
-// in place of W1, and returns the new sigmas.
+// new vectors to shared memory and, with `write`, to the state; leaves W~1
+// = W1 / sigma1 in place of W1, and returns the new sigmas.
 template <int NU, int WS>
 __device__ __forceinline__ void power_iteration(const Args& g, int D, int DP, float* wt, float* u1s,
                                                 float* pv, float* pvn, float* pu, float* pun,
                                                 float* w2s, float* pv2, float* scal, float& s1n,
-                                                float& s2n) {
+                                                float& s2n, bool write = true) {
   constexpr int HP = 32 * NU;
   const int Hd = g.Hd, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int d = warp; d < D; d += WARPS) {
@@ -481,7 +526,7 @@ __device__ __forceinline__ void power_iteration(const Args& g, int D, int DP, fl
   if (tid < DP) {
     const float vd = tid < D ? pv[tid] / nv : 0.f;
     pvn[tid] = vd;
-    if (tid < D) g.v1[tid] = vd;
+    if (write && tid < D) g.v1[tid] = vd;
   }
   if (tid < HP) {
     float a = 0.f;
@@ -496,7 +541,7 @@ __device__ __forceinline__ void power_iteration(const Args& g, int D, int DP, fl
   if (tid < HP) {
     const float uj = pu[tid] / nu;
     pun[tid] = uj;
-    if (tid < Hd) g.u1[tid] = uj;
+    if (write && tid < Hd) g.u1[tid] = uj;
   }
   // layer 2: W2 (Hd, 1), u2 (1,)
   const float u2 = scal[1];
@@ -518,10 +563,10 @@ __device__ __forceinline__ void power_iteration(const Args& g, int D, int DP, fl
   if (tid < HP) {
     const float vj = __fmul_rn(w2s[tid], u2) / n2;
     pv2[tid] = vj;
-    if (tid < Hd) g.v2[tid] = vj;
+    if (write && tid < Hd) g.v2[tid] = vj;
   }
   if (tid == 0) {
-    g.u2[0] = u2n;
+    if (write) g.u2[0] = u2n;
     scal[2] = u2n;
   }
   __syncthreads();
@@ -854,28 +899,168 @@ __device__ __noinline__ void step_t(const Args& g, const Mark& mark) {
 
 // ---- the wide variant --------------------------------------------------
 // One step of inputs up to WIDE_D features and width HP = 32 NU, at any
-// batch: the rows stream through shared memory RC at a time (header).
-template <int NU, class Mark>
-__device__ __noinline__ void step_wide(const Args& g, const Mark& mark) {
-  constexpr int HP = 32 * NU, WS = HP + 1;
+// batch, over the blocks an exchange `Ex` names (header): each block runs
+// its row segments, then every block takes part in the segments' sum.
+
+// A float rounded to TF32 (to nearest, ties away), in a 32-bit register.
+__device__ __forceinline__ unsigned tf32_bits(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, each TF32; x - hi - lo is within 2^-22 |x|.
+template <int N>
+__device__ __forceinline__ void split_tf32(const float (&x)[N], unsigned (&hi)[N], unsigned (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    hi[i] = tf32_bits(x[i]);
+    lo[i] = tf32_bits(__fsub_rn(x[i], __uint_as_float(hi[i])));
+  }
+}
+
+// d += a b over one 16 x 8 x 8 tile on the tensor cores, fp32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32: the two cross terms, then hi hi (lo lo, within 2^-22
+// of a b, is dropped), so a product keeps about fp32's accuracy.
+__device__ __forceinline__ void mma3(float (&d)[4], const unsigned (&ah)[4], const unsigned (&al)[4],
+                                     const unsigned (&bh)[2], const unsigned (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// The A fragment of the 16 x 8 tile at (m0, k0) of A(m, k) = gsm[a + m sm +
+// k sk]: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4), with g
+// = lane / 4, t = lane % 4 (mma.m16n8k8's layout).
+__device__ __forceinline__ void frag_a(float (&f)[4], int a, int sm, int sk, int m0, int k0, int lane) {
+  const int o = a + (m0 + (lane >> 2)) * sm + (k0 + (lane & 3)) * sk;
+  f[0] = gsm[o];
+  f[1] = gsm[o + 8 * sm];
+  f[2] = gsm[o + 4 * sk];
+  f[3] = gsm[o + 8 * sm + 4 * sk];
+}
+
+// The B fragment of the 8 x 8 tile at (k0, n0) of B(k, n) = gsm[b + k sk +
+// n sn]: b0 (t, g), b1 (t + 4, g).
+__device__ __forceinline__ void frag_b(float (&f)[2], int b, int sk, int sn, int k0, int n0, int lane) {
+  const int o = b + (k0 + (lane & 3)) * sk + (n0 + (lane >> 2)) * sn;
+  f[0] = gsm[o];
+  f[1] = gsm[o + 4 * sk];
+}
+
+// C = A B over a chunk: C (RC x N), A (RC x K) at offset a (strides a_m,
+// a_k), B (K x N) at b (strides b_k, b_n), K and N multiples of 8, in
+// 3xTF32. Warp w takes the output tiles w and w + WARPS of the 2 N / 8,
+// both in one pass over k, and hands each element to out(row, col, value).
+template <class Out>
+__device__ __forceinline__ void chunk_product(int a, int a_m, int a_k, int b, int b_k, int b_n, int K,
+                                              int N, const Out& out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nt = N / 8, tiles = 2 * nt;
+  if (warp >= tiles) return;  // the warp's tiles, warp-uniform
+  bool on[2];
+  int m0[2], n0[2];
+  float d[2][4] = {};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = warp + WARPS * i;
+    on[i] = t < tiles;
+    m0[i] = 16 * (t / nt);
+    n0[i] = 8 * (t % nt);
+  }
+  for (int k0 = 0; k0 < K; k0 += 8) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!on[i]) continue;
+      float fa[4], fb[2];
+      unsigned ah[4], al[4], bh[2], bl[2];
+      frag_a(fa, a, a_m, a_k, m0[i], k0, lane);
+      frag_b(fb, b, b_k, b_n, k0, n0[i], lane);
+      split_tf32(fa, ah, al);
+      split_tf32(fb, bh, bl);
+      mma3(d[i], ah, al, bh, bl);
+    }
+  }
+  const int g = lane >> 2, c = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!on[i]) continue;
+    out(m0[i] + g, n0[i] + c, d[i][0]);
+    out(m0[i] + g, n0[i] + c + 1, d[i][1]);
+    out(m0[i] + g + 8, n0[i] + c, d[i][2]);
+    out(m0[i] + g + 8, n0[i] + c + 1, d[i][3]);
+  }
+}
+
+// acc += A^T B over a chunk's RC rows, in 3xTF32: A (RC x DM) at offset a,
+// rows of stride xs; B (RC x HP) at b, rows of stride zs. The warp's tiles
+// of the (DM x HP) gradient are w + WARPS i (i < 2 NU) over 4 NU column
+// tiles, all in column tile w mod 4 NU, so one B fragment serves them at a
+// step of k; a tile past the mtiles row tiles is skipped.
+template <int NU>
+__device__ __forceinline__ void grad_product(float (&acc)[2 * NU][4], int a, int xs, int b, int zs,
+                                             int mtiles) {
+  constexpr int NT = 4 * NU;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n0 = 8 * (warp % NT);
+#pragma unroll
+  for (int k0 = 0; k0 < RC; k0 += 8) {
+    float fb[2];
+    unsigned bh[2], bl[2];
+    frag_b(fb, b, zs, 1, k0, n0, lane);
+    split_tf32(fb, bh, bl);
+#pragma unroll
+    for (int i = 0; i < 2 * NU; ++i) {
+      const int mt = (warp + WARPS * i) / NT;
+      if (mt >= mtiles) continue;  // warp-uniform
+      float fa[4];
+      unsigned ah[4], al[4];
+      frag_a(fa, a, 1, xs, 16 * mt, k0, lane);  // A^T(d, r) = A(r, d)
+      split_tf32(fa, ah, al);
+      mma3(acc[i], ah, al, bh, bl);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async4(int dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(gsm + dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// The slice of the nR reduced entries that segment s's block sums.
+__device__ __forceinline__ int slice_start(int s, int nR, int NS) { return (int)((ll)s * nR / NS); }
+
+template <int NU, class Ex, class Mark>
+__device__ __noinline__ void step_wide(const Args& g, const Ex ex, const Mark& mark) {
+  constexpr int HP = 32 * NU, WS = HP + 4;
   constexpr int GR = THREADS / HP;  // row groups: the threads of one unit
-  constexpr int RPT = RC / GR;      // chunk rows whose pre-activations a thread forms
-  constexpr int NK = WIDE_D / GR;   // weight-gradient entries a thread owns, at most
+  constexpr int RPT = RC / GR;      // chunk rows a thread takes in a column pass
   static_assert(RC == 32 && RC % GR == 0, "warp 0's lanes sum a chunk's rows");
   const int S = g.S, A = g.A, D = S + A, Hd = g.Hd, B = g.B, bce = g.bce, sn = g.sn;
-  const int D4 = (D + 3) / 4 * 4;
   const float gp = g.gp, ent = g.ent;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int j = tid % HP, grp = tid / HP;  // the thread's unit and row group
+  const int j = tid % HP, grp = tid / HP;  // the thread's unit and row group in column passes
   const WideLayout L = wide_layout(D, HP);
+  const int DK = L.DK, XS = L.XS, ZS = L.ZS, mtiles = L.DM / 16;
+  const int NS = wide_segments(B), nW = D * Hd, nE = wide_entries(D, Hd), nR = nE + 3;
   float *wt = gsm + L.wt, *b1s = gsm + L.b1, *w2s = gsm + L.w2, *w2n = gsm + L.w2n;
   float *u1s = gsm + L.u1, *v1s = gsm + L.v1, *pv2 = gsm + L.pv2, *scal = gsm + L.scal;
-  float *xs = gsm + L.x, *gq = gsm + L.gq, *zs = gsm + L.z, *ams = gsm + L.am, *qs = gsm + L.q;
-  float *dls = gsm + L.rows, *rl = dls + RC, *re = rl + RC, *rp = re + RC;
+  float *gq = gsm + L.gq, *zs = gsm + L.z, *ams = gsm + L.am, *qs = gsm + L.q, *cs = gsm + L.cs;
+  float *rl = gsm + L.rows, *re = rl + RC, *dls = re + RC, *rp = dls + RC;
   const float *e_s = g.e_s, *e_a = g.e_a, *p_s = g.p_s, *p_a = g.p_a;
 
   // ---- 0. state to shared memory (zero padded); sigma ---------------------
-  for (int e = tid; e < D4 * WS; e += THREADS) {
+  for (int e = tid; e < DK * WS; e += THREADS) {
     const int d = e / WS, c = e % WS;
     wt[e] = d < D && c < Hd ? g.W1[d * Hd + c] : 0.f;
   }
@@ -886,7 +1071,7 @@ __device__ __noinline__ void step_wide(const Args& g, const Mark& mark) {
     u1s[c] = in && sn ? g.u1[c] : 0.f;
     pv2[c] = in && sn ? g.v2[c] : 0.f;
   }
-  for (int d = tid; d < D4; d += THREADS) v1s[d] = d < D && sn ? g.v1[d] : 0.f;
+  for (int d = tid; d < DK; d += THREADS) v1s[d] = d < D && sn ? g.v1[d] : 0.f;
   if (tid == 0) scal[1] = sn ? g.u2[0] : 0.f;
   __syncthreads();
   float s1 = 1.f, s2 = 1.f;
@@ -894,51 +1079,73 @@ __device__ __noinline__ void step_wide(const Args& g, const Mark& mark) {
     s1 = sigma1<NU, WS>(wt, u1s, v1s, D, lane);
     s2 = sigma2<NU>(w2s, pv2, scal[1], lane);
     __syncthreads();  // every warp has read the raw W1
-    for (int e = tid; e < D4 * WS; e += THREADS) wt[e] = wt[e] / s1;
+    for (int e = tid; e < DK * WS; e += THREADS) wt[e] = wt[e] / s1;
   }
-  float b1j = b1s[j], w2j = w2s[j] / s2;
   if (tid < HP) w2n[tid] = w2s[tid] / s2;
   const float b2 = g.b2[0];
+  __syncthreads();
+  float b1j = b1s[j], w2j = w2n[j];
   mark(0);
 
-  // A chunk's rows r0 .. r0 + n - 1 into xs as (RC, D4), zero padded;
-  // row(i, d) gives feature d < D of row i.
-  auto load = [&](auto row, int r0, int n) {
-    __syncthreads();  // the last chunk's rows are read
-    for (int e = tid; e < RC * D4; e += THREADS) {
-      const int r = e / D4, d = e % D4;
-      xs[e] = r < n && d < D ? row(r0 + r, d) : 0.f;
+  // Rows r0 .. r0 + n - 1 of a chunk into stage st, zero padded to RC x XS,
+  // by cp.async (a warp a row, lanes over the features): kind 0 row i of
+  // e | p (BCE's loss rows) into es; 1 expert row i into es and policy row i
+  // into ps (mixed rows); 2 policy row i into es (reward rows).
+  auto land = [&](int kind, int r0, int n, int st) {
+    const int E = L.es[st], P = L.ps[st];
+    for (int r = warp; r < RC; r += WARPS) {
+      const int i = r0 + r;
+      const bool in = r < n;
+      const bool pol = kind == 2 || (kind == 0 && i >= B);
+      const int ii = kind == 0 && i >= B ? i - B : i;
+      const float* xs_ = in ? (pol ? p_s : e_s) + (ll)ii * S : nullptr;
+      const float* xa_ = in ? (pol ? p_a : e_a) + (ll)ii * A : nullptr;
+      for (int d = lane; d < XS; d += 32) {
+        if (in && d < D) {
+          cp_async4(E + r * XS + d, d < S ? xs_ + d : xa_ + (d - S));
+          if (kind == 1) cp_async4(P + r * XS + d, d < S ? p_s + (ll)i * S + d : p_a + (ll)i * A + (d - S));
+        } else {
+          gsm[E + r * XS + d] = 0.f;
+          if (kind == 1) gsm[P + r * XS + d] = 0.f;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // es[st] = coef e + (1 - coef) p over the chunk's rows (rows past n stay 0).
+  auto mix_rows = [&](int st, int r0, int n, const float* coef) {
+    const int E = L.es[st], P = L.ps[st];
+    for (int r = warp; r < n; r += WARPS) {
+      const float c = coef[r0 + r];
+      for (int d = lane; d < D; d += 32)
+        gsm[E + r * XS + d] = mixf(c, gsm[E + r * XS + d], gsm[P + r * XS + d]);
     }
     __syncthreads();
   };
-  auto expert = [&](int i, int d) { return d < S ? e_s[(ll)i * S + d] : e_a[(ll)i * A + d - S]; };
-  auto policy = [&](int i, int d) { return d < S ? p_s[(ll)i * S + d] : p_a[(ll)i * A + d - S]; };
-  // out[r][j] = sum_d in[r][d] W~1[d][j] over the chunk (in: gsm offset,
-  // rows of D4; summed in feature order from 0, as pre_activation); with
-  // AM also the penalty's a = (z + b1 > 0) * w~2.
-  auto forward = [&](int in, int out, auto am) {
-    constexpr bool AM = decltype(am)::value;
-    float z[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) z[i] = 0.f;
-    for (int c = 0; c < D4; c += 4) {
-      const float w0 = wt[c * WS + j], w1 = wt[(c + 1) * WS + j];
-      const float w2 = wt[(c + 2) * WS + j], w3 = wt[(c + 3) * WS + j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float4 x = reinterpret_cast<const float4*>(gsm + in + (grp + GR * i) * D4)[c >> 2];
-        z[i] = fmaf(x.x, w0, z[i]);
-        z[i] = fmaf(x.y, w1, z[i]);
-        z[i] = fmaf(x.z, w2, z[i]);
-        z[i] = fmaf(x.w, w3, z[i]);
+  // chunks 0 .. N - 1, the next one landing while this one is computed:
+  // land(c, stage), then compute(c, stage) once its rows are in.
+  auto pipeline = [&](int N, const auto& issue, const auto& compute) {
+    if (N == 0) return;
+    issue(0, 0);
+    for (int c = 0; c < N; ++c) {
+      __syncthreads();  // the other stage's last chunk is read
+      if (c + 1 < N) {
+        issue(c + 1, (c + 1) & 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
+      __syncthreads();  // chunk c has landed
+      compute(c, c & 1);
     }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = grp + GR * i;
-      gsm[out + r * HP + j] = z[i];
-      if constexpr (AM) ams[r * HP + j] = z[i] + b1j > 0.f ? w2j : 0.f;
-    }
+  };
+  // zs = X W~1 over a chunk at es[st]; with AM also the penalty's a = (z +
+  // b1 > 0) * w~2.
+  auto forward = [&](int st, bool am) {
+    chunk_product(L.es[st], XS, 1, L.wt, WS, 1, DK, HP, [&](int r, int c, float v) {
+      zs[r * ZS + c] = v;
+      if (am) ams[r * ZS + c] = v + b1s[c] > 0.f ? w2n[c] : 0.f;
+    });
     __syncthreads();
   };
   // The logit less b2 of chunk row r, the same bits in every lane (logit).
@@ -947,199 +1154,309 @@ __device__ __noinline__ void step_wide(const Args& g, const Mark& mark) {
 #pragma unroll
     for (int u = 0; u < NU; ++u) {
       const int c = lane + 32 * u;
-      f = fmaf(fmaxf(zs[r * HP + c] + b1s[c], 0.f), w2n[c], f);
+      f = fmaf(fmaxf(zs[r * ZS + c] + b1s[c], 0.f), w2n[c], f);
     }
     return warp_sum(f);
   };
 
-  // The thread's weight gradients (unit j, features grp + GR k) and, in
-  // row group 0, those of b1_j and w2_j; lane r of warp 0 sums chunk row
-  // r's loss terms and b2's gradient.
-  float gW[NK], gb1 = 0.f, gw2 = 0.f;
+  // ---- 1, 2. each segment's loss and penalty rows, into its partial sums ---
+  for (int s = ex.first(); s < ex.last(); ++s) {
+    const int R = bce ? 2 * B : B;
+    const int l0 = (int)((ll)s * R / NS), l1 = (int)((ll)(s + 1) * R / NS);
+    const int p0 = (int)((ll)s * B / NS), p1 = (int)((ll)(s + 1) * B / NS);
+    const int nl = (l1 - l0 + RC - 1) / RC, np = gp > 0.f ? (p1 - p0 + RC - 1) / RC : 0;
+    // the warp's tiles of the weight gradient (unit columns, feature rows);
+    // the thread's column sums of b1's and w2's gradients over its rows;
+    // lane r of warp 0's sums of chunk row r's loss terms and b2's gradient
+    float acc[2 * NU][4] = {};
+    float gb1 = 0.f, gw2 = 0.f, lacc = 0.f, eacc = 0.f, pacc = 0.f, gb2 = 0.f;
+    auto issue = [&](int c, int st) {
+      if (c < nl) land(bce ? 0 : 1, l0 + RC * c, min(RC, l1 - l0 - RC * c), st);
+      else land(1, p0 + RC * (c - nl), min(RC, p1 - p0 - RC * (c - nl)), st);
+    };
+    auto compute = [&](int c, int st) {
+      const int X = L.es[st];
+      if (c < nl) {  // loss rows: BCE's e | p, Mixup's mix e + (1 - mix) p
+        const int r0 = l0 + RC * c, n = min(RC, l1 - r0);
+        if (!bce) mix_rows(st, r0, n, g.mix);
+        forward(st, false);
+        for (int r = warp; r < RC; r += WARPS) {
+          const float f = logit_of(r);
+          if (lane == 0) {
+            RowLoss o = {0.f, 0.f, 0.f};
+            if (r < n) o = row_loss(!bce, r0 + r, B, g.e_w, g.p_w, g.mix, f + b2, ent);
+            rl[r] = o.loss;
+            re[r] = o.ent;
+            dls[r] = o.dl;
+          }
+        }
+        __syncthreads();
 #pragma unroll
-  for (int k = 0; k < NK; ++k) gW[k] = 0.f;
-  float lacc = 0.f, eacc = 0.f, pacc = 0.f, gb2 = 0.f;
+        for (int i = 0; i < RPT; ++i) {  // dz in place of z
+          const int r = grp + GR * i;
+          const float h = fmaxf(zs[r * ZS + j] + b1j, 0.f), dl = dls[r];
+          const float dz = h > 0.f ? __fmul_rn(dl, w2j) : 0.f;
+          zs[r * ZS + j] = dz;
+          gb1 += dz;
+          gw2 = fmaf(h, dl, gw2);
+        }
+        if (tid < n) {
+          lacc += rl[tid];
+          eacc += re[tid];
+          gb2 += dls[tid];
+        }
+        __syncthreads();
+        grad_product<NU>(acc, X, XS, L.z, ZS, mtiles);  // X^T dz
+      } else {  // penalty rows: a = m * w~2, g = a W~1^T, q = m * ((c g) W~1)
+        if (c == nl) mark(1);
+        const int r0 = p0 + RC * (c - nl), n = min(RC, p1 - r0);
+        mix_rows(st, r0, n, g.eps_gp);
+        forward(st, true);
+        chunk_product(L.am, ZS, 1, L.wt, 1, WS, HP, DK,
+                      [&](int r, int d, float v) { gq[r * XS + d] = v; });
+        __syncthreads();
+        for (int r = warp; r < RC; r += WARPS) {  // |g|^2, then g -> c g
+          float gwi = 0.f, cr = 0.f;
+          if (r < n) {
+            const int i = r0 + r;
+            gwi = mixf(g.eps_gp[i], g.e_w[i], g.p_w[i]);
+            cr = __fmul_rn(2.f * gp, gwi) / (float)B;
+          }
+          float sq = 0.f;
+          for (int d = lane; d < D; d += 32) sq = fmaf(gq[r * XS + d], gq[r * XS + d], sq);
+          sq = warp_sum(sq);
+          for (int d = lane; d < DK; d += 32) gq[r * XS + d] = __fmul_rn(cr, gq[r * XS + d]);
+          if (lane == 0) rp[r] = __fmul_rn(gwi, sq);
+        }
+        __syncthreads();
+        chunk_product(L.gq, XS, 1, L.wt, WS, 1, DK, HP, [&](int r, int cc, float v) {
+          qs[r * ZS + cc] = zs[r * ZS + cc] + b1s[cc] > 0.f ? v : 0.f;
+        });
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) gw2 += qs[(grp + GR * i) * ZS + j];
+        if (tid < n) pacc += rp[tid];
+        grad_product<NU>(acc, L.gq, XS, L.am, ZS, mtiles);  // (c g)^T a
+      }
+    };
+    pipeline(nl + np, issue, compute);
+    if (np == 0) mark(1);
+    mark(2);
 
-  // ---- 1. loss rows: forward, loss, d loss / d logit, backward ----------
-  // BCE's rows are e | p; Mixup's mix e + (1 - mix) p.
-  const int R = bce ? 2 * B : B;
-  for (int r0 = 0; r0 < R; r0 += RC) {
-    const int n = min(RC, R - r0);
-    if (bce) {
-      load([&](int i, int d) { return i < B ? expert(i, d) : policy(i - B, d); }, r0, n);
-    } else {
-      load([&](int i, int d) { return mixf(g.mix[i], expert(i, d), policy(i, d)); }, r0, n);
+    // the segment's partial sums (the chunk area is free)
+    __syncthreads();
+    float* P = ex.out(s);
+    {
+      const int g8 = lane >> 2, c2 = 2 * (lane & 3), n0 = 8 * (warp % (4 * NU));
+#pragma unroll
+      for (int i = 0; i < 2 * NU; ++i) {
+        const int mt = (warp + WARPS * i) / (4 * NU);
+        if (mt >= mtiles) continue;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int d = 16 * mt + g8 + (q >> 1) * 8, c = n0 + c2 + (q & 1);
+          if (d < D && c < Hd) P[d * Hd + c] = acc[i][q];
+        }
+      }
     }
-    forward(L.x, L.z, Flag<false>{});
-    for (int r = warp; r < n; r += WARPS) {
-      const float f = logit_of(r);
+    cs[grp * HP + j] = gb1;
+    cs[THREADS + grp * HP + j] = gw2;
+    if (warp == 0) {
+      lacc = warp_sum(lacc);
+      eacc = warp_sum(eacc);
+      pacc = warp_sum(pacc);
+      gb2 = warp_sum(gb2);
       if (lane == 0) {
-        const RowLoss o = row_loss(!bce, r0 + r, B, g.e_w, g.p_w, g.mix, f + b2, ent);
-        rl[r] = o.loss;
-        re[r] = o.ent;
-        dls[r] = o.dl;
+        P[nE - 1] = gb2;
+        P[nE] = lacc;
+        P[nE + 1] = eacc;
+        P[nE + 2] = pacc;
       }
     }
     __syncthreads();
-    for (int r = 0; r < n; ++r) {
-      const float h = fmaxf(zs[r * HP + j] + b1j, 0.f), d = dls[r];
-      const float dz = h > 0.f ? __fmul_rn(d, w2j) : 0.f;
-      gb1 += dz;
-      gw2 = fmaf(h, d, gw2);
-      const float* x = xs + r * D4;
+    if (tid < Hd) {  // the row groups in order
+      float a = 0.f, b = 0.f;
 #pragma unroll
-      for (int k = 0; k < NK; ++k)
-        if (grp + GR * k < D) gW[k] = fmaf(x[grp + GR * k], dz, gW[k]);
-    }
-    if (tid < n) {
-      lacc += rl[tid];
-      eacc += re[tid];
-      gb2 += dls[tid];
+      for (int q = 0; q < GR; ++q) {
+        a += cs[q * HP + tid];
+        b += cs[THREADS + q * HP + tid];
+      }
+      P[nW + tid] = a;
+      P[nW + Hd + tid] = b;
     }
   }
-  mark(1);
+  ex.sync();  // every segment's partial sums are written
 
-  // ---- 2. penalty rows: a = m * w~2, g = W~1 a, q = m * (W~1^T c g) -----
-  if (gp > 0.f) {
-    const int DG = (D + 31) / 32 * 32;  // a warp's 32 outputs share a row
-    for (int r0 = 0; r0 < B; r0 += RC) {
-      const int n = min(RC, B - r0);
-      load([&](int i, int d) { return mixf(g.eps_gp[i], expert(i, d), policy(i, d)); }, r0, n);
-      forward(L.x, L.z, Flag<true>{});
-      for (int o = tid; o < RC * DG; o += THREADS) {  // g = a W~1^T, summed in unit order
-        const int r = o / DG, d = o % DG;
-        if (d < D4) {
-          float acc = 0.f;
-          if (d < D) {
-#pragma unroll 4
-            for (int c = 0; c < HP; ++c) acc = fmaf(wt[d * WS + c], ams[r * HP + c], acc);
-          }
-          gq[r * D4 + d] = acc;
-        }
+  // ---- 3. the sums over the segments, in segment order; <G, W> ------------
+  // Entry e's sum is taken by the block of the slice holding it, which
+  // leaves it in place of its own segment's partial (no other block reads
+  // that entry of it); each slice's share of the dot products is a block
+  // sum, and the slices' shares are summed in slice order.
+  for (int s = ex.first(); s < ex.last(); ++s) {
+    float* P = ex.out(s);
+    float dot1 = 0.f, dot2 = 0.f;
+    for (int e = slice_start(s, nR, NS) + tid; e < slice_start(s + 1, nR, NS); e += THREADS) {
+      float G = 0.f;
+      for (int q = 0; q < NS; ++q) G += ex.get(q, e);
+      P[e] = G;
+      if (e < nW) {
+        dot1 += __fmul_rn(G, g.W1[e]);
+      } else if (e >= nW + Hd && e < nW + 2 * Hd) {
+        dot2 += __fmul_rn(G, g.W2[e - nW - Hd]);
       }
-      __syncthreads();
-      for (int r = warp; r < n; r += WARPS) {  // |g|^2, then g -> c g
-        const int i = r0 + r;
-        const float gwi = mixf(g.eps_gp[i], g.e_w[i], g.p_w[i]);
-        const float c = __fmul_rn(2.f * gp, gwi) / (float)B;
-        float sq = 0.f;
-        for (int d = lane; d < D; d += 32) sq = fmaf(gq[r * D4 + d], gq[r * D4 + d], sq);
-        sq = warp_sum(sq);
-        for (int d = lane; d < D; d += 32) gq[r * D4 + d] = __fmul_rn(c, gq[r * D4 + d]);
-        if (lane == 0) rp[r] = __fmul_rn(gwi, sq);
+    }
+    if (sn) {
+      block_sum2(dot1, dot2, gsm + L.red);
+      if (tid == 0) {
+        ex.dot_out(s)[0] = dot1;
+        ex.dot_out(s)[1] = dot2;
       }
-      __syncthreads();
-      forward(L.gq, L.q, Flag<false>{});
-      for (int r = 0; r < n; ++r) {
-        const float a = ams[r * HP + j];
-        gw2 += zs[r * HP + j] + b1j > 0.f ? qs[r * HP + j] : 0.f;
-        const float* G = gq + r * D4;
-#pragma unroll
-        for (int k = 0; k < NK; ++k)
-          if (grp + GR * k < D) gW[k] = fmaf(G[grp + GR * k], a, gW[k]);
-      }
-      if (tid < n) pacc += rp[tid];
+      __syncthreads();  // red is read before the next slice's sums
     }
   }
-  mark(2);
+  ex.sync();  // every entry's sum and every slice's dot products are in
+  mark(3);
 
-  // ---- 3. the sums, through sigma, AdamW ----------------------------------
-  float loss = 0.f;  // thread 0's
-  if (warp == 0) {
-    lacc = warp_sum(lacc);
-    eacc = warp_sum(eacc);
-    pacc = warp_sum(pacc);
-    gb2 = warp_sum(gb2);
-    loss = lacc / (float)B;
-    if (ent > 0.f) loss = __fsub_rn(loss, __fmul_rn(ent, eacc) / (float)B);
-    if (gp > 0.f) loss = __fadd_rn(loss, __fmul_rn(gp, pacc / (float)B));
-  }
-  const bool col = j < Hd, head = col && grp == 0;  // row group 0 owns b1_j, w2_j
-  float dot1 = 0.f, dot2 = 0.f;
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int d = grp + GR * k;
-    if (col && d < D) dot1 += __fmul_rn(gW[k], g.W1[d * Hd + j]);
-  }
-  if (head) dot2 = __fmul_rn(gw2, g.W2[j]);
-  __syncthreads();  // every thread has read the chunks (and W~1)
-  if (sn) block_sum2(dot1, dot2, gsm + L.red);
+  // ---- 4. through sigma, AdamW on the block's slices -----------------------
   // dL/dW = G / sigma - (<G, W> / sigma^2) v u^T, rounded as the plain
   // version's ops
+  float dot1 = 0.f, dot2 = 0.f;
+  if (sn)
+    for (int q = 0; q < NS; ++q) {
+      dot1 += ex.dot(q, 0);
+      dot2 += ex.dot(q, 1);
+    }
   const float t = g.t[0] + 1.f;
   const float bc1 = 1.f - expf(t * LOG_B1), bc2 = 1.f - expf(t * LOG_B2);
   const float c1 = dot1 / (s1 * s1), c2 = dot2 / (s2 * s2);
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int d = grp + GR * k;
-    if (col && d < D) {
-      const int o = d * Hd + j;
-      float gk = gW[k];
-      if (sn) gk = __fsub_rn(gk / s1, __fmul_rn(c1, __fmul_rn(v1s[d], u1s[j])));
-      wt[d * WS + j] = adamw(g.W1 + o, gk, g.m[0] + o, g.v[0] + o, bc1, bc2, g.lr, g.wd);
+  for (int s = ex.first(); s < ex.last(); ++s) {
+    const int e1 = min(slice_start(s + 1, nR, NS), nE);
+    for (int e = slice_start(s, nR, NS) + tid; e < e1; e += THREADS) {
+      float gk = ex.get(s, e);
+      if (e < nW) {
+        const int d = e / Hd, c = e % Hd;
+        if (sn) gk = __fsub_rn(gk / s1, __fmul_rn(c1, __fmul_rn(v1s[d], u1s[c])));
+        adamw(g.W1 + e, gk, g.m[0] + e, g.v[0] + e, bc1, bc2, g.lr, g.wd);
+      } else if (e < nW + Hd) {
+        const int c = e - nW;
+        adamw(g.b1 + c, gk, g.m[1] + c, g.v[1] + c, bc1, bc2, g.lr, g.wd);
+      } else if (e < nW + 2 * Hd) {
+        const int c = e - nW - Hd;
+        if (sn) gk = __fsub_rn(gk / s2, __fmul_rn(c2, __fmul_rn(pv2[c], scal[1])));
+        adamw(g.W2 + c, gk, g.m[2] + c, g.v[2] + c, bc1, bc2, g.lr, g.wd);
+      } else {
+        adamw(g.b2, gk, g.m[3], g.v[3], bc1, bc2, g.lr, g.wd);
+      }
     }
   }
-  if (head) {
-    b1s[j] = adamw(g.b1 + j, gb1, g.m[1] + j, g.v[1] + j, bc1, bc2, g.lr, g.wd);
-    float gk = gw2;
-    if (sn) gk = __fsub_rn(gk / s2, __fmul_rn(c2, __fmul_rn(pv2[j], scal[1])));
-    w2s[j] = adamw(g.W2 + j, gk, g.m[2] + j, g.v[2] + j, bc1, bc2, g.lr, g.wd);
+  float loss = 0.f;  // the lead block's thread 0's
+  if (ex.lead() && tid == 0) {
+    float terms[3];
+    for (int k = 0; k < 3; ++k) {  // the loss terms' sums, from the slices that hold them
+      int q = NS - 1;
+      while (slice_start(q, nR, NS) > nE + k) --q;
+      terms[k] = ex.get(q, nE + k);
+    }
+    loss = terms[0] / (float)B;
+    if (ent > 0.f) loss = __fsub_rn(loss, __fmul_rn(ent, terms[1]) / (float)B);
+    if (gp > 0.f) loss = __fadd_rn(loss, __fmul_rn(gp, terms[2] / (float)B));
   }
-  if (tid == 0) scal[0] = adamw(g.b2, gb2, g.m[3], g.v[3], bc1, bc2, g.lr, g.wd);
-  mark(3);
-  __syncthreads();  // the new weights are in shared memory
-
-  // ---- 4. power iteration on the updated weights: v first, then u -------
-  float s1n = 1.f, s2n = 1.f;
-  if (sn)
-    power_iteration<NU, WS>(g, D, D4, wt, u1s, gsm + L.pv, gsm + L.pvn, gsm + L.pu, gsm + L.pun,
-                            w2s, pv2, scal, s1n, s2n);
+  ex.sync();  // the new parameters are in the state, and nothing reads another block's shared memory
   mark(4);
 
-  // ---- 5. reward of the policy rows with the updated network ------------
-  b1j = b1s[j];
-  w2j = w2s[j] / s2n;
+  // ---- 5. the new weights (written by other blocks: L2 loads); power iteration
+  for (int e = tid; e < DK * WS; e += THREADS) {
+    const int d = e / WS, c = e % WS;
+    wt[e] = d < D && c < Hd ? __ldcg(g.W1 + d * Hd + c) : 0.f;
+  }
+  for (int c = tid; c < HP; c += THREADS) {
+    const bool in = c < Hd;
+    b1s[c] = in ? __ldcg(g.b1 + c) : 0.f;
+    w2s[c] = in ? __ldcg(g.W2 + c) : 0.f;
+  }
+  if (tid == 0) scal[0] = __ldcg(g.b2);
+  __syncthreads();
+  float s1n = 1.f, s2n = 1.f;
+  if (sn)
+    power_iteration<NU, WS>(g, D, DK, wt, u1s, gsm + L.pv, gsm + L.pvn, gsm + L.pu, gsm + L.pun, w2s,
+                            pv2, scal, s1n, s2n, ex.lead());
   if (tid < HP) w2n[tid] = w2s[tid] / s2n;
   const float nb2 = scal[0];
-  for (int r0 = 0; r0 < B; r0 += RC) {
-    const int n = min(RC, B - r0);
-    load(policy, r0, n);
-    forward(L.x, L.z, Flag<false>{});
-    for (int r = warp; r < n; r += WARPS) {
-      const float f = logit_of(r);
-      if (lane == 0) g.rewards_out[r0 + r] = reward_of(f + nb2, g.reward_fn);
-    }
+  __syncthreads();
+  b1j = b1s[j];
+  w2j = w2n[j];
+  mark(5);
+
+  // ---- 6. reward of the segments' policy rows with the updated network ----
+  for (int s = ex.first(); s < ex.last(); ++s) {
+    const int p0 = (int)((ll)s * B / NS), p1 = (int)((ll)(s + 1) * B / NS);
+    pipeline(
+        (p1 - p0 + RC - 1) / RC,
+        [&](int c, int st) { land(2, p0 + RC * c, min(RC, p1 - p0 - RC * c), st); },
+        [&](int c, int st) {
+          const int r0 = p0 + RC * c, n = min(RC, p1 - r0);
+          forward(st, false);
+          for (int r = warp; r < n; r += WARPS) {
+            const float f = logit_of(r);
+            if (lane == 0) g.rewards_out[r0 + r] = reward_of(f + nb2, g.reward_fn);
+          }
+        });
   }
-  if (tid == 0) {
+  if (ex.lead() && tid == 0) {
     g.loss_out[0] = loss;
     g.t[0] = t;
   }
-  mark(5);
+  mark(6);
 }
 
-// One step of the variant `g.wide` names for (D, Hd); a shape smem_bytes
-// refuses does nothing (the C entries refuse it before the launch).
+// The exchange of a step run by one thread-block cluster, one segment a
+// block: the partial sums and dot products in each block's shared memory,
+// read by the others through distributed shared memory.
+struct ClusterEx {
+  int rank, part, dots;  // the block's segment; offsets into gsm
+  __device__ int first() const { return rank; }
+  __device__ int last() const { return rank + 1; }
+  __device__ bool lead() const { return rank == 0; }
+  __device__ float* out(int) const { return gsm + part; }
+  __device__ float get(int s, int e) const {
+    return cooperative_groups::this_cluster().map_shared_rank(gsm + part, (unsigned)s)[e];
+  }
+  __device__ float* dot_out(int) const { return gsm + dots; }
+  __device__ float dot(int s, int i) const {
+    return cooperative_groups::this_cluster().map_shared_rank(gsm + dots, (unsigned)s)[i];
+  }
+  __device__ void sync() const { cooperative_groups::this_cluster().sync(); }
+};
+
+template <class Ex, class Mark>
+__device__ inline void step_wide_of(const Args& g, const Ex ex, const Mark& mark) {
+  switch (unit_groups(g.Hd)) {
+    case 1: step_wide<1>(g, ex, mark); break;
+    case 2: step_wide<2>(g, ex, mark); break;
+    case 4: step_wide<4>(g, ex, mark); break;
+    default: break;
+  }
+}
+
+// A wide step by the cluster of wide_segments(B) blocks that runs it.
+template <class Mark>
+__device__ inline void step_cluster(const Args& g, const Mark& mark) {
+  const WideLayout L = wide_layout(g.S + g.A, 32 * unit_groups(g.Hd));
+  const ClusterEx ex{(int)cooperative_groups::this_cluster().block_rank(), L.part, L.dots};
+  step_wide_of(g, ex, mark);
+}
+
+// One step of the tiled variant of (D, Hd) by one block; a shape it cannot
+// take does nothing (the C entries refuse it before the launch).
 template <class Mark>
 __device__ inline void step(const Args& g, const Mark& mark) {
   const int dp = padded_features(g.S + g.A), nu = unit_groups(g.Hd);
-  if (g.wide) {
-    switch (nu) {
-      case 1: step_wide<1>(g, mark); break;
-      case 2: step_wide<2>(g, mark); break;
-      case 4: step_wide<4>(g, mark); break;
-      default: break;
-    }
-    return;
-  }
   switch (dp * 8 + nu) {
     case 8 * 8 + 1: step_t<8, 1>(g, mark); break;
     case 8 * 8 + 2: step_t<8, 2>(g, mark); break;
     case 8 * 8 + 4: step_t<8, 4>(g, mark); break;
     case 16 * 8 + 1: step_t<16, 1>(g, mark); break;
     case 16 * 8 + 2: step_t<16, 2>(g, mark); break;
-    case 16 * 8 + 4: step_t<16, 4>(g, mark); break;
-    case 32 * 8 + 1: step_t<32, 1>(g, mark); break;
-    case 32 * 8 + 2: step_t<32, 2>(g, mark); break;
     default: break;
   }
 }
@@ -1176,6 +1493,72 @@ inline Args unpack(void* const* ptr, int B, int S, int A, int Hd, int sn, int bc
   g.wide = routes_wide(B, S + A, Hd);
   g.gp = gp; g.lr = lr; g.wd = wd; g.ent = ent;
   return g;
+}
+
+// ---- the per-update launch of a wide step: one cluster ------------------
+
+constexpr int ERR_CLUSTER = -1000;  // the card cannot hold the step's cluster
+
+inline cudaLaunchConfig_t cluster_config(int blocks, size_t smem, cudaStream_t s,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3((unsigned)THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Opt `kernel` into `opt_in` (>= smem) bytes of dynamic shared memory and
+// into clusters past the portable 8, and ask the card whether a cluster of
+// `blocks` of its blocks with `smem` bytes each can be resident: 0, a CUDA
+// error, or ERR_CLUSTER. The opt-in is one attribute of the kernel, so a
+// caller only ever raises it (a lower one would refuse a larger shape asked
+// before). Not stream work: the launching entries ask once a cluster size
+// and shared memory and cache the answer (a CUDA graph capture then meets
+// the launch alone).
+template <class K>
+inline int prepare_cluster(K* kernel, int blocks, size_t opt_in, size_t smem) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)opt_in);
+  if (e != cudaSuccess) return (int)e;
+  if (blocks > 8) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(blocks, smem, 0, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  return n > 0 ? 0 : ERR_CLUSTER;
+}
+
+// One launch of the wide step's kernel K (its first argument the step's
+// Args) as one cluster of wide_segments(B) blocks on stream s. The opt-in
+// (only raised) and the residency question once per cluster size and
+// shared memory.
+template <auto K, class... Q>
+inline int launch_wide(const Args& g, size_t smem, cudaStream_t s, Q... extra) {
+  static size_t opted = 0, ready[MAX_SEGMENTS + 1] = {};
+  const int blocks = wide_segments(g.B);
+  if (ready[blocks] != smem || smem > opted) {
+    const size_t opt_in = smem > opted ? smem : opted;
+    const int e = prepare_cluster(K, blocks, opt_in, smem);
+    if (e != 0) return e;
+    opted = opt_in;
+    ready[blocks] = smem;
+  }
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(blocks, smem, s, attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, K, g, extra...);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace gail

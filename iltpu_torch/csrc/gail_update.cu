@@ -1,5 +1,5 @@
-// One GAIL discriminator step + reward head for Hopper (sm_90a), as one
-// single-block kernel.
+// One GAIL discriminator step + reward head for Hopper (sm_90a): one block
+// (the tiled variants) or one thread-block cluster (the wide variant).
 //
 // Replaces: iltpu/ops/pallas_gail.py, `_gail_kernel` / `_gail_core` (the TPU
 // kernel behind gail_update_pallas_leaves and gail_update_pallas).
@@ -30,19 +30,23 @@
 //  - one thread a row made the time follow the depth of the chains: the
 //    chains are now D long (the row's features), and the transcendentals of
 //    32 rows run in one pass.
-// The K-blocked kernel (kblock_update.cu) runs the same `gail::step`.
+// The K-blocked kernel (kblock_update.cu) runs the same steps.
 //
 // The tiled variants hold the whole batch and 16 warps' partial gradients
 // in shared memory, so they take inputs of up to 32 features, and not
 // width 128 with batch 1024. The wide variant (gail_core.cuh) takes every
-// other shape up to 128 features and width 128, at any batch, by streaming
-// the rows through shared memory 32 at a time. At ant's largest shape
-// (batch 1024, D = 120, width 128) the step is about 0.28 GFLOP (the loss
-// rows' forward and weight gradient, the penalty rows' forward, g, q and
-// weight gradient, the reward rows): bound by operations, 4.2 us at the
-// card's fp32 rate and 0.56 ms at one SM's, the floor of a one-block step.
-// What keeps it to one block: the K-blocked kernel runs the step on block
-// 0 beside SAC, and the block fixes every sum's order.
+// other shape up to 128 features and width 128, at any batch. At ant's
+// largest shape (batch 1024, D = 120, width 128) the step is about 0.28
+// GFLOP (the loss rows' forward and weight gradient, the penalty rows'
+// forward, g, q and weight gradient, the reward rows): bound by
+// operations, 4.2 us at the card's fp32 rate, 0.56 ms at one SM's. So the
+// wide step runs on one thread-block cluster of wide_segments(B) blocks (up
+// to 16, one a segment of the rows), each block's chunk products on the
+// tensor cores in 3xTF32, its next chunk of rows landing by cp.async while
+// this one is computed; the segments' partial sums meet through distributed
+// shared memory, in segment order, so the bits follow the shape alone and
+// the K-blocked kernel, which sums the same segments through global memory
+// on fewer blocks, gets the same ones.
 //
 // The state is updated in place. Pointer order of `iltpu_gail_update`:
 //   W1 (D, Hd), b1, W2 (Hd, 1), b2, u1, v1, u2, v2 (null without spectral
@@ -59,6 +63,12 @@ __global__ void __launch_bounds__(gail::THREADS) gail_kernel(const __grid_consta
   gail::step(g, gail::NoMarks{});
 }
 
+// The wide step, launched as one cluster.
+__global__ void __launch_bounds__(gail::THREADS)
+    gail_wide_kernel(const __grid_constant__ gail::Args g) {
+  gail::step_cluster(g, gail::NoMarks{});
+}
+
 }  // namespace
 
 // Dynamic shared memory of a step; 0 where no variant takes (D, Hd). A
@@ -70,6 +80,12 @@ extern "C" long long iltpu_gail_smem_bytes(int B, int D, int Hd) {
 // The variant a step of (B, D, Hd) runs: 0 tiled, 1 wide.
 extern "C" int iltpu_gail_variant(int B, int D, int Hd) { return gail::routes_wide(B, D, Hd) ? 1 : 0; }
 
+// The blocks of a step: the cluster (one a row segment) of the wide
+// variant, 1 for the tiled ones.
+extern "C" int iltpu_gail_blocks(int B, int D, int Hd) {
+  return gail::routes_wide(B, D, Hd) ? gail::wide_segments(B) : 1;
+}
+
 extern "C" long long iltpu_gail_smem_limit() { return (long long)gail::SMEM_LIMIT; }
 
 extern "C" int iltpu_gail_update(void* const* ptr, int B, int S, int A, int Hd, int sn, int bce,
@@ -77,6 +93,8 @@ extern "C" int iltpu_gail_update(void* const* ptr, int B, int S, int A, int Hd, 
   if (!gail::fits(B, S + A, Hd)) return (int)cudaErrorInvalidValue;
   const gail::Args g = gail::unpack(ptr, B, S, A, Hd, sn, bce, reward_fn, gp, lr, wd, ent);
   const size_t smem = gail::smem_bytes(B, S + A, Hd);
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (g.wide) return gail::launch_wide<gail_wide_kernel>(g, smem, s);
   // the opt-in once per larger size, so a CUDA graph capture meets no call
   // but the launch
   static size_t opted = 48 * 1024;
@@ -86,6 +104,6 @@ extern "C" int iltpu_gail_update(void* const* ptr, int B, int S, int A, int Hd, 
     if (e != cudaSuccess) return (int)e;
     opted = smem;
   }
-  gail_kernel<<<1, gail::THREADS, smem, reinterpret_cast<cudaStream_t>(stream)>>>(g);
+  gail_kernel<<<1, gail::THREADS, smem, s>>>(g);
   return (int)cudaGetLastError();
 }

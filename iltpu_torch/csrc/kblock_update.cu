@@ -11,14 +11,18 @@
 // (0.13 ms at the 67 TFLOP/s fp32 rate without tensor cores) and GAIL adds
 // a few MFLOP, against about 6 MB of state read and written once plus the
 // K-stacked batch slabs (2 us at 3.35 TB/s): it is bound by operations.
-// Neither sets its time. A micro-update is one GAIL step, which runs on a
-// single block (its block-wide sums follow the block; gail_core.cuh), and 29
-// dependent SAC phases of one wave of small tiles each. The design against
-// that:
-//  - GAIL beside SAC, not before it: block 0 runs the GAIL steps of
-//    micro-updates 0..K-1 back to back, and blocks 1..G-1 run the SAC steps
+// Neither sets its time. A micro-update is one GAIL step (gail_core.cuh)
+// and 29 dependent SAC phases of one wave of small tiles each. The design
+// against that:
+//  - GAIL beside SAC, not before it: blocks 0..C-1 run the GAIL steps of
+//    micro-updates 0..K-1 back to back, and blocks C..G-1 run the SAC steps
 //    0..K-1 under gx::GridExec (grid_exec.cuh), with a barrier over their
-//    own range between phases. GAIL never reads the SAC state; SAC k reads
+//    own range between phases. A tiled GAIL step runs on block 0 alone (C =
+//    1); a wide one on C blocks, as many as leave the SAC critic's widest
+//    product one wave (C = 4 of 132 at batch and width 256), each running
+//    its share of the step's row segments, the segments' partial sums
+//    meeting in global scratch behind a barrier over the C blocks, in the
+//    per-update cluster's segment order. GAIL never reads the SAC state; SAC k reads
 //    GAIL k's rewards only in its TD-target phase, so it waits there, and
 //    only there, for the flag "GAIL k done" that block 0 publishes. The
 //    rewards of micro-update k go to slot k of a (K-1, B) slab in scratch
@@ -45,7 +49,7 @@
 //  - the Adam clocks: micro-update k's AdamW phases read the clocks, its
 //    last phase (one block) advances them, and a barrier over the SAC blocks
 //    follows before micro-update k+1 reads them again; the GAIL step reads
-//    and advances its own clock inside its block;
+//    and advances its own clock (its lead block writes it last);
 //  - the state (~3 MB of fp32) stays in device memory, L2-resident on the
 //    50 MB L2; every read of data another block wrote goes through the
 //    coherent path (no __ldg, no `const __restrict__`), after a barrier or
@@ -55,7 +59,8 @@
 // (sac_update.cu's and gail_update.cu's), with the batch and noise pointers
 // at the bases of (K, B, ...) slabs and the SAC rewards pointer at the GAIL
 // rewards output; it updates the state in place. The scratch holds the SAC
-// buffers, the rewards slab, then the sync words (GAIL needs none).
+// buffers, the rewards slab, a wide GAIL step's exchange, then the sync
+// words.
 
 #include "gail_core.cuh"
 #include "grid_exec.cuh"
@@ -67,30 +72,60 @@ typedef long long ll;
 
 constexpr int THREADS = gail::THREADS;
 
+// Sync words: the SAC blocks' barrier, the GAIL flag, the GAIL blocks'
+// barrier.
+constexpr int SYNC_WORDS = gx::BARRIER_WORDS + gx::FLAG_WORDS + gx::BARRIER_WORDS;
+
 struct KArgs {
   sac::Ptrs sp;  // batch and noise pointers at the slab bases
   sac::Buffers sf;
   sac::Hyper sh;
   gail::Args ga;  // batch pointers at the slab bases
   float* slab;    // rewards of micro-updates 0..K-2, (K-1, B)
-  unsigned* words;  // the SAC blocks' barrier, then the GAIL flag
+  float* parts;   // a wide step's segment partial sums (segments, psz), then the slices' dots
+  unsigned* words;  // SYNC_WORDS
   int K, H, kc;
+  int C;          // the blocks that run GAIL (0..C-1); SAC runs on the others
+  int psz;
 };
 
 __device__ __forceinline__ float* rewards_slot(const KArgs& k, int i) {
   return i == k.K - 1 ? k.ga.rewards_out : k.slab + (ll)i * k.ga.B;
 }
 
+// The exchange of a wide step run by the K-blocked kernel's C GAIL blocks:
+// block b runs segments [b NS / C, (b + 1) NS / C), the partial sums go
+// through global scratch (L2 loads), and a barrier over the C blocks stands
+// for the cluster's. The same segments, summed in the same order, as the
+// per-update kernel's cluster.
+struct GlobalEx {
+  float *parts, *dots;
+  unsigned* counter;
+  int psz, lo, hi, count;
+  __device__ int first() const { return lo; }
+  __device__ int last() const { return hi; }
+  __device__ bool lead() const { return lo == 0; }
+  __device__ float* out(int s) const { return parts + (ll)s * psz; }
+  __device__ float get(int s, int e) const { return __ldcg(parts + (ll)s * psz + e); }
+  __device__ float* dot_out(int s) const { return dots + 2 * s; }
+  __device__ float dot(int s, int i) const { return __ldcg(dots + 2 * s + i); }
+  __device__ void sync() const { gx::barrier(counter, (unsigned)count); }
+};
+
 // A micro-update's arguments, one copy a block in shared memory: a copy
 // each thread made would sit in local memory (~500 bytes x 512 threads).
 __shared__ gail::Args gail_args;
 __shared__ sac::Ptrs sac_ptrs;
 
-// Block 0: the K GAIL steps, each published when done. Its own function,
-// so its registers are allocated apart from the SAC blocks' code.
-__device__ __noinline__ void gail_block(const KArgs& k) {
-  const int B = k.ga.B, S = k.ga.S, A = k.ga.A;
+// Blocks 0..C-1: the K GAIL steps, each published by block 0 when every
+// GAIL block is done with it. Its own function, so its registers are
+// allocated apart from the SAC blocks' code.
+__device__ __noinline__ void gail_blocks(const KArgs& k) {
+  const int B = k.ga.B, S = k.ga.S, A = k.ga.A, b = (int)blockIdx.x;
   unsigned* flag = k.words + gx::BARRIER_WORDS;
+  const int NS = gail::wide_segments(B);
+  const GlobalEx ex{k.parts, k.parts + (ll)NS * k.psz, flag + gx::FLAG_WORDS, k.psz,
+                    b * NS / k.C, (b + 1) * NS / k.C, k.C};
   for (int i = 0; i < k.K; ++i) {
     if (threadIdx.x == 0) {
       const ll bs = (ll)i * B * S, ba = (ll)i * B * A, bb = (ll)i * B;
@@ -103,15 +138,20 @@ __device__ __noinline__ void gail_block(const KArgs& k) {
       gail_args = g;
     }
     __syncthreads();
-    gail::step(gail_args, gail::NoMarks{});
-    gx::publish(flag, (unsigned)(i + 1));  // also keeps gail_args until all are done
+    if (k.ga.wide) {
+      gail::step_wide_of(gail_args, ex, gail::NoMarks{});
+      ex.sync();  // every GAIL block is done (the next step reads what this one wrote)
+    } else {
+      gail::step(gail_args, gail::NoMarks{});
+    }
+    if (b == 0) gx::publish(flag, (unsigned)(i + 1));  // also keeps gail_args until all are done
   }
 }
 
-// Blocks 1..G-1: the K SAC steps, each waiting for its rewards.
+// Blocks C..G-1: the K SAC steps, each waiting for its rewards.
 __device__ __noinline__ void sac_blocks(const KArgs& k) {
   const int B = k.ga.B, S = k.ga.S, A = k.ga.A;
-  gx::GridExec<THREADS> ex{k.kc, k.words, 1, (int)gridDim.x - 1, k.words + gx::BARRIER_WORDS};
+  gx::GridExec<THREADS> ex{k.kc, k.words, k.C, (int)gridDim.x - k.C, k.words + gx::BARRIER_WORDS};
   for (int i = 0; i < k.K; ++i) {
     if (threadIdx.x == 0) {
       const ll bs = (ll)i * B * S, ba = (ll)i * B * A, bb = (ll)i * B;
@@ -132,8 +172,8 @@ __device__ __noinline__ void sac_blocks(const KArgs& k) {
 // __grid_constant__: the functions above read the arguments where they are,
 // with no copy in each thread's local memory.
 __global__ void __launch_bounds__(THREADS) kblock_kernel(const __grid_constant__ KArgs k) {
-  if (blockIdx.x == 0) {
-    gail_block(k);
+  if ((int)blockIdx.x < k.C) {
+    gail_blocks(k);
   } else {
     sac_blocks(k);
   }
@@ -168,36 +208,57 @@ cudaError_t config(int B, int D, int Hd, int kmax, size_t* smem, int* per_sm, in
   return cudaSuccess;
 }
 
-constexpr int SYNC_WORDS = gx::BARRIER_WORDS + gx::FLAG_WORDS;
+// The GAIL blocks of a grid of G: 1 for a tiled step (one block runs it);
+// for a wide one the most, up to its segments, that leave the SAC critic's
+// widest product (2 cdiv(B, 32) cdiv(H, 32) tiles, 128 at batch and width
+// 256) as many waves as all blocks but one would.
+int gail_blocks_of(int B, int D, int H, int Hd, int G) {
+  if (!gail::routes_wide(B, D, Hd)) return 1;
+  const int tiles = 2 * sac::cdiv(B, sac::TILE) * sac::cdiv(H, sac::TILE);
+  const int waves = sac::cdiv(tiles, G - 1), NS = gail::wide_segments(B);
+  int c = 1;
+  while (c < NS && G - (c + 1) >= 1 && sac::cdiv(tiles, G - (c + 1)) == waves) ++c;
+  return c;
+}
+
+// Floats of a wide step's exchange in scratch: the segments' partial sums,
+// then two dot products a slice.
+ll gail_scratch_floats(int B, int D, int Hd) {
+  if (!gail::routes_wide(B, D, Hd)) return 0;
+  const ll NS = gail::wide_segments(B);
+  return NS * gail::wide_partial_floats(D, Hd) + (2 * NS + 3) / 4 * 4;
+}
 
 }  // namespace
 
-extern "C" long long iltpu_kblock_scratch_floats(int K, int B, int S, int A, int H) {
+extern "C" long long iltpu_kblock_scratch_floats(int K, int B, int S, int A, int H, int Hd) {
   sac::Scratch ss = {nullptr};
   sac::carve(ss, B, S, A, H);
-  return ss.used + (ll)(K - 1) * B + SYNC_WORDS;
+  return ss.used + (ll)(K - 1) * B + gail_scratch_floats(B, S + A, Hd) + SYNC_WORDS;
 }
 
 extern "C" const char* iltpu_kblock_error(int e) { return cudaGetErrorString((cudaError_t)e); }
 
 // The launch's grid and dynamic shared memory: co-resident blocks per SM,
-// SMs, bytes.
+// SMs, bytes, and the blocks of the grid that run GAIL.
 extern "C" int iltpu_kblock_grid(int B, int S, int A, int H, int Hd, int* per_sm, int* sms,
-                                 long long* smem) {
+                                 long long* smem, int* gail) {
   size_t bytes = 0;
   const cudaError_t e = config(B, S + A, Hd, sac::gemm_depth(B, S, A, H), &bytes, per_sm, sms);
   *smem = (long long)bytes;
+  *gail = e == cudaSuccess && *per_sm * *sms > 1 ? gail_blocks_of(B, S + A, H, Hd, *per_sm * *sms) : 0;
   return (int)e;
 }
 
 extern "C" int iltpu_kblock_update(void* const* sac_ptr, void* const* gail_ptr, int K, int B,
                                    int S, int A, int H, int Hd, int sn, int bce, int reward_fn,
                                    float lr, float wd, float alpha_lr, float discount,
-                                   float entropy_target, float polyak, float min_alpha, float gp,
-                                   float glr, float gwd, float ent, void* scratch, void* stream) {
+                                   float entropy_target, float polyak, float polyak_c,
+                                   float min_alpha, float gp, float glr, float gwd, float ent,
+                                   void* scratch, void* stream) {
   KArgs k;
   k.sp = sac::unpack(sac_ptr);
-  k.sh = {lr, wd, alpha_lr, discount, entropy_target, polyak, min_alpha};
+  k.sh = {lr, wd, alpha_lr, discount, entropy_target, polyak, polyak_c, min_alpha};
   k.ga = gail::unpack(gail_ptr, B, S, A, Hd, sn, bce, reward_fn, gp, glr, gwd, ent);
   k.K = K;
   k.H = H;
@@ -207,13 +268,16 @@ extern "C" int iltpu_kblock_update(void* const* sac_ptr, void* const* gail_ptr, 
   sac::Scratch ss = {base};
   k.sf = sac::carve(ss, B, S, A, H);
   k.slab = base + ss.used;
-  k.words = reinterpret_cast<unsigned*>(k.slab + (ll)(K - 1) * B);
+  k.parts = k.slab + (ll)(K - 1) * B;
+  k.psz = gail::wide_partial_floats(S + A, Hd);
+  k.words = reinterpret_cast<unsigned*>(k.parts + gail_scratch_floats(B, S + A, Hd));
 
   size_t smem = 0;
   int per_sm = 0, sms = 0;
   cudaError_t e = config(B, S + A, Hd, kmax, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   if (per_sm * sms < 2) return (int)cudaErrorCooperativeLaunchTooLarge;
+  k.C = gail_blocks_of(B, S + A, H, Hd, per_sm * sms);
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   e = cudaMemsetAsync(k.words, 0, sizeof(unsigned) * SYNC_WORDS, s);
   if (e != cudaSuccess) return (int)e;

@@ -466,7 +466,7 @@ struct Adam {
   const float* g;
   float *m, *v, *target;
   const float* count;
-  float lr, wd, polyak;
+  float lr, wd, polyak, polyak_c;
   __device__ void operator()(int j) const {
     const float t = count[0] + 1.f;
     const float gj = g[j];
@@ -479,7 +479,9 @@ struct Adam {
     m[j] = mm;
     v[j] = vv;
     p[j] = np;
-    if (target) target[j] = polyak * target[j] + (1.f - polyak) * np;
+    // rounded as the plain version's multi-tensor ops, with 1 - polyak taken
+    // in double on the host
+    if (target) target[j] = __fadd_rn(__fmul_rn(polyak, target[j]), __fmul_rn(polyak_c, np));
   }
 };
 
@@ -526,7 +528,7 @@ struct Temperature {
 // ------------------------------------------------------------ the update
 
 struct Hyper {
-  float lr, wd, alpha_lr, discount, entropy_target, polyak, min_alpha;
+  float lr, wd, alpha_lr, discount, entropy_target, polyak, polyak_c, min_alpha;
 };
 
 // The state, one micro-update's batch and noise, and the aux outputs.
@@ -562,8 +564,14 @@ inline Ptrs unpack(void* const* ptr) {
 struct Scratch {
   float* base;
   ll used = 0;
+  ll* log = nullptr;  // where given, each buffer's (offset, floats) in turn
   float* take(ll n) {
     float* p = base ? base + used : nullptr;
+    if (log) {
+      log[0] = used;
+      log[1] = n;
+      log += 2;
+    }
     used += (n + 3) / 4 * 4;
     return p;
   }
@@ -577,6 +585,11 @@ struct Buffers {
   float *dq, *dz2, *dz1, *gc[6];
   float *da, *dout, *adz2, *adz1, *ga[6];
 };
+
+// The buffers' names, in the order carve takes them.
+constexpr const char* BUFFER_NAMES =
+    "x2 x xn ah1 ah2 ao bh1 bh2 bo lp2 td th1 th2 tq ch1 ch2 cq dq dz2 dz1 gc0 gc1 gc2 gc3 gc4 gc5 "
+    "da dout adz2 adz1 ga0 ga1 ga2 ga3 ga4 ga5";
 
 inline Buffers carve(Scratch& sc, int B, int S, int A, int H) {
   const ll X = S + A, O = 2 * A, BH = (ll)B * H;
@@ -664,7 +677,8 @@ __device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int B, int S
   const ll csz[6] = {2LL * X * H, 2LL * H, 2LL * H * H, 2LL * H, 2LL * H, 2};
 #pragma unroll
   for (int i = 0; i < 6; ++i)
-    ex.rows((int)csz[i], Adam{p.cw[i], f.gc[i], p.cm[i], p.cv[i], p.tw[i], p.tc, h.lr, h.wd, h.polyak});
+    ex.rows((int)csz[i],
+            Adam{p.cw[i], f.gc[i], p.cm[i], p.cv[i], p.tw[i], p.tc, h.lr, h.wd, h.polyak, h.polyak_c});
   ex.sync();
 
   // ---- the UPDATED critic's action gradient at [s, tanh(z)] ---------------
@@ -701,7 +715,7 @@ __device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int B, int S
   const ll asz[6] = {(ll)S * H, H, (ll)H * H, H, (ll)H * O, O};
 #pragma unroll
   for (int i = 0; i < 6; ++i)
-    ex.rows((int)asz[i], Adam{p.aw[i], f.ga[i], p.am[i], p.av[i], nullptr, p.ta, h.lr, h.wd, 0.f});
+    ex.rows((int)asz[i], Adam{p.aw[i], f.ga[i], p.am[i], p.av[i], nullptr, p.ta, h.lr, h.wd, 0.f, 0.f});
   ex.sync();
 
   // ---- temperature, clocks, aux alpha -------------------------------------

@@ -61,13 +61,13 @@ extern "C" long long iltpu_phases_scratch_floats(int B, int S, int A, int H) {
 // are iltpu_sac_update's, `stamps` holds 30 u64.
 extern "C" int iltpu_phases_update(void* const* ptr, int B, int S, int A, int H, float lr, float wd,
                                    float alpha_lr, float discount, float entropy_target,
-                                   float polyak, float min_alpha, void* scratch, void* stamps,
-                                   void* stream) {
+                                   float polyak, float polyak_c, float min_alpha, void* scratch,
+                                   void* stamps, void* stream) {
   PArgs k;
   k.p = sac::unpack(ptr);
   sac::Scratch sc = {reinterpret_cast<float*>(scratch)};
   k.f = sac::carve(sc, B, S, A, H);
-  k.h = {lr, wd, alpha_lr, discount, entropy_target, polyak, min_alpha};
+  k.h = {lr, wd, alpha_lr, discount, entropy_target, polyak, polyak_c, min_alpha};
   k.words = reinterpret_cast<unsigned*>(scratch) + sc.used;
   k.stamps = reinterpret_cast<unsigned long long*>(stamps);
   k.B = B; k.S = S; k.A = A; k.H = H;

@@ -85,6 +85,17 @@ extern "C" long long iltpu_sac_scratch_floats(int B, int S, int A, int H) {
   return sac::scratch_floats(B, S, A, H) + gx::BARRIER_WORDS;
 }
 
+// The scratch buffers' names (space-separated, sac::BUFFER_NAMES) and, for
+// a shape, each one's (offset, floats) into `out`, two a name: what a
+// measurement reads back from the scratch after an update.
+extern "C" const char* iltpu_sac_buffer_names() { return sac::BUFFER_NAMES; }
+
+extern "C" void iltpu_sac_buffers(int B, int S, int A, int H, long long* out) {
+  sac::Scratch sc = {nullptr};
+  sc.log = out;
+  sac::carve(sc, B, S, A, H);
+}
+
 extern "C" const char* iltpu_sac_error(int e) { return cudaGetErrorString((cudaError_t)e); }
 
 // The launch's grid and dynamic shared memory: co-resident blocks per SM,
@@ -98,13 +109,13 @@ extern "C" int iltpu_sac_grid(int B, int S, int A, int H, int* per_sm, int* sms,
 
 extern "C" int iltpu_sac_update(void* const* ptr, int B, int S, int A, int H, float lr,
                                 float wd, float alpha_lr, float discount,
-                                float entropy_target, float polyak, float min_alpha,
+                                float entropy_target, float polyak, float polyak_c, float min_alpha,
                                 void* scratch, void* stream) {
   SArgs k;
   k.p = sac::unpack(ptr);
   sac::Scratch sc = {reinterpret_cast<float*>(scratch)};
   k.f = sac::carve(sc, B, S, A, H);
-  k.h = {lr, wd, alpha_lr, discount, entropy_target, polyak, min_alpha};
+  k.h = {lr, wd, alpha_lr, discount, entropy_target, polyak, polyak_c, min_alpha};
   k.words = reinterpret_cast<unsigned*>(scratch) + sc.used;
   k.B = B; k.S = S; k.A = A; k.H = H;
   const int kmax = sac::gemm_depth(B, S, A, H);

@@ -7,12 +7,14 @@
   the reward of the policy batch from the UPDATED network.
 
 `gail_update` is the entry. On CUDA tensors it launches the hand-written
-kernel of `csrc/gail_update.cu` (built by nvcc at first use; one block
-whose working set is in shared memory: a tiled variant holding the whole
-batch where it fits, else the wide variant streaming the rows, so it takes
-inputs of up to 128 features and widths up to 128 at any batch, see
-`smem_bytes` and `variant`) and raises if the launch fails or the shape is
-past those limits; on CPU tensors it runs `gail_update_plain`, the same
+kernel of `csrc/gail_update.cu` (built by nvcc at first use; its working
+set is in shared memory: a tiled variant on one block holding the whole
+batch where it fits, else the wide variant on one thread-block cluster of
+`blocks` blocks, each streaming a segment of the rows through the tensor
+cores in 3xTF32, so it takes inputs of up to 128 features and widths up to
+128 at any batch, see `smem_bytes`, `variant` and `blocks`) and raises if
+the launch fails, the card cannot hold the cluster, or the shape is past
+those limits; on CPU tensors it runs `gail_update_plain`, the same
 explicit formulas in PyTorch, which the CPU tests pin to iltpu's autodiff.
 
 The TPU kernel differentiates the penalty by tracing jax.grad inside the
@@ -166,6 +168,8 @@ def _bind(lib):
         lib.iltpu_gail_smem_bytes.restype = ctypes.c_longlong
         lib.iltpu_gail_variant.argtypes = [ctypes.c_int] * 3
         lib.iltpu_gail_variant.restype = ctypes.c_int
+        lib.iltpu_gail_blocks.argtypes = [ctypes.c_int] * 3
+        lib.iltpu_gail_blocks.restype = ctypes.c_int
         lib.iltpu_gail_smem_limit.argtypes = []
         lib.iltpu_gail_smem_limit.restype = ctypes.c_longlong
         lib._typed = True
@@ -173,6 +177,7 @@ def _bind(lib):
 
 
 VARIANTS = ("tiled", "wide")
+ERR_CLUSTER = -1000  # the C entry's answer where the card cannot hold the step's cluster
 MAX_D = MAX_HD = 128  # the wide variant's input features and width, at most
 
 
@@ -182,8 +187,9 @@ def smem_bytes(B: int, D: int, Hd: int) -> int:
     kernel routes the shape to (`variant`): the tiled variants hold the
     batch rows, the weights and 16 warps' partial gradients (inputs up to
     32, width 128 at inputs up to 16, and as far as a block's shared memory
-    goes); the wide variant the weights and one chunk of 32 rows (inputs up
-    to 128, width up to 128, any batch). Raises NotImplementedError where
+    goes); the wide variant, on each block of its cluster, the weights and
+    two stages of a chunk of 32 rows (inputs up to 128, width up to 128,
+    any batch). Raises NotImplementedError where
     no variant can take the shape (the plain version, on CPU tensors, takes
     any shape)."""
     lib = _bind(build.load("gail_update"))
@@ -201,6 +207,15 @@ def smem_bytes(B: int, D: int, Hd: int) -> int:
 def variant(B: int, D: int, Hd: int) -> str:
     """The variant the kernel runs at (B, D, Hd): 'tiled' or 'wide'."""
     return VARIANTS[_bind(build.load("gail_update")).iltpu_gail_variant(B, D, Hd)]
+
+
+@functools.lru_cache(maxsize=None)
+def blocks(B: int, D: int, Hd: int) -> int:
+    """The blocks a step at (B, D, Hd) runs on: 1 for a tiled variant; the
+    wide variant's cluster, one block a segment of the rows (ceil(B / 32),
+    at most 16). The segments are set by the shape alone, and so are the
+    step's bits."""
+    return _bind(build.load("gail_update")).iltpu_gail_blocks(B, D, Hd)
 
 
 def state_tensors(st: Dict) -> List[torch.Tensor]:
@@ -277,6 +292,10 @@ def launch(lib, h: GAILHyper, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mi
     is in shared memory)."""
     args, loss, rewards = c_args(h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix)
     rc = lib.iltpu_gail_update(*args, stream)
+    if rc == ERR_CLUSTER:
+        B, D, Hd = p_s.shape[0], st["p"][0].shape[0], st["p"][0].shape[1]
+        raise RuntimeError(f"gail_update: the card cannot hold a cluster of {blocks(B, D, Hd)} "
+                           f"blocks with {smem_bytes(B, D, Hd)} bytes of shared memory each")
     if rc != 0:
         raise RuntimeError(f"gail_update kernel launch failed with CUDA error {rc}")
     return loss, rewards

@@ -8,7 +8,8 @@
 `kblock_update` is the entry. On CUDA tensors it makes ONE cooperative,
 persistent launch of `csrc/kblock_update.cu` (built by nvcc at first use),
 which runs the arithmetic of the two per-update kernels (`csrc/*.cuh`), the
-GAIL steps on one block beside the SAC steps on the others, and
+GAIL steps on the first blocks (one for a tiled step, a few for a wide one:
+`grid`) beside the SAC steps on the others, and
 raises if the launch fails or the grid is refused; on CPU tensors it runs
 `kblock_update_plain`, the two plain updates K times in order.
 
@@ -59,13 +60,13 @@ def _bind(lib):
     """Set the C signatures once, so no pointer is cut to 32 bits."""
     if not hasattr(lib, "_typed"):
         lib.iltpu_kblock_update.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_float] * 11
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_float] * 12
             + [ctypes.c_void_p] * 2
         )
         lib.iltpu_kblock_update.restype = ctypes.c_int
-        lib.iltpu_kblock_scratch_floats.argtypes = [ctypes.c_int] * 5
+        lib.iltpu_kblock_scratch_floats.argtypes = [ctypes.c_int] * 6
         lib.iltpu_kblock_scratch_floats.restype = ctypes.c_longlong
-        lib.iltpu_kblock_grid.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+        lib.iltpu_kblock_grid.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
         lib.iltpu_kblock_grid.restype = ctypes.c_int
         lib.iltpu_kblock_error.argtypes = [ctypes.c_int]
         lib.iltpu_kblock_error.restype = ctypes.c_char_p
@@ -118,14 +119,15 @@ def kblock_update(
 
 
 def grid(lib, B: int, S: int, A: int, H: int, Hd: int):
-    """(co-resident blocks per SM, SMs, dynamic shared memory bytes): the
-    launch's grid is the product of the first two."""
-    per_sm, sms, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0)
+    """(co-resident blocks per SM, SMs, dynamic shared memory bytes, the
+    blocks that run GAIL): the launch's grid is the product of the first
+    two; SAC runs on the blocks GAIL leaves."""
+    per_sm, sms, smem, gail = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0), ctypes.c_int(0)
     rc = _bind(lib).iltpu_kblock_grid(B, S, A, H, Hd, ctypes.byref(per_sm), ctypes.byref(sms),
-                                      ctypes.byref(smem))
+                                      ctypes.byref(smem), ctypes.byref(gail))
     if rc != 0:
         raise RuntimeError(f"kblock_update occupancy query failed: {_error(lib, rc)}")
-    return per_sm.value, sms.value, smem.value
+    return per_sm.value, sms.value, smem.value, gail.value
 
 
 def _error(lib, rc: int) -> str:
@@ -147,7 +149,7 @@ def launch(lib, sac_hyper, gail_hyper, sac_st, disc_st, batches, expert_batches,
     dev = batches["states"].device
     loss, alpha = torch.empty(1, device=dev), torch.empty(1, device=dev)
     rewards, lp, min_q = (torch.empty(B, device=dev) for _ in range(3))
-    scratch = torch.empty(lib.iltpu_kblock_scratch_floats(K, B, S, A, H), device=dev)
+    scratch = torch.empty(lib.iltpu_kblock_scratch_floats(K, B, S, A, H, Hd), device=dev)
     tb, eb = batches, expert_batches
     sac_ptrs = [t.data_ptr() for t in su.state_tensors(sac_st)] + [
         t.data_ptr() for t in (tb["states"], tb["actions"], rewards, tb["next_states"],
@@ -163,8 +165,9 @@ def launch(lib, sac_hyper, gail_hyper, sac_st, disc_st, batches, expert_batches,
         (ctypes.c_void_p * len(sac_ptrs))(*sac_ptrs), (ctypes.c_void_p * len(gail_ptrs))(*gail_ptrs),
         K, B, S, A, H, Hd, int(bool(disc_st["sn"])), bce,
         gu.REWARD_FUNCTIONS.index(g.reward_function),
-        h.lr, h.weight_decay, h.alpha_lr, h.discount, h.entropy_target, h.polyak, h.min_alpha,
-        g.grad_penalty, g.lr, g.weight_decay, g.entropy_bonus, scratch.data_ptr(), stream,
+        h.lr, h.weight_decay, h.alpha_lr, h.discount, h.entropy_target, h.polyak,
+        1.0 - h.polyak, h.min_alpha, g.grad_penalty, g.lr, g.weight_decay, g.entropy_bonus,
+        scratch.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(f"kblock_update kernel launch failed: {_error(lib, rc)}")

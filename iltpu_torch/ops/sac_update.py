@@ -27,7 +27,7 @@ Derivatives for z = mu + sigma*eps, lp = sum[-0.5(eps^2 + 2ls + log 2pi)]
 
 import ctypes
 import math
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -96,10 +96,12 @@ def _mlp_fwd(x, lv):
     return h2 @ lv[4] + lv[5], (x, h1, h2)
 
 
-def _mlp_bwd(dout, cache, lv):
+def _mlp_bwd(dout, cache, lv, trace=None):
     x, h1, h2 = cache
     dz2 = (dout @ lv[4].T) * (h2 > 0)
     dz1 = (dz2 @ lv[2].T) * (h1 > 0)
+    if trace is not None:
+        trace.update(dout=dout, adz2=dz2, adz1=dz1)
     return [x.T @ dz1, dz1.sum(0), h1.T @ dz2, dz2.sum(0), h2.T @ dout, dout.sum(0)]
 
 
@@ -133,10 +135,15 @@ def _twin_bwd(dq, cache, lv):
 
 @torch.no_grad()
 def sac_update_plain(
-    h: SACHyper, st: Dict, batch: Dict[str, torch.Tensor], eps2, eps_new
+    h: SACHyper, st: Dict, batch: Dict[str, torch.Tensor], eps2, eps_new,
+    trace: Optional[Dict] = None,
 ) -> Dict[str, torch.Tensor]:
     """The update in PyTorch with the kernel's explicit formulas; updates
-    `st` in place and returns the aux (log_probs, Q_values, alpha)."""
+    `st` in place and returns the aux (log_probs, Q_values, alpha). Given
+    `trace`, it also records the intermediates under the names of the
+    kernel's scratch buffers (`iltpu_sac_buffer_names`), a later one
+    replacing an earlier one of the same name as the kernel's phases
+    overwrite their buffers."""
     s, a, r, s2, term, w, ab = (batch[k] for k in BATCH_KEYS)
     B, S = s.shape
     A = eps2.shape[1]
@@ -146,20 +153,25 @@ def sac_update_plain(
     alpha_pre = torch.clamp_min(alpha_raw, h.min_alpha)
 
     # TD target: no gradients
-    o2, _ = _mlp_fwd(s2, aw)
+    o2, (_, ah1, ah2) = _mlp_fwd(s2, aw)
     ls2 = o2[:, A:].clamp(-20.0, 2.0)
     z2 = o2[:, :A] + torch.exp(ls2) * eps2
     lp2 = _log_prob(ls2, eps2, z2)
     x2 = torch.cat([s2, (1.0 - ab[:, None]) * torch.tanh(z2)], -1)
-    tq, _ = _twin_fwd(x2, tw)
+    tq, (_, th1, th2) = _twin_fwd(x2, tw)
     target_v = torch.minimum(tq[0], tq[1]) - (1.0 - ab) * alpha * lp2
     td = r + (1.0 - term) * h.discount * target_v
+    if trace is not None:
+        trace.update(ah1=ah1, ah2=ah2, ao=o2, lp2=lp2, x2=x2, th1=th1, th2=th2, tq=tq, td=td)
 
     # critic step
     q, ccache = _twin_fwd(torch.cat([s, a], -1), cw)
     min_q = torch.minimum(q[0], q[1])
     dq = (2.0 / B) * w[None, :] * (q - td[None, :])
     cg = _twin_bwd(dq, ccache, cw)
+    if trace is not None:
+        trace.update(x=ccache[0], ch1=ccache[1], ch2=ccache[2], cq=q, dq=dq,
+                     **{f"gc{i}": g for i, g in enumerate(cg)})
     adamw_(cw, cg, st["cm"], st["cv"], st["tc"], h.lr, h.weight_decay)
 
     # actor step against the UPDATED critic
@@ -171,17 +183,23 @@ def sac_update_plain(
     lp1 = _log_prob(ls1, eps_new, z1)
     tanh_z = torch.tanh(z1)
     uq, ucache = _twin_fwd(torch.cat([s, tanh_z], -1), cw)
-    sel1 = (uq[0] <= uq[1]).float()
+    sel1 = (uq[0] <= uq[1]).to(uq.dtype)
     dqn = (-1.0 / B) * torch.stack([sel1, 1.0 - sel1])
-    dz1n, _ = _twin_dz(dqn, ucache, cw)
+    dz1n, dz2n = _twin_dz(dqn, ucache, cw)
     w1a = cw[0][:, S:, :]  # rows of W1 that read the action
-    da = dz1n[0] @ w1a[0].T + dz1n[1] @ w1a[1].T
+    da2 = torch.stack([dz1n[0] @ w1a[0].T, dz1n[1] @ w1a[1].T])
+    da = da2[0] + da2[1]
+    if trace is not None:
+        trace.update(bh1=acache[1], bh2=acache[2], bo=o1, xn=ucache[0], th1=ucache[1],
+                     th2=ucache[2], tq=uq, dq=dqn, dz1=dz1n, dz2=dz2n, da=da2)
     sech2 = 1.0 - tanh_z * tanh_z
     c_ent = (w * (1.0 - ab) * alpha / B)[:, None]
     g_mu = c_ent * (2.0 * tanh_z) + da * sech2
     g_ls = c_ent * (-1.0 + 2.0 * sg1 * eps_new * tanh_z) + da * sech2 * sg1 * eps_new
     g_ls = g_ls * ((l_raw >= -20.0) & (l_raw <= 2.0))
-    ag = _mlp_bwd(torch.cat([g_mu, g_ls], -1), acache, aw)
+    ag = _mlp_bwd(torch.cat([g_mu, g_ls], -1), acache, aw, trace)
+    if trace is not None:
+        trace.update({f"ga{i}": g for i, g in enumerate(ag)})
     adamw_(aw, ag, st["am"], st["av"], st["ta"], h.lr, h.weight_decay)
 
     # temperature: plain Adam on the pre-update log_alpha, with the RAW alpha
@@ -199,7 +217,7 @@ def _bind(lib):
     """Set the C signatures once, so no pointer is cut to 32 bits."""
     if not hasattr(lib, "_typed"):
         lib.iltpu_sac_update.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float] * 7
+            [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float] * 8
             + [ctypes.c_void_p, ctypes.c_void_p]
         )
         lib.iltpu_sac_update.restype = ctypes.c_int
@@ -287,8 +305,8 @@ def launch(lib, h: SACHyper, st: Dict, batch: Dict[str, torch.Tensor], eps2, eps
     )
     rc = lib.iltpu_sac_update(
         ptrs, B, S, A, H,
-        h.lr, h.weight_decay, h.alpha_lr, h.discount, h.entropy_target, h.polyak, h.min_alpha,
-        scratch.data_ptr(), stream,
+        h.lr, h.weight_decay, h.alpha_lr, h.discount, h.entropy_target, h.polyak,
+        1.0 - h.polyak, h.min_alpha, scratch.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(f"sac_update kernel launch failed: {_error(lib, rc)}")

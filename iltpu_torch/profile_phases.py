@@ -13,13 +13,15 @@ times on a fresh state, and prints one JSON line: the median microseconds
 of each of the 29 phases (barrier included) and of the whole kernel, and
 the time of one bare barrier crossing over every block. The GAIL mode
 builds `csrc/gail_phases.cu` (the step of `csrc/gail_update.cu` with a
-barrier and a timestamp after each of its six phases) and runs the bench
+barrier and a timestamp after each of its phases: six for a tiled step;
+seven for the wide one's cluster, block 0's clock, where the segments'
+partial sums, the cross-block reduction and AdamW each take one) and runs the bench
 configuration (BCE, spectral norm, AIRL, penalty 1), five steps each after
 a warm-up, at each `--shape B,D,Hd` (batch, input D = S + A, width; an
 env's D takes its split, e.g. ant's 120 = 112 + 8) or, by default, at
 pointmass's and hopper's (batch 256, D 7 and 15, width 64), at the wide
 variant's corners (1024,120,128; 256,120,64; 1024,24,128; 1024,15,128) and
-at 256,24,64 in both variants; `--variant tiled|wide` stamps that variant
+at hopper's 256,15,64 in both variants; `--variant tiled|wide` stamps that variant
 at each `--shape` (default: the routed one). It prints one JSON line per
 shape: the variant, the median microseconds of each phase and of the step
 from its first stamp to its last. The PWIL mode builds
@@ -58,10 +60,13 @@ PHASES = (
     "input grad L2", "action grad", "head backward", "actor grad L3", "actor grad L2",
     "actor grad L1", "actor AdamW", "temperature",
 )
-GAIL_PHASES = (
-    "state and batch to shared memory, sigma", "loss rows", "penalty rows",
-    "weight gradients, through sigma, AdamW", "power iteration", "reward rows",
-)
+GAIL_PHASES = {
+    "tiled": ("state and batch to shared memory, sigma", "loss rows", "penalty rows",
+              "weight gradients, through sigma, AdamW", "power iteration", "reward rows"),
+    "wide": ("state to shared memory, sigma", "loss rows", "penalty rows",
+             "segment partials, cross-block sums and dots", "through sigma, AdamW",
+             "new weights, power iteration", "reward rows"),
+}
 
 
 def _median(xs):
@@ -71,7 +76,7 @@ def _median(xs):
 def _bind(lib):
     if not hasattr(lib, "_typed"):
         P = ctypes.c_void_p
-        lib.iltpu_phases_update.argtypes = [P] + [ctypes.c_int] * 4 + [ctypes.c_float] * 7 + [P] * 3
+        lib.iltpu_phases_update.argtypes = [P] + [ctypes.c_int] * 4 + [ctypes.c_float] * 8 + [P] * 3
         lib.iltpu_phases_update.restype = ctypes.c_int
         lib.iltpu_phases_scratch_floats.argtypes = [ctypes.c_int] * 4
         lib.iltpu_phases_scratch_floats.restype = ctypes.c_longlong
@@ -108,7 +113,7 @@ def phases(lib, dev, runs=5):
     for _ in range(runs + 1):  # the first run warms up
         rc = lib.iltpu_phases_update(
             ptrs, B, S, A, H, h.lr, h.weight_decay, h.alpha_lr, h.discount, h.entropy_target,
-            h.polyak, h.min_alpha, scratch.data_ptr(), stamps.data_ptr(), stream)
+            h.polyak, 1.0 - h.polyak, h.min_alpha, scratch.data_ptr(), stamps.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"profile_phases: launch failed with CUDA error {rc}")
         torch.cuda.synchronize()
@@ -173,7 +178,7 @@ def variant_step(variant, h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix=None)
 ENV_SPLIT = {5: (4, 1), 7: (5, 2), 15: (12, 3), 24: (18, 6), 120: (112, 8)}
 GAIL_SHAPES = ((256, 7, 64, None), (256, 15, 64, None), (1024, 120, 128, None),
                (256, 120, 64, None), (1024, 24, 128, None), (1024, 15, 128, None),
-               (256, 24, 64, "tiled"), (256, 24, 64, "wide"))
+               (256, 15, 64, "tiled"), (256, 15, 64, "wide"))
 
 
 def gail_phases(lib, dev, S, A, B=256, Hd=64, runs=5, variant=None):
@@ -192,7 +197,8 @@ def gail_phases(lib, dev, S, A, B=256, Hd=64, runs=5, variant=None):
     ptrs = gu.state_pointers(st) + [t.data_ptr() for t in batch]
     ptrs += [0, loss.data_ptr(), rewards.data_ptr()]
     ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    stamps = torch.zeros(len(GAIL_PHASES) + 1, dtype=torch.int64, device=dev)
+    names = GAIL_PHASES[variant or gu.variant(B, S + A, Hd)]
+    stamps = torch.zeros(len(names) + 1, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows = []
     for _ in range(runs + 1):  # the first run warms up
@@ -204,7 +210,7 @@ def gail_phases(lib, dev, S, A, B=256, Hd=64, runs=5, variant=None):
             raise RuntimeError(f"profile_phases: GAIL launch failed with CUDA error {rc}")
         torch.cuda.synchronize()
         t = stamps.tolist()
-        rows.append([(t[i + 1] - t[i]) / 1e3 for i in range(len(GAIL_PHASES))])
+        rows.append([(t[i + 1] - t[i]) / 1e3 for i in range(len(names))])
     rows = rows[1:]
     return [_median(col) for col in zip(*rows)], _median([sum(r) for r in rows])
 
@@ -329,8 +335,9 @@ def main(argv=None):
             print(json.dumps({
                 "shape": f"B={B} S={S} A={A} Hd={Hd}", "variant": variant, "step_us": total,
                 "smem_bytes": variant_smem_bytes(B, D, Hd, variant),
+                "blocks": gu.blocks(B, D, Hd) if variant == gu.variant(B, D, Hd) else None,
                 "phases_us": {f"{i} {name}": round(t, 2) for i, (name, t) in
-                              enumerate(zip(GAIL_PHASES, per_phase))},
+                              enumerate(zip(GAIL_PHASES[variant], per_phase))},
             }))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

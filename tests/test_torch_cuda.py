@@ -1,7 +1,9 @@
 """The port's tests that need a CUDA card (marked `cuda`; each skips without
 one): PWIL's transport kernel and the GAIL step's wide variant against
-their plain versions, and a chunk of the on-device loop replayed from CUDA
-graphs against the same chunk run eagerly. This file imports neither JAX nor iltpu, so it also runs where
+their plain versions, the K-blocked kernel with the wide GAIL step against
+per-update calls bit for bit, SAC's later chunks on ant's rows against a
+float64 run, and a chunk of the on-device loop replayed
+from CUDA graphs against the same chunk run eagerly. This file imports neither JAX nor iltpu, so it also runs where
 JAX is absent:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -91,9 +93,12 @@ def test_pwil_kernel_segments_match_plain(cuda):
     torch.testing.assert_close(got, want, **TOL)
 
 
-# (batch, state, action, width): ant's 120 inputs, and width 128 at batch
-# 1024 on hopper's 15: both past the tiled variants
-WIDE_SHAPES = {"ant": (64, 112, 8, 64), "hopper_1024x128": (1024, 12, 3, 128)}
+# (batch, state, action, width): ant's 120 inputs, width 128 at batch 1024 on
+# hopper's 15 and ant's 120, and ragged batches (segments and chunks that end
+# mid-chunk): all on the wide variant's cluster
+WIDE_SHAPES = {"ant": (64, 112, 8, 64), "hopper_1024x128": (1024, 12, 3, 128),
+               "ant_1024x128": (1024, 112, 8, 128), "ant_ragged_1000x128": (1000, 112, 8, 128),
+               "ant_ragged_33": (33, 112, 8, 64)}
 
 
 @pytest.mark.cuda
@@ -116,6 +121,42 @@ def test_gail_wide_variant_matches_plain(cuda, shape, loss):
     want = gu.gail_update_plain(h, plain, *batch, mix)
     for a, b in zip([*gu.state_tensors(st), *got], [*gu.state_tensors(plain), *want]):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["BCE", "Mixup"])
+def test_kblock_wide_gail_equals_per_update_calls(cuda, loss):
+    """The K-blocked kernel at ant's (256, 120, 64), K = 16, whose GAIL step
+    is the wide variant on a few of its blocks (their partial sums through
+    global memory), bit for bit against 16 calls of the per-update kernels
+    (the wide step on its cluster, through distributed shared memory)."""
+    import chip_smoke as cs
+    from iltpu_torch.ops.kblock_update import kblock_update
+
+    assert gu.variant(256, 120, 64) == "wide"
+    sh, gh, sac_st, disc_st, batches, expert, noise = cs.kblock_case(112, 8, 16, loss == "BCE", 0.0,
+                                                                      cuda)
+    k_sac, k_disc, r_sac, r_disc = (cs.clone(x) for x in (sac_st, disc_st, sac_st, disc_st))
+    got = kblock_update(sh, gh, k_sac, k_disc, batches, expert, noise)
+    want = cs.per_update_calls(sh, gh, r_sac, r_disc, batches, expert, noise)
+    for (name, a), (_, b) in zip([*cs.leaves(k_sac), *cs.leaves(k_disc), *got.items()],
+                                 [*cs.leaves(r_sac), *cs.leaves(r_disc), *want.items()]):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_sac_ant_chunks_within_float64(cuda, tmp_path):
+    """GAIL per update on ant's stepper rows (batch 16, full widths): the
+    first chunk of 8 updates on the card against the CPU at the chain
+    tolerance, then chunks 2 and 3, where the card's SAC state must lie
+    at most max(1.0, the CPU's distance) x the chain tolerance from a
+    float64 run (chip_smoke's phase 11; `check_against_cpu` raises past
+    either)."""
+    import chip_smoke as cs
+
+    _, launched = cs.check_against_cpu(cuda, cs.native_env("ant"), rows=cs.native_rows("ant"),
+                                       iterations=1, watched=2, out=str(tmp_path))
+    assert launched["sac_update"] == 8 and launched["gail_update"] == 8
 
 
 SMALL = [

@@ -5,8 +5,8 @@ gradients come from jax.grad traced in the kernel) and against
 `adversarial_imitation_update` + `predict_reward`, over the grids of
 tests/test_pallas_gail.py, chained 3 steps; and against iltpu's kernel at
 the envs' input widths (walker2d's and halfcheetah's 18 + 6, ant's 112 + 8)
-and discriminator widths 64 and 128. The draws are iltpu's own for each
-key, handed to the port."""
+and discriminator widths 64 and 128, and at iltpu's tuned batch of 1024.
+The draws are iltpu's own for each key, handed to the port."""
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +29,7 @@ S, A, B = 7, 3, 32
 LR, WD, GP = 3e-5, 10.0, 1.0
 
 
-def _batch(seed, S=S, A=A):
+def _batch(seed, S=S, A=A, B=B):
     rng = np.random.default_rng(seed)
     f32 = lambda x: np.asarray(x, np.float32)
     return {
@@ -41,7 +41,7 @@ def _batch(seed, S=S, A=A):
     }
 
 
-def _draws(key, loss_function, mixup_alpha):
+def _draws(key, loss_function, mixup_alpha, B=B):
     """adversarial_imitation_update's (k_mixup, k_gp) draws for `key`."""
     k_mixup, k_gp = jax.random.split(key)
     t = lambda x: torch.from_numpy(np.array(x, np.float32))
@@ -56,7 +56,7 @@ def _draws(key, loss_function, mixup_alpha):
 
 
 def _compare(reference, spectral_norm, reward_function, gp, loss_function="BCE",
-             entropy_bonus=0.0, mixup_alpha=1.0, key=42, S=S, A=A, Hd=64):
+             entropy_bonus=0.0, mixup_alpha=1.0, key=42, S=S, A=A, Hd=64, B=B):
     disc = GAILDiscriminator(
         S, A, hidden_size=Hd, depth=1, spectral_norm=spectral_norm,
         reward_function=reward_function,
@@ -66,7 +66,7 @@ def _compare(reference, spectral_norm, reward_function, gp, loss_function="BCE",
     opt = optim.init(params)
     actor = SoftActor(S, A, hidden_size=16, depth=2)
     actor_params = actor.init(jax.random.key(1))
-    trans, expert = _batch(2, S, A), _batch(3, S, A)
+    trans, expert = _batch(2, S, A, B), _batch(3, S, A, B)
     jt = {k: jnp.asarray(v) for k, v in trans.items()}
     je = {k: jnp.asarray(v) for k, v in expert.items()}
     cfg = AdversarialConfig(
@@ -90,7 +90,7 @@ def _compare(reference, spectral_norm, reward_function, gp, loss_function="BCE",
                 weight_decay=WD, loss_function=loss_function,
                 mixup_alpha=mixup_alpha, entropy_bonus=entropy_bonus, interpret=True,
             )
-        eps_gp, mix = _draws(k, loss_function, mixup_alpha)
+        eps_gp, mix = _draws(k, loss_function, mixup_alpha, B)
         loss, got_r = gail_update(
             hyper, st, te["states"], te["actions"], te["weights"],
             tt["states"], tt["actions"], tt["weights"], eps_gp, mix,
@@ -150,6 +150,23 @@ def test_bce_at_env_widths(S_, A_, Hd):
 def test_mixup_at_env_widths(S_, A_, Hd):
     """The tuned GAIL@10 configuration (Mixup, entropy bonus) likewise."""
     _compare("pallas", False, "AIRL", 0.436, "Mixup", 0.0248, 1.0, key=43, S=S_, A=A_, Hd=Hd)
+
+
+# iltpu's tuned batch (tuned.yaml's 1024) at the shapes the card's wide
+# variant takes there: ant's 112 + 8 and hopper's 12 + 3 at width 128
+TUNED_SHAPES = [(112, 8, 128), (12, 3, 128)]
+
+
+@pytest.mark.parametrize("S_,A_,Hd", TUNED_SHAPES)
+@pytest.mark.parametrize("loss_function", ["BCE", "Mixup"])
+def test_at_tuned_batch(S_, A_, Hd, loss_function):
+    """Batch 1024 against iltpu's kernel: the bench configuration (BCE) or
+    the tuned GAIL@10 one (Mixup, entropy bonus), 3 steps."""
+    if loss_function == "BCE":
+        _compare("pallas", True, "AIRL", GP, S=S_, A=A_, Hd=Hd, B=1024)
+    else:
+        _compare("pallas", False, "AIRL", 0.436, "Mixup", 0.0248, 1.0, key=43, S=S_, A=A_, Hd=Hd,
+                 B=1024)
 
 
 def test_wrapper_refuses_mixed_devices_and_a_wrong_mix():
