@@ -201,7 +201,22 @@ of JAX or `iltpu`. Phases, each printing its results:
    of GAIL per update judged on the SAC state: the card's distance from
    the float64 run at most max(1.0, the CPU's) x the chain tolerance,
    both printed; each run's steady env-steps/s beside
-   the one-block wide GAIL step's (`ONE_BLOCK_RATES`).
+   the one-block wide GAIL step's (`ONE_BLOCK_RATES`);
+12. D4RL's HDF5 expert data and the plots, on a machine with no h5py and
+   no matplotlib: (12a) `load_d4rl_hdf5` on `data/d4rl/hopper_expert.hdf5`
+   (decoded from its committed text form): every array equal to
+   `data/hopper_expert.npz`'s (the flags bool, the floats bit-equal), h5py
+   never imported, the load's wall ms; (12b) 10b's pipelined main path
+   (GAIL on 512 hopper envs, the SAC and GAIL kernels, the fused scan, full
+   widths) with `expert_data.source=hdf5`, 8,192 steps (16 an env: hopper's
+   episodes end from there, which the train_returns plot needs), a log
+   every iteration and the final evaluation: its expert ring bit-equal,
+   column by column, to the same trainer's ring built from the npz with the
+   same seed, the updates run the ones owed and each kernel launched once
+   an update; its steady env-steps/s beside 10b's pipelined rates; (12c)
+   the six plots that run wrote (`Trainer._plots`, the port's PNG writer),
+   each a valid PNG (signature, IHDR, every CRC) of 600 x 400, and the wall
+   ms of one `_plots` call.
 
 Then the steady rates and the pretraining times with the nvidia-smi line, one `kernels` JSON
 line (the per-update and K-blocked kernels at hopper's shapes with their
@@ -1354,11 +1369,12 @@ def timing(t):
             f"bound {t[3]:.5f} ms by {t[4]})")
 
 
-def run_trainer(name, extra, expect):
+def run_trainer(name, extra, expect, keep=None):
     """One full-width trainer run through its normal entry, counters set to
     0 just before and read just after; `expect(trainer)` gives the counts
     it must show. Returns (counts, steady env-steps/s or None for BC's
-    early exit, pretraining ms per iteration or None)."""
+    early exit, pretraining ms per iteration or None); appends the trainer
+    to `keep` where given."""
     import numpy as np
     import torch
     from iltpu_torch.config import load_config
@@ -1367,6 +1383,8 @@ def run_trainer(name, extra, expect):
     out_dir = os.path.join(REPO, "outputs", "chip_smoke", name)
     trainer = Trainer(load_config(TRAINER_ARGS + list(extra) + [f"output_dir={out_dir}"]),
                       out_dir=out_dir)
+    if keep is not None:
+        keep.append(trainer)
     reset_counts()
     t0 = time.time()
     score = trainer.run()
@@ -2461,6 +2479,134 @@ def check_mujoco(dev, results, rates, pre, launches, smi):
           f"the block's {h2d_ms:.4f}); on {smi}; phase 10 took {time.time() - t10:.1f} s")
 
 
+def d4rl_fixture():
+    """data/d4rl/hopper_expert.hdf5, decoded from its committed text form."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "d4rl_fixture", os.path.join(REPO, "data", "d4rl", "fixture.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.unpack()
+
+
+def png_size(path):
+    """(width, height) of a PNG whose signature, IHDR and every chunk's CRC
+    check out (it must end with IEND)."""
+    import zlib
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: no PNG signature")
+    p, tags = 8, []
+    while p < len(data):
+        n = int.from_bytes(data[p:p + 4], "big")
+        tag, body = data[p + 4:p + 8], data[p + 8:p + 8 + n]
+        if zlib.crc32(tag + body) != int.from_bytes(data[p + 8 + n:p + 12 + n], "big"):
+            raise AssertionError(f"{path}: bad CRC in {tag}")
+        if not tags:
+            if tag != b"IHDR":
+                raise AssertionError(f"{path}: first chunk {tag}")
+            size = (int.from_bytes(body[:4], "big"), int.from_bytes(body[4:8], "big"))
+        tags.append(tag)
+        p += 12 + n
+    if tags[-1] != b"IEND" or b"IDAT" not in tags:
+        raise AssertionError(f"{path}: chunks {tags}")
+    return size
+
+
+PLOTS = ("test_returns", "train_returns", "predicted_rewards", "sac_alpha", "sac_entropy",
+         "Q_values")
+
+
+def check_d4rl_hdf5(rates, pre, smi):
+    """Phase 12: (12a) D4RL's HDF5 fixture through the port's reader, equal
+    to data/hopper_expert.npz, h5py never imported; (12b) the main path
+    (10b's pipelined GAIL on 512 hopper envs) with expert_data.source=hdf5,
+    its expert ring bit-equal to the npz run's, each kernel launched once an
+    owed update; (12c) the six plots that run wrote, valid 600 x 400 PNGs,
+    and the ms of one `_plots` call."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from iltpu_torch.config import load_config
+    from iltpu_torch.data import load_d4rl_hdf5
+    from iltpu_torch.data.hdf5 import read_datasets
+    from iltpu_torch.data.replay import COLUMNS
+    from iltpu_torch.trainer import Trainer
+
+    t12 = time.time()
+    path = d4rl_fixture()
+    t0 = time.perf_counter()
+    data = load_d4rl_hdf5(path)
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    data.update(read_datasets(path, ["rewards"]))
+    with np.load(os.path.join(REPO, "data", "hopper_expert.npz")) as npz:
+        if sorted(data) != sorted(npz.files):
+            raise AssertionError(f"12a: keys {sorted(data)} != the npz's {sorted(npz.files)}")
+        for k in npz.files:
+            flag = k in ("terminals", "timeouts")
+            if data[k].dtype != (bool if flag else np.float32) or data[k].shape != npz[k].shape:
+                raise AssertionError(f"12a: {k} {data[k].dtype} {data[k].shape}")
+            same = (np.array_equal(data[k].astype(np.float32), npz[k]) if flag
+                    else data[k].tobytes() == npz[k].tobytes())
+            if not same:
+                raise AssertionError(f"12a: {k} differs from the npz's")
+    if "h5py" in sys.modules:
+        raise AssertionError("12a: h5py was imported")
+    print(f"d4rl hdf5: {path} ({os.path.getsize(path)} bytes, {len(data['observations'])} rows) "
+          f"read by load_d4rl_hdf5 in {load_ms:.2f} ms wall, equal to data/hopper_expert.npz "
+          f"(floats bit-equal, flags bool), h5py not imported, on {smi}")
+
+    # 12b: 16 iterations of 512 envs (hopper's episodes end from ~16 steps an env on: the
+    # train_returns plot), the steady window the last 8, a log each iteration (the update
+    # plots), the final evaluation (the test_returns plot) after the window
+    hdf5 = ("expert_data.source=hdf5", f"expert_data.path={path}")
+    args = (*HOPPER, "training.start=100", "training.pipeline=true", "steps=8192",
+            "training.timing_skip_steps=4096", "logging.interval=512")
+    shutil.rmtree(os.path.join(REPO, "outputs", "chip_smoke", "hopper_hdf5_pipeline"),
+                  ignore_errors=True)  # no plots of an earlier call
+    kept = []
+    counted, rates["hopper_hdf5_pipeline"], pre["hopper_hdf5_pipeline"] = run_trainer(
+        "hopper_hdf5_pipeline", (*args, *hdf5), owed(per_update), keep=kept)
+    trainer = kept[0]
+    out_dir = os.path.join(REPO, "outputs", "chip_smoke", "hopper_expert_npz")
+    npz_trainer = Trainer(load_config(TRAINER_ARGS + list(args) + [f"output_dir={out_dir}"]),
+                          out_dir=out_dir)
+    npz_trainer.env.close()
+    for col in COLUMNS:
+        a, b = trainer.expert.rows(col), npz_trainer.expert.rows(col)
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"12b: the expert ring's {col} differs from the npz run's")
+    rows = int(trainer.expert.rows("states").shape[0])
+    print(f"d4rl hdf5: GAIL on 512 hopper envs from the HDF5 file, pipelined: expert ring "
+          f"({rows} rows, {len(COLUMNS)} columns) bit-equal to the npz trainer's, launches "
+          f"{counted} for {trainer.updates_done} owed updates; steady "
+          f"{rates['hopper_hdf5_pipeline']:.1f} env-steps/s (10b pipelined in this call: "
+          f"{rates['hopper_pipeline']:.1f} and {rates['hopper_pipeline_again']:.1f}; this run logs "
+          f"each iteration) on {smi}")
+
+    # 12c
+    written = sorted(f for f in os.listdir(trainer.out_dir) if f.endswith(".png"))
+    if written != sorted(f"{p}.png" for p in PLOTS):
+        raise AssertionError(f"12c: plots written {written}")
+    for name in written:
+        if png_size(os.path.join(trainer.out_dir, name)) != (600, 400):
+            raise AssertionError(f"12c: {name} is not 600 x 400")
+    t0 = time.perf_counter()
+    trainer._plots()
+    plots_ms = 1e3 * (time.perf_counter() - t0)
+    for mod in ("matplotlib", "PIL", "h5py"):
+        if mod in sys.modules:
+            raise AssertionError(f"12c: {mod} was imported")
+    m = trainer.metrics
+    print(f"d4rl hdf5: the run's six plots valid 600 x 400 PNGs ({', '.join(written)}); one _plots "
+          f"call {plots_ms:.2f} ms wall ({len(m['test_steps'])} evaluations, "
+          f"{len(m['train_steps'])} episode ends, {len(m['update_steps'])} logged updates); "
+          f"on {smi}; phase 12 took {time.time() - t12:.1f} s")
+
+
 # Phase 7's GAIL runs: phase 5's kernel path at a small size
 SMALL_ARGS = [a for a in TRAINER_ARGS if not a.startswith(
     ("num_envs", "steps", "training.start", "training.timing", "memory.size"))] + [
@@ -2945,6 +3091,9 @@ def main():
 
     # 11. GAIL, PWIL and GMMIL on ant on their kernels; GAIL at the tuned widths
     wide_launches = check_wide_trainers(dev, rates, pre, smi)
+
+    # 12. D4RL's HDF5 expert data through the port's reader, the main path on it, the plots
+    check_d4rl_hdf5(rates, pre, smi)
 
     # the row-sum kernel's launches on its path: both of its entries
     launches["gaussian_rowsum"] += launches.pop("gmmil_witness_reward")

@@ -1,16 +1,46 @@
 """Expert demonstrations (D4RL-format arrays -> transitions): the port's
-copy of `build_expert_transitions` from `iltpu/data/dataset.py`, numpy only.
+copy of `load_d4rl_hdf5` and `build_expert_transitions` from
+`iltpu/data/dataset.py`, numpy only.
 
-Trajectory splitting at terminal/timeout indices, truncation to the first N
+`load_d4rl_hdf5` reads a D4RL HDF5 file through the port's own reader of
+the format (`data/hdf5.py`, no h5py). `build_expert_transitions` does the
+trajectory splitting at terminal/timeout indices, truncation to the first N
 trajectories, DAC absorbing-state wrapping, within-trajectory subsampling
 that keeps the absorbing pair, weights 1/subsample on absorbing transitions,
-and all-zero rewards. `load_d4rl_hdf5` is not ported yet (no h5py on the
-card's machine).
+and all-zero rewards.
 """
 
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from iltpu_torch.data.hdf5 import read_datasets
+
+D4RL_KEYS = ("observations", "actions", "next_observations", "terminals", "timeouts")
+
+
+def load_d4rl_hdf5(path: str) -> Dict[str, np.ndarray]:
+    """A D4RL-format HDF5 file's arrays, as iltpu's h5py loader gives them.
+
+    Where `next_observations` is missing it is the observations shifted by
+    one, each terminal-or-timeout boundary patched back to its own
+    observation (the shift must not cross into the next trajectory), and
+    `weights` zero the timeouts that are not terminals: their self-loop is
+    not a real transition. A missing file raises FileNotFoundError.
+    """
+    data = read_datasets(path, D4RL_KEYS)
+    if "next_observations" not in data:
+        obs = data["observations"]
+        next_obs = np.concatenate([obs[1:], obs[-1:]], axis=0)
+        terminals = np.asarray(data["terminals"]).reshape(-1).astype(bool)
+        timeouts = np.asarray(data["timeouts"]).reshape(-1).astype(bool)
+        ends = np.flatnonzero(terminals | timeouts)
+        next_obs[ends] = obs[ends]
+        data["next_observations"] = next_obs
+        weights = np.ones(len(obs), np.float32)
+        weights[timeouts & ~terminals] = 0.0
+        data["weights"] = weights
+    return data
 
 
 def build_expert_transitions(

@@ -71,9 +71,12 @@ back into the tensors the trainer built. The run writes `agent/`,
 `discriminator/` and the best evaluation's `agent_best/` as
 `utils.checkpoint` directories, and `metrics.pkl`. `profiling.trace_dir`
 opens iltpu's profiler window over the host loop (`ProfilerWindow`:
-torch.profiler, a Chrome trace). `render=true` on a MuJoCo env and
-`expert_data.source=hdf5` raise NotImplementedError naming the ROADMAP.md
-item; kernel flags that iltpu refuses raise iltpu's ValueError.
+torch.profiler, a Chrome trace). After every evaluation (and at BC's
+early exit) rank 0 writes iltpu's six metric plots (`utils.plotting`, PNG
+without matplotlib). `expert_data.source=hdf5` reads D4RL's HDF5 file
+through the port's own reader (`data.hdf5`). `render=true` on a MuJoCo env
+raises NotImplementedError naming the ROADMAP.md item; kernel flags that
+iltpu refuses raise iltpu's ValueError.
 `evaluation.on_host` (iltpu's default, true) evaluates through a numpy copy
 of the actor (`models.host_inference.host_greedy_fn`); false, through the
 device forward.
@@ -114,6 +117,7 @@ from iltpu_torch import convert
 from iltpu_torch.config import DotDict, validate_config
 from iltpu_torch.data import (
     build_expert_transitions,
+    load_d4rl_hdf5,
     random_d4rl_dataset,
     replay_append_batch,
     replay_from_transitions,
@@ -151,6 +155,7 @@ from iltpu_torch.updates import (
     target_estimation_update,
 )
 from iltpu_torch.utils.checkpoint import load_aux, load_checkpoint, save_checkpoint
+from iltpu_torch.utils.plotting import lineplot
 
 TRAINABLE_DISCRIMINATORS = ("DRIL", "GAIL", "RED")
 
@@ -218,12 +223,12 @@ def check_supported(cfg: DotDict) -> None:
 
 def _load_expert_dataset(cfg: DotDict, env) -> Dict[str, np.ndarray]:
     src = cfg.expert_data.source
+    if src == "hdf5":  # before the .npz test, as iltpu: an .npz path goes to the HDF5 reader
+        return load_d4rl_hdf5(cfg.expert_data.path)
     if src == "npz" or str(src).endswith(".npz") or (cfg.expert_data.path or "").endswith(".npz"):
         path = src if str(src).endswith(".npz") else cfg.expert_data.path
         with np.load(path) as data:
             return {k: data[k] for k in data.files}
-    if src == "hdf5":  # iltpu's load_d4rl_hdf5 needs h5py
-        raise _not_ported(f"expert_data.source={src}", "D4RL hdf5")
     assert src == "synthetic", f"unknown expert_data.source {src}"
     raw_obs = env.obs_size - (1 if cfg.imitation.absorbing else 0)
     n_traj = max(cfg.imitation.trajectories, 10)
@@ -821,6 +826,26 @@ class Trainer:
             if score > max(max(self.score[:-1], default=float("-inf")), self._best_prior):
                 save_checkpoint(best, self._best_tree(step, score),
                                 aux={"step": step, "score": score})
+        self._plots()  # rank 0 only: the others returned above
+
+    def _plots(self):
+        """iltpu's six metric plots (`iltpu/trainer.py:1339-1362`), same names,
+        labels and title, through the port's PNG writer."""
+        m, pre = self.metrics, os.path.join(self.out_dir, self.prefix)
+        cfg = self.cfg
+        title = f"{cfg.algorithm}: {cfg.env}"
+        if m["test_steps"]:
+            lineplot(m["test_steps"], m["test_returns"], pre + "test_returns", title=title)
+        if m["train_steps"]:
+            lineplot(m["train_steps"], m["train_returns"], pre + "train_returns", title=title)
+        if m["update_steps"]:
+            if cfg.algorithm != "SAC":
+                lineplot(m["update_steps"], m["predicted_rewards"], pre + "predicted_rewards",
+                         yaxis="Predicted Reward", title=title)
+            lineplot(m["update_steps"], m["alphas"], pre + "sac_alpha", yaxis="Alpha", title=title)
+            lineplot(m["update_steps"], m["entropies"], pre + "sac_entropy", yaxis="Entropy",
+                     title=title)
+            lineplot(m["update_steps"], m["Q_values"], pre + "Q_values", yaxis="Q-value", title=title)
 
     def _best_tree(self, step: int, score: float) -> Dict:
         return dict(convert.agent_tree(self.sac), step=np.asarray(step), score=np.asarray(score))
@@ -950,6 +975,8 @@ class Trainer:
                 self.metrics["test_steps"] = [0]
                 self.metrics["test_returns"] = [test_returns]
                 self.metrics["test_returns_normalized"] = [normalized]
+                if self.writer:
+                    self._plots()
                 self._save()
                 return float(np.mean(normalized))
         if self.algorithm in ("DRIL", "RED") and fresh:

@@ -1,0 +1,242 @@
+"""Metric line plots without matplotlib: the port's `lineplot` of
+`iltpu/utils/plotting.py`, which the card's machine cannot run.
+
+`lineplot(x, y, filename)` writes `<filename>.png` at iltpu's size (a 6 x 4
+inch figure at 100 dpi: 600 x 400 RGBA, white): the mean of each `y[i]` as
+a `#1f77b4` line 2 px wide over a +-1 (population) std band in the same
+colour at alpha 0.3, an axes frame with about 5 ticks on round numbers
+each way, tick labels, both axis labels and the title, in a 5 x 7 ASCII
+bitmap font kept here (no font file). The PNG is the signature, `IHDR`,
+one `IDAT` (`zlib`, filter type 0 on each row) and `IEND`. Rasterising is
+numpy array work; nothing loops over pixels.
+"""
+
+import math
+import os
+import struct
+import zlib
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+WIDTH, HEIGHT = 600, 400  # iltpu's figsize=(6, 4) at dpi=100
+LEFT, RIGHT, TOP, BOTTOM = 80, 585, 40, 345  # the axes' box in pixels (rows grow down)
+BLUE = np.array([0x1F, 0x77, 0xB4], np.uint8)
+BAND = np.round(0.3 * BLUE + 0.7 * 255.0).astype(np.uint8)  # alpha 0.3 over white
+INK = np.array([0, 0, 0], np.uint8)
+MARGIN = 0.05  # matplotlib's default data margins
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+# A 5 x 7 font for ASCII 32-126, in order: each glyph 7 rows of 5 bits (bit
+# 4 the leftmost pixel), two hex digits a row.
+_GLYPHS = """
+00000000000000 04040404040004 0A0A0A00000000 0A0A1F0A1F0A0A 040F140E051E04 18190204081303
+0C12140815120D 0C040800000000 02040808080402 08040202020408 0004150E150400 0004041F040400
+000000000C0408 0000001F000000 00000000000C0C 00010204081000 0E11131519110E 040C040404040E
+0E11010204081F 1F02040201110E 02060A121F0202 1F101E0101110E 0608101E11110E 1F010204080808
+0E11110E11110E 0E11110F01020C 000C0C000C0C00 000C0C000C0408 02040810080402 00001F001F0000
+08040201020408 0E110102040004 0E11010D15150E 0E1111111F1111 1E11111E11111E 0E11101010110E
+1C12111111121C 1F10101E10101F 1F10101E101010 0E11101711110F 1111111F111111 0E04040404040E
+0702020202120C 11121418141211 1010101010101F 111B1515111111 11111915131111 0E11111111110E
+1E11111E101010 0E11111115120D 1E11111E141211 0F10100E01011E 1F040404040404 1111111111110E
+11111111110A04 1111111515150A 11110A040A1111 1111110A040404 1F01020408101F 0E08080808080E
+00100804020100 0E02020202020E 040A1100000000 0000000000001F 08040200000000 00000E010F110F
+1010161911111E 00000E1010110E 01010D1311110F 00000E111F100E 0609081C080808 000F11110F010E
+10101619111111 04000C0404040E 0200060202120C 10101214181412 0C04040404040E 00001A15151111
+00001619111111 00000E1111110E 00001E111E1010 00000D130F0101 00001619101010 00000E100E011E
+08081C08080906 0000111111130D 00001111110A04 0000111115150A 0000110A040A11 000011110F010E
+00001F0204081F 02040408040402 04040404040404 08040402040408 00000815020000
+""".split()
+# (95, 7, 5): glyph, row, column
+FONT = (np.array([[int(g[2 * r:2 * r + 2], 16) for r in range(7)] for g in _GLYPHS])[..., None]
+        >> np.arange(4, -1, -1)) & 1
+
+
+def text_mask(text: str, scale: int = 1) -> np.ndarray:
+    """`text` in the bitmap font: a boolean (7 scale, 6 scale len - scale)
+    mask, one blank column between glyphs; characters outside ASCII 32-126
+    draw as '?'."""
+    codes = np.array([ord(c) - 32 if 32 <= ord(c) < 127 else ord("?") - 32 for c in text], int)
+    glyphs = np.pad(FONT[codes], ((0, 0), (0, 0), (0, 1)))  # (n, 7, 6)
+    mask = glyphs.transpose(1, 0, 2).reshape(7, -1)[:, :-1].astype(bool)
+    return np.kron(mask, np.ones((scale, scale), bool)) if scale > 1 else mask
+
+
+def _stamp(img: np.ndarray, mask: np.ndarray, row: int, col: int, color) -> None:
+    """Paint `mask` with its top-left corner at (row, col), clipped to the image."""
+    r0, c0 = max(row, 0), max(col, 0)
+    r1, c1 = min(row + mask.shape[0], img.shape[0]), min(col + mask.shape[1], img.shape[1])
+    if r0 < r1 and c0 < c1:
+        img[r0:r1, c0:c1][mask[r0 - row:r1 - row, c0 - col:c1 - col]] = color
+
+
+def draw_text(img, text: str, row: float, col: float, scale: int = 1, anchor: str = "cc",
+              vertical: bool = False) -> None:
+    """Draw `text` anchored at (row, col): `anchor` is two letters, the row's
+    (t top, c centre, b bottom) and the column's (l left, c centre, r right);
+    `vertical` turns it a quarter to read upwards, as a y label."""
+    if not text:
+        return
+    mask = text_mask(text, scale)
+    if vertical:
+        mask = np.rot90(mask)
+    h, w = mask.shape
+    dr = {"t": 0, "c": h // 2, "b": h}[anchor[0]]
+    dc = {"l": 0, "c": w // 2, "r": w}[anchor[1]]
+    _stamp(img, mask, int(round(row)) - dr, int(round(col)) - dc, INK)
+
+
+def nice_ticks(lo: float, hi: float) -> Tuple[np.ndarray, float]:
+    """About 5 ticks in [lo, hi] on multiples of 1, 2, 2.5 or 5 x 10^k,
+    and their step."""
+    raw = (hi - lo) / 5
+    mag = 10.0 ** math.floor(math.log10(raw))
+    step = next(m * mag for m in (1, 2, 2.5, 5, 10) if m * mag >= raw * (1 - 1e-9))
+    k = np.arange(math.ceil(lo / step - 1e-9), math.floor(hi / step + 1e-9) + 1)
+    return k * step + 0.0, step  # + 0.0: no -0
+
+
+def tick_label(v: float, step: float) -> str:
+    if v == 0:
+        return "0"
+    if abs(v) >= 1e6 or step < 1e-4:
+        return f"{v:.3g}"
+    decimals = max(0, -math.floor(math.log10(step) + 1e-9))
+    if round(step / 10.0 ** -decimals, 6) % 1:  # 2.5 x 10^k
+        decimals += 1
+    return f"{v:.{decimals}f}"
+
+
+def _limits(lo: float, hi: float) -> Tuple[float, float]:
+    """The data range with matplotlib's 5% margins; a single value widened."""
+    if hi - lo <= 1e-12 * max(abs(lo), abs(hi), 1e-300):
+        d = 0.1 * abs(lo) if lo else 1.0
+        return lo - d, hi + d
+    pad = MARGIN * (hi - lo)
+    return lo - pad, hi + pad
+
+
+class Axes:
+    """The data -> pixel transform of one plot: x over [LEFT, RIGHT], y over
+    [TOP, BOTTOM] upside down; pixel (row r, column c) covers
+    [r, r + 1) x [c, c + 1)."""
+
+    def __init__(self, x: np.ndarray, lower: np.ndarray, upper: np.ndarray):
+        if x.size:
+            self.x = _limits(float(x.min()), float(x.max()))
+            self.y = _limits(float(min(lower.min(), upper.min())), float(max(lower.max(), upper.max())))
+        else:
+            self.x = self.y = (0.0, 1.0)
+
+    def col(self, x):
+        return LEFT + (np.asarray(x, np.float64) - self.x[0]) / (self.x[1] - self.x[0]) * (RIGHT - LEFT)
+
+    def row(self, y):
+        return BOTTOM - (np.asarray(y, np.float64) - self.y[0]) / (self.y[1] - self.y[0]) * (BOTTOM - TOP)
+
+    def x_of(self, col):
+        return self.x[0] + (np.asarray(col, np.float64) - LEFT) / (RIGHT - LEFT) * (self.x[1] - self.x[0])
+
+
+def statistics(x: Sequence[float], y: List[Sequence[float]]):
+    """iltpu's float64 means and population stds of each y[i], with x, the
+    points where all three are finite."""
+    x = np.asarray(x, np.float64)
+    means = np.asarray([np.mean(v) for v in y], np.float64)
+    stds = np.asarray([np.std(v) for v in y], np.float64)
+    ok = np.isfinite(x) & np.isfinite(means) & np.isfinite(stds)
+    return x[ok], means[ok], stds[ok]
+
+
+def axes_for(x: Sequence[float], y: List[Sequence[float]]) -> Axes:
+    """The transform `lineplot(x, y, ...)` draws with."""
+    x, m, s = statistics(x, y)
+    return Axes(x, m - s, m + s)
+
+
+def _band(img, ax: Axes, x, lower, upper) -> None:
+    """The band between `lower` and `upper`, linear between the points: in
+    every pixel column from the first x to the last, the rows from the one
+    holding the upper edge to the one holding the lower, blended at alpha 0.3."""
+    order = np.argsort(x, kind="stable")
+    x, lower, upper = x[order], lower[order], upper[order]
+    c0, c1 = ax.col(x[0]), ax.col(x[-1])
+    cols = np.arange(int(math.floor(c0)), int(math.floor(c1)) + 1)
+    centres = np.clip(ax.x_of(cols + 0.5), x[0], x[-1])
+    top, bottom = ax.row(np.interp(centres, x, upper)), ax.row(np.interp(centres, x, lower))
+    rows = np.arange(TOP, BOTTOM)[:, None]
+    inside = (rows >= np.floor(top)) & (rows <= np.floor(bottom))
+    img[TOP:BOTTOM, cols[0]:cols[-1] + 1][inside] = BAND
+
+
+def _polyline(img, ax: Axes, x, y) -> None:
+    """The line through the points, 2 px wide: each segment sampled at
+    least once a pixel, each sample painting the 2 x 2 pixels nearest it."""
+    c, r = ax.col(x), ax.row(y)
+    dc, dr = np.diff(c), np.diff(r)
+    n = np.ceil(np.maximum(np.abs(dc), np.abs(dr))).astype(int) + 1  # samples a segment
+    seg = np.repeat(np.arange(len(dc)), n)
+    t = (np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)) / np.repeat(np.maximum(n - 1, 1), n)
+    cs = np.concatenate([c[seg] + t * dc[seg], c[-1:]])
+    rs = np.concatenate([r[seg] + t * dr[seg], r[-1:]])
+    cc = np.floor(cs - 0.5).astype(int)[:, None] + np.array([0, 1, 0, 1])
+    rr = np.floor(rs - 0.5).astype(int)[:, None] + np.array([0, 0, 1, 1])
+    keep = (cc >= LEFT) & (cc < RIGHT) & (rr >= TOP) & (rr < BOTTOM)
+    img[rr[keep], cc[keep]] = BLUE
+
+
+def _frame(img, ax: Axes, xaxis: str, yaxis: str, title: str) -> None:
+    """The axes' frame, ticks outward with their labels, the labels, the title."""
+    img[TOP, LEFT:RIGHT + 1] = img[BOTTOM, LEFT:RIGHT + 1] = INK
+    img[TOP:BOTTOM + 1, LEFT] = img[TOP:BOTTOM + 1, RIGHT] = INK
+    ticks, step = nice_ticks(*ax.x)
+    for v, c in zip(ticks, np.round(ax.col(ticks)).astype(int)):
+        img[BOTTOM + 1:BOTTOM + 5, c] = INK
+        draw_text(img, tick_label(v, step), BOTTOM + 7, c, anchor="tc")
+    ticks, step = nice_ticks(*ax.y)
+    for v, r in zip(ticks, np.round(ax.row(ticks)).astype(int)):
+        img[r, LEFT - 4:LEFT] = INK
+        draw_text(img, tick_label(v, step), r, LEFT - 7, anchor="cr")
+    draw_text(img, xaxis, HEIGHT - 12, (LEFT + RIGHT) / 2, scale=2, anchor="bc")
+    draw_text(img, yaxis, (TOP + BOTTOM) / 2, 6, scale=2, anchor="cl", vertical=True)
+    draw_text(img, title, TOP - 10, (LEFT + RIGHT) / 2, scale=2, anchor="bc")
+
+
+def png_bytes(rgba: np.ndarray) -> bytes:
+    """An 8-bit RGBA image (rows, columns, 4) as PNG: one IDAT, filter type 0."""
+    h, w, _ = rgba.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgba.reshape(h, -1)], axis=1)
+    return (PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
+
+
+def render(x: Sequence[float], y: List[Sequence[float]], xaxis: str = "Steps",
+           yaxis: str = "Returns", title: str = "") -> np.ndarray:
+    """The plot as a (400, 600, 4) uint8 RGBA array."""
+    x, m, s = statistics(x, y)
+    ax = Axes(x, m - s, m + s)
+    img = np.full((HEIGHT, WIDTH, 3), 255, np.uint8)
+    if x.size:
+        _band(img, ax, x, m - s, m + s)
+        _polyline(img, ax, x, m)
+    _frame(img, ax, xaxis, yaxis, title)
+    return np.concatenate([img, np.full((HEIGHT, WIDTH, 1), 255, np.uint8)], axis=2)
+
+
+def lineplot(
+    x: Sequence[float],
+    y: List[Sequence[float]],
+    filename: str,
+    xaxis: str = "Steps",
+    yaxis: str = "Returns",
+    title: str = "",
+):
+    """y is a list (per x) of per-episode/per-batch value lists; writes
+    `<filename>.png` with their mean and a +-1 std band, as iltpu's."""
+    os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+    with open(f"{filename}.png", "wb") as f:
+        f.write(png_bytes(render(x, y, xaxis, yaxis, title)))

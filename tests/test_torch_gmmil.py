@@ -241,9 +241,19 @@ def test_kernel_flags_iltpu_refuses_raise_value_error(tmp_path, flag):
 
 @pytest.mark.parametrize("override,item", [
     ("render=true env=hopper env_backend=native", "Render"),
-    ("expert_data.source=hdf5", "D4RL hdf5"),
+    ("expert_data.source=hdf5 expert_data.path=no/such/d4rl.hdf5", None),
     ("render=true env=walker2d env_backend=mujoco", "Render"),
 ])
 def test_refuses_what_is_not_ported(tmp_path, override, item):
+    """Rendering a MuJoCo env raises NotImplementedError naming its ROADMAP
+    item; D4RL's hdf5 expert data is ported, and a file that is not there
+    raises FileNotFoundError in both packages (iltpu's through h5py)."""
+    args = GMMIL + override.split()
+    if item is None:
+        with pytest.raises(FileNotFoundError):
+            Trainer(load_config(args + ["platform=cpu"]), out_dir=str(tmp_path))
+        with pytest.raises(FileNotFoundError):
+            JaxTrainer(jax_load_config(args), out_dir=str(tmp_path / "jax"))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, '{item}'"):
-        Trainer(load_config(GMMIL + override.split() + ["platform=cpu"]), out_dir=str(tmp_path))
+        Trainer(load_config(args + ["platform=cpu"]), out_dir=str(tmp_path))

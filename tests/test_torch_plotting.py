@@ -1,0 +1,177 @@
+"""The port's metric plots (iltpu_torch/utils/plotting.py, no matplotlib)
+against iltpu's (`iltpu/utils/plotting.py`, matplotlib): `Trainer._plots` of
+both packages on the same metrics (GAIL, SAC, BC's early exit) write the
+same file names at the same size; the port's PNGs decode through zlib here
+with every CRC valid; the mean line and the +-1 std band lie where the
+module's own axis transform puts them; edge cases write valid files; and
+the port's trainer writes the plots at iltpu's two call sites (after an
+evaluation, and at BC's early exit)."""
+
+import os
+import struct
+import zlib
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from iltpu.trainer import Trainer as JaxTrainer
+from iltpu_torch.config import load_config
+from iltpu_torch.trainer import Trainer
+from iltpu_torch.utils import plotting
+from test_torch_trainer import BASE
+
+torch.set_num_threads(1)
+
+
+def decode_png(path, pixels=True):
+    """(width, height, RGBA array) of an 8-bit RGBA PNG whose rows all use
+    filter type 0 (the port's), every chunk's CRC checked; with
+    pixels=False (matplotlib's, whose rows take other filters) the array is
+    None."""
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    p, chunks = 8, []
+    while p < len(data):
+        (n,) = struct.unpack(">I", data[p:p + 4])
+        tag, body = data[p + 4:p + 8], data[p + 8:p + 8 + n]
+        (crc,) = struct.unpack(">I", data[p + 8 + n:p + 12 + n])
+        assert zlib.crc32(tag + body) == crc, tag
+        chunks.append((tag, body))
+        p += 12 + n
+    assert chunks[0][0] == b"IHDR" and chunks[-1] == (b"IEND", b"")
+    w, h, depth, color = struct.unpack(">IIBB", chunks[0][1][:10])
+    if not pixels:
+        return w, h, None
+    assert (depth, color) == (8, 6)
+    raw = zlib.decompress(b"".join(body for tag, body in chunks if tag == b"IDAT"))
+    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + 4 * w)
+    assert not rows[:, 0].any(), "filter type 0 on every row"
+    return w, h, rows[:, 1:].reshape(h, w, 4)
+
+
+def metrics(algorithm, seed=0):
+    """A metrics dict as a run leaves it: 10 evaluations, 30 episode ends,
+    12 logged updates (BC's early exit: one evaluation at step 0, nothing
+    else)."""
+    rng = np.random.default_rng(seed)
+    if algorithm == "BC":
+        return dict(train_steps=[], train_returns=[], test_steps=[0],
+                    test_returns=[list(rng.normal(500, 40, 5))], update_steps=[],
+                    predicted_rewards=[], alphas=[], entropies=[], Q_values=[])
+    t = np.arange(1, 11) * 10_000
+    u = np.arange(1, 13) * 8_000
+    return dict(
+        test_steps=t.tolist(), test_returns=[list(rng.normal(300 * i, 50, 5)) for i in range(10)],
+        train_steps=np.sort(rng.integers(1_000, 100_000, 30)).tolist(),
+        train_returns=[[float(v)] for v in rng.normal(1_000, 300, 30)],
+        update_steps=u.tolist(),
+        predicted_rewards=[list(rng.normal(-0.1 * i, 0.05, 16)) for i in range(12)],
+        alphas=[float(v) for v in np.exp(-0.2 * np.arange(12))],
+        entropies=[list(rng.normal(-3 + 0.1 * i, 0.3, 16)) for i in range(12)],
+        Q_values=[list(rng.normal(20 * i, 5, 16)) for i in range(12)],
+    )
+
+
+def plot_with(cls, m, algorithm, out_dir):
+    os.makedirs(out_dir, exist_ok=True)
+    cls._plots(SimpleNamespace(metrics=m, out_dir=str(out_dir), prefix="",
+                               cfg=SimpleNamespace(algorithm=algorithm, env="hopper")))
+    return sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+
+
+# what iltpu's _plots passes: {file: (x key, y key, y label)}
+SERIES = {"test_returns": ("test_steps", "test_returns", "Returns"),
+          "train_returns": ("train_steps", "train_returns", "Returns"),
+          "predicted_rewards": ("update_steps", "predicted_rewards", "Predicted Reward"),
+          "sac_alpha": ("update_steps", "alphas", "Alpha"),
+          "sac_entropy": ("update_steps", "entropies", "Entropy"),
+          "Q_values": ("update_steps", "Q_values", "Q-value")}
+
+
+def assert_drawn(img, x, y):
+    """At each x, a #1f77b4 pixel within 1 px of the mean's row under the
+    module's own transform; the band's pixels within 1 px of mean +- std,
+    and band and line together covering that span."""
+    ax = plotting.axes_for(x, y)
+    xs = np.asarray(x, np.float64)  # iltpu's statistics, float64
+    means = np.asarray([np.mean(v) for v in y], np.float64)
+    stds = np.asarray([np.std(v) for v in y], np.float64)
+    rgb = img[..., :3]
+    blue = (rgb == plotting.BLUE).all(-1)
+    band = (rgb == plotting.BAND).all(-1)
+    assert (img[..., 3] == 255).all()
+    for xi, m, s in zip(xs, means, stds):
+        c, r = int(np.floor(ax.col(xi))), int(np.floor(ax.row(m)))
+        assert blue[r - 1:r + 2, c].any(), (xi, m)
+        top, bottom = int(np.floor(ax.row(m + s))), int(np.floor(ax.row(m - s)))
+        rows = np.flatnonzero(band[:, c])
+        if rows.size:
+            assert rows.min() >= top - 1 and rows.max() <= bottom + 1, (xi, rows, top, bottom)
+        filled = np.flatnonzero(band[:, c] | blue[:, c])
+        assert filled.min() <= top + 1 and filled.max() >= bottom - 1, (xi, top, bottom)
+
+
+@pytest.mark.parametrize("algorithm", ["GAIL", "SAC", "BC"])
+def test_plots_match_iltpu(tmp_path, algorithm):
+    pytest.importorskip("matplotlib")
+    m = metrics(algorithm)
+    ref = plot_with(JaxTrainer, m, algorithm, tmp_path / "jax")
+    got = plot_with(Trainer, m, algorithm, tmp_path / "torch")
+    assert got == ref
+    assert len(got) == {"GAIL": 6, "SAC": 5, "BC": 1}[algorithm]
+    for name in got:
+        w, h, img = decode_png(tmp_path / "torch" / name)
+        rw, rh, _ = decode_png(tmp_path / "jax" / name, pixels=False)
+        assert (w, h) == (rw, rh) == (600, 400)
+        xk, yk, _ = SERIES[name[:-4]]
+        assert_drawn(img, m[xk], m[yk])
+
+
+@pytest.mark.parametrize("case", ["single_point", "constant", "negative", "empty", "nan"])
+def test_edge_cases_write_valid_files(tmp_path, case):
+    x, y = {
+        "single_point": ([0], [[3.0, 4.0]]),
+        "constant": (list(range(0, 5000, 500)), [[2.5]] * 10),
+        "negative": ([1, 2, 3, 4], [[-1e6, -2e6], [-3e6], [-2.5e6, -1e5], [-7e5]]),
+        "empty": ([], []),
+        "nan": ([1, 2, 3], [[1.0], [float("nan")], [3.0]]),
+    }[case]
+    plotting.lineplot(x, y, str(tmp_path / "sub" / case), yaxis="Q-value", title="GAIL: hopper")
+    w, h, img = decode_png(tmp_path / "sub" / f"{case}.png")
+    assert (w, h) == (600, 400)
+    if case not in ("empty", "nan"):
+        assert_drawn(img, x, y)
+    if case == "constant":  # std 0: the line alone, where the band would be
+        ax = plotting.axes_for(x, y)
+        assert ax.y[0] < 2.5 < ax.y[1]
+
+
+def test_text_ticks_and_font():
+    assert plotting.FONT.shape == (95, 7, 5)
+    assert plotting.text_mask("Steps", 2).shape == (14, 2 * (6 * 5 - 1))
+    ticks, step = plotting.nice_ticks(-0.05, 1.05)
+    assert ticks.tolist() == [0.0, 0.25, 0.5, 0.75, 1.0] and step == 0.25
+    assert [plotting.tick_label(v, 2500) for v in (0, 2500, 5000)] == ["0", "2500", "5000"]
+    assert plotting.tick_label(0.25, 0.25) == "0.25"
+    assert plotting.tick_label(-1.5, 0.5) == "-1.5"
+
+
+def test_trainer_writes_the_plots_at_both_call_sites(tmp_path):
+    """After each evaluation (GAIL, an evaluation every 200 steps, episodes of
+    100 steps on pointmass ending) and at BC's early exit, the port's trainer writes the
+    files iltpu's _plots names for its metrics."""
+    runs = {"GAIL": ["evaluation.interval=200", "steps=600"],
+            "BC": ["algorithm=BC", "bc_pretraining.iterations=20", "training.sac_pallas=false",
+                   "training.disc_pallas=false", "training.fused_update_scan=false"]}
+    for alg, extra in runs.items():
+        out = tmp_path / alg
+        t = Trainer(load_config(BASE + extra + ["logging.interval=50", "platform=cpu"]),
+                    out_dir=str(out))
+        t.run()
+        written = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        assert written == plot_with(JaxTrainer, t.metrics, alg, tmp_path / f"{alg}_jax")
+        assert len(written) == {"GAIL": 6, "BC": 1}[alg]
+        for name in written:
+            assert decode_png(out / name)[:2] == (600, 400)

@@ -10,6 +10,7 @@ runs through the CLI on the CPU (GAIL, and SAC, BC, SQIL, DRIL, RED); the
 package imports neither JAX nor iltpu; what is not ported raises; and
 without platform=cpu and without CUDA the entry point raises."""
 
+import importlib.util
 import json
 import os
 import pickle
@@ -63,6 +64,18 @@ TUNEDLIKE = [
 # iltpu's main path at a small size: hopper on the C++ stepper, its expert data
 HOPPER = ["env=hopper", "env_backend=native",
           f"expert_data.source={os.path.join(REPO, 'data', 'hopper_expert.npz')}"]
+
+
+def hopper_hdf5() -> str:
+    """data/d4rl/hopper_expert.hdf5 (D4RL's layout of data/hopper_expert.npz,
+    written by h5py: data/d4rl/make_fixture.py), decoded from its committed
+    text form by data/d4rl/fixture.py."""
+    spec = importlib.util.spec_from_file_location(
+        "d4rl_fixture", os.path.join(REPO, "data", "d4rl", "fixture.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.unpack()
+
 # ant: 112 + 8 = 120 discriminator inputs, the card's wide GAIL variant
 ANT = ["env=ant", "env_backend=native",
        f"expert_data.source={os.path.join(REPO, 'data', 'ant_expert.npz')}"]
@@ -328,8 +341,8 @@ def test_port_imports_neither_jax_nor_iltpu(tmp_path):
     (a one-rank gloo group) and one under parallel.shard_params, a two-job
     `-m` run, and a pipelined run that checkpoints,
     resumed: beside an `agent_best/` that holds only iltpu's header.pkl (a
-    pickled JAX treedef, never opened), neither JAX, iltpu nor PyYAML is
-    imported."""
+    pickled JAX treedef, never opened), and D4RL's HDF5 fixture read, neither
+    JAX, iltpu, PyYAML, h5py, matplotlib nor PIL is imported."""
     best = tmp_path / "resume" / "agent_best"
     best.mkdir(parents=True)
     (best / "header.pkl").write_bytes(b"not a pickle the port may open")
@@ -363,8 +376,11 @@ t = Trainer(load_config({CLI + ['platform=cpu', 'steps=300', 'training.pipeline=
                         + ["checkpointing.resume=" + ckpt]), out_dir={str(tmp_path / 'resume')!r})
 assert t.start_step == 200, t.start_step
 t.run()
+from iltpu_torch.data import load_d4rl_hdf5
+assert len(load_d4rl_hdf5({hopper_hdf5()!r})["observations"]) == 19378
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "iltpu", "yaml", "mujoco", "gymnasium"))
+             if m.split(".")[0] in ("jax", "jaxlib", "iltpu", "yaml", "mujoco", "gymnasium",
+                                    "h5py", "matplotlib", "PIL"))
 assert not bad, bad
 print("clean")
 """
@@ -382,8 +398,12 @@ def test_gpu_entry_point_raises_without_cuda(tmp_path, monkeypatch):
                 Trainer(load_config(args + platform), out_dir=str(tmp_path))
 
 
+# an HDF5 file that is not there (relative: no tmp_path in a parametrisation)
+MISSING_HDF5 = "expert_data.source=hdf5 expert_data.path=no/such/d4rl.hdf5"
+
+
 @pytest.mark.parametrize("override,error,match", [
-    ("expert_data.source=hdf5", NotImplementedError, "ROADMAP.md, 'D4RL hdf5'"),
+    (MISSING_HDF5, FileNotFoundError, "d4rl.hdf5"),
     ("imitation.discriminator.reward_shaping=true", ValueError, "training.disc_pallas=true supports"),
     ("imitation.state_only=true", ValueError, "training.disc_pallas=true supports"),
     ("render=true env=hopper env_backend=native", NotImplementedError, "ROADMAP.md, 'Render'"),
@@ -391,15 +411,16 @@ def test_gpu_entry_point_raises_without_cuda(tmp_path, monkeypatch):
     ("imitation.loss_function=PUGAIL", ValueError, "training.disc_pallas=true supports"),
 ])
 def test_refuses_pwil_gail_options_and_kernel_shapes(tmp_path, override, error, match):
-    """D4RL's hdf5 expert data and rendering a MuJoCo env are not ported;
-    the kernel flags refuse what iltpu refuses (the GAIL input options on the
-    GAIL kernel among them), with its ValueError."""
+    """Rendering a MuJoCo env is not ported; D4RL's hdf5 expert data is, and
+    an HDF5 file that is not there raises FileNotFoundError in both packages
+    (iltpu's through h5py); the kernel flags refuse what iltpu refuses (the
+    GAIL input options on the GAIL kernel among them), with its ValueError."""
     base = BASE if error is ValueError else COMMON + ["algorithm=GAIL"]
     args = base + TUNEDLIKE[:1] + override.split() + ["platform=cpu"]
     with pytest.raises(error, match=match):
         Trainer(load_config(args), out_dir=str(tmp_path))
-    if error is ValueError:
-        with pytest.raises(ValueError):
+    if error is not NotImplementedError:
+        with pytest.raises(error):
             JaxTrainer(jax_load_config(args[:-1]), out_dir=str(tmp_path / "jax"))
 
 
@@ -569,3 +590,54 @@ def test_expert_data_at_each_env_width(tmp_path, name):
     assert int(tt.expert.num_trajectories) == int(expert.num_trajectories)
     if "v2" not in name:  # every end a timeout: no absorbing rows
         assert not tt.expert.rows("terminals").any()
+
+
+def test_d4rl_hdf5_fixture_matches_iltpu_and_the_npz():
+    """data/d4rl/hopper_expert.hdf5 through the port's reader equals iltpu's
+    h5py read exactly, and its values equal data/hopper_expert.npz's (the
+    flags bool there, float32 in the npz; the floats bit-equal)."""
+    pytest.importorskip("h5py")
+    from iltpu.data.dataset import load_d4rl_hdf5 as jax_load
+    from iltpu_torch.data import load_d4rl_hdf5
+    from iltpu_torch.data.hdf5 import read_datasets
+
+    path = hopper_hdf5()
+    port, ref = load_d4rl_hdf5(path), jax_load(path)
+    assert list(port) == list(ref)
+    for k in ref:
+        assert port[k].dtype == ref[k].dtype and port[k].shape == ref[k].shape, k
+        assert np.array_equal(port[k], ref[k]), k
+    with np.load(os.path.join(REPO, "data", "hopper_expert.npz")) as npz:
+        port.update(read_datasets(path, ["rewards"]))
+        assert sorted(port) == sorted(npz.files)
+        for k in npz.files:
+            assert port[k].dtype == (bool if k in ("terminals", "timeouts") else np.float32), k
+            if port[k].dtype == bool:
+                np.testing.assert_array_equal(port[k], npz[k].astype(bool), err_msg=k)
+                np.testing.assert_array_equal(port[k].astype(np.float32), npz[k], err_msg=k)
+            else:
+                assert port[k].tobytes() == npz[k].tobytes(), k
+
+
+@pytest.mark.parametrize("to_timeouts", [True, False], ids=["terminals_to_timeouts", "as_stored"])
+def test_expert_data_from_hdf5_matches_iltpu(tmp_path, to_timeouts):
+    """expert_data.source=hdf5 on hopper's stepper: the port's and iltpu's
+    trainers build equal expert buffers, column for column, and the port's
+    equals its own buffer from the npz (build_expert_transitions casts the
+    bool flags to float32)."""
+    pytest.importorskip("h5py")
+    args = [a for a in COMMON if not a.startswith(("env", "imitation.trajectories"))] + [
+        "algorithm=SAC", "env=hopper", "env_backend=native", "imitation.trajectories=0",
+        f"expert_data.terminals_to_timeouts={str(to_timeouts).lower()}"]
+    hdf5 = ["expert_data.source=hdf5", f"expert_data.path={hopper_hdf5()}"]
+    npz = [f"expert_data.source={os.path.join(REPO, 'data', 'hopper_expert.npz')}"]
+    jt = JaxTrainer(jax_load_config(args + hdf5), out_dir=str(tmp_path / "jax"))
+    tt = Trainer(load_config(args + hdf5 + ["platform=cpu"]), out_dir=str(tmp_path / "torch"))
+    tn = Trainer(load_config(args + npz + ["platform=cpu"]), out_dir=str(tmp_path / "npz"))
+    expert = jt.state["expert"]
+    for col in ("states", "actions", "rewards", "next_states", "terminals", "timeouts", "weights"):
+        np.testing.assert_array_equal(tt.expert.rows(col).numpy(), np.asarray(getattr(expert, col)),
+                                      err_msg=col)
+        assert tt.expert.rows(col).numpy().tobytes() == tn.expert.rows(col).numpy().tobytes(), col
+    assert int(tt.expert.num_trajectories) == int(expert.num_trajectories) == \
+        int(tn.expert.num_trajectories)
