@@ -23,7 +23,10 @@ of JAX or `iltpu`. Phases, each printing its results:
    batch) for one step and the chain. Tolerance:
    |kernel - plain| <= atol + rtol |plain| with rtol 2e-5 / atol 2e-6 for one
    step and 1e-4 / 1e-5 for the chain (fp32, summed in another order); SAC
-   also at batch 1024, past the GEMM's whole-depth panels; GAIL's Mixup
+   also at batch 1024, past the GEMM's whole-depth panels; both at the
+   tuned GAIL@10 batch of 512 on hopper (13c's path; SAC at min_alpha
+   0.05, GAIL's Mixup step on its routed variant and the tiled one), the
+   route and grid printed; GAIL's Mixup
    also with a Beta(0.5, 0.5) draw from the trainer's capture-safe
    sampler (`mixup_alpha=0.5`) at both shapes. Each kernel is
    timed twice: on the device alone (the median of CUDA events around each
@@ -216,7 +219,21 @@ of JAX or `iltpu`. Phases, each printing its results:
    an update; its steady env-steps/s beside 10b's pipelined rates; (12c)
    the six plots that run wrote (`Trainer._plots`, the port's PNG writer),
    each a valid PNG (signature, IHDR, every CRC) of 600 x 400, and the wall
-   ms of one `_plots` call.
+   ms of one `_plots` call;
+13. the analysis layer, on a machine with no pandas and no matplotlib:
+   (13a) `iltpu_torch.analysis.seed_sweep_report` on 7b's two jobs linked
+   into the `<ALG>_<env>/<run>` layout: its IQM and CI 7d's at the same
+   2,000 reps, its figure a valid 960 x 420 PNG; (13b)
+   `iltpu_torch.analysis.hp_opt_report` on 7c's `sweep.jsonl`: the rows in
+   descending min_score, each trial once, the figure at iltpu's size for
+   the sweep's parameters; (13c) `iltpu_torch.validate_learning` on the
+   card into a directory of its own: GAIL on hopper (tuned, 10
+   trajectories of hopper_expert_v2, min_alpha 0.05), 256 envs on the C++
+   stepper, seeds 1 and 2 of 20,480 steps with an evaluation of 5 episodes
+   every 10,240, the SAC and GAIL kernels launched once an owed update,
+   each row's eval curve 2 finite points, each run's env-steps/s; then the
+   seed-sweep report on those rows, its numbers recomputed from them. Each
+   part prints its host wall ms.
 
 Then the steady rates and the pretraining times with the nvidia-smi line, one `kernels` JSON
 line (the per-update and K-blocked kernels at hopper's shapes with their
@@ -762,12 +779,14 @@ def check_autograd_gail(S, A, bce, dev):
 # The GAIL step at other shapes (inputs of 4 to 28 features, widths of 16 to
 # 128; the routed variant, and the tiled one too where the route passed it
 # over), a ragged batch, the GAIL and FAIRL heads, no penalty, and Mixup
-# with spectral norm: (S, A, B, Hd, bce, changes to gail_case).
+# with spectral norm, and the tuned GAIL@10 step on hopper at its batch of 512
+# (tuned.yaml; the learning-validation harness's path, 13c): (S, A, B, Hd, bce,
+# changes to gail_case).
 GAIL_VARIANTS = (
     (3, 1, 256, 16, True, {"grad_penalty": 0.0, "reward_function": "GAIL"}),
     (5, 2, 256, 128, False, {"sn": True, "reward_function": "FAIRL"}),
     (12, 3, 256, 32, True, {}), (12, 3, 256, 128, True, {}), (21, 7, 256, 32, False, {}),
-    (18, 6, 256, 64, True, {}), (12, 3, 100, 64, False, {}),
+    (18, 6, 256, 64, True, {}), (12, 3, 100, 64, False, {}), (12, 3, 512, 64, False, {}),
 )
 
 
@@ -2789,6 +2808,141 @@ def check_aggregation(jobs):
         raise AssertionError(f"aggregation: tensor {tensor.shape}, IQM {point} CI [{lo}, {hi}]")
     print(f"aggregation: 2 seeds x 1 env at steps {list(steps)}: IQM {point:.4f}, 95% CI "
           f"[{lo:.4f}, {hi:.4f}] (stratified bootstrap, 2,000 reps)")
+    return point, lo, hi
+
+
+def report_out(name):
+    """A fresh directory for phase 13's `name` under outputs/chip_smoke/reports."""
+    import shutil
+
+    d = os.path.join(REPO, "outputs", "chip_smoke", "reports", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def check_seed_sweep_report(jobs, aggregation, smi):
+    """13a: `python -m iltpu_torch.analysis.seed_sweep_report` on 7b's two
+    jobs, linked into the `<ALG>_<env>/<run>` layout that `--root` globs:
+    its results 7d's IQM and CI at the same 2,000 reps, its figure a valid
+    PNG of 960 x 420 (one env panel and the aggregate, 4 x 3.5 in each at
+    120 dpi)."""
+    from iltpu_torch.analysis import seed_sweep_report
+
+    root = report_out("seed_sweep")
+    os.makedirs(os.path.join(root, "GAIL_pointmass"))
+    for i, d in enumerate(jobs):
+        os.symlink(d, os.path.join(root, "GAIL_pointmass", str(i)))
+    png = os.path.join(root, "sample_efficiency.png")
+    t0 = time.time()
+    results = seed_sweep_report.main(["--root", root, "--algorithms", "GAIL", "--envs", "pointmass",
+                                      "--reps", "2000", "--out", png])
+    wall_ms = 1e3 * (time.time() - t0)
+    r = results["GAIL"]
+    if (r["iqm"], r["ci_lo"], r["ci_hi"]) != aggregation or (r["seeds"], r["envs"]) != (2, 1):
+        raise AssertionError(f"seed-sweep report: {r} against 7d's IQM and CI {aggregation}")
+    if png_size(png) != (960, 420):
+        raise AssertionError(f"seed-sweep report: {png} is {png_size(png)}, not 960 x 420")
+    print(f"seed-sweep report (13a): 7b's 2 seeds, IQM {r['iqm']:.4f} [{r['ci_lo']:.4f}, "
+          f"{r['ci_hi']:.4f}] = 7d's, {r['evals']} evals, a 960 x 420 PNG, {wall_ms:.2f} ms wall on "
+          f"the host; on {smi}")
+
+
+def check_hp_opt_report(smi):
+    """13b: `python -m iltpu_torch.analysis.hp_opt_report` on 7c's
+    `sweep.jsonl`: the table's rows in descending `min_score`, every trial
+    once, its figure a valid PNG of iltpu's size for the sweep's parameters."""
+    import contextlib
+    import io
+    import math
+
+    from iltpu_torch.analysis import hp_opt_report
+
+    sweep = os.path.join(REPO, "outputs", "chip_smoke", "train_all", "outputs", "all_GAIL", "sweep.jsonl")
+    png = os.path.join(report_out("hp_opt"), "hp_opt.png")
+    printed = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(printed):
+        columns, ranked = hp_opt_report.main([sweep, "--out", png])
+    wall_ms = 1e3 * (time.time() - t0)
+    with open(sweep) as f:
+        trials = sorted(json.loads(line)["trial"] for line in f)
+    scores = [r["min_score"] for r in ranked]
+    shown = [int(line.split()[0]) for line in printed.getvalue().splitlines()[1:1 + len(ranked)]]
+    if (scores != sorted(scores, reverse=True) or sorted(r["trial"] for r in ranked) != trials
+            or shown != [r["trial"] for r in ranked] or columns[:3] != ["trial", "min_score", "method"]):
+        raise AssertionError(f"hp-opt report: columns {columns}, rows {ranked}, printed "
+                             f"{printed.getvalue()}")
+    n = sum(c.startswith("param:") for c in columns)
+    cols = min(n, 4)
+    size = (round(3.5 * cols * 120), round(3 * (math.ceil(n / cols) + 1) * 120))
+    if png_size(png) != size:
+        raise AssertionError(f"hp-opt report: {png} is {png_size(png)}, not {size}")
+    print(f"hp-opt report (13b): 7c's {len(ranked)} trials x {n} parameters, min scores "
+          f"{[round(x, 4) for x in scores]} in order, a {size[0]} x {size[1]} PNG, {wall_ms:.2f} ms "
+          f"wall on the host; on {smi}")
+
+
+def check_validate_learning(smi):
+    """13c: `python -m iltpu_torch.validate_learning` on the card into a
+    directory of its own: GAIL on hopper, tuned, hopper_expert_v2, min_alpha
+    0.05, 256 envs on the C++ stepper, seeds 1 and 2 of 20,480 steps each
+    with an evaluation of 5 episodes every 10,240: the SAC and GAIL kernels
+    launched once an owed update, each row's eval curve 2 finite points;
+    then the seed-sweep report on the rows it wrote, its numbers those
+    recomputed from the rows."""
+    import shutil
+
+    import numpy as np
+    import iltpu_torch.validate_learning as vl
+    from iltpu_torch.analysis import iqm, seed_sweep_report, stratified_bootstrap_ci
+    from iltpu_torch.config import load_config
+
+    root = report_out("validation")
+    os.makedirs(os.path.join(root, "data"))
+    shutil.copy(os.path.join(REPO, "data", "hopper_expert_v2.npz"), os.path.join(root, "data"))
+    vl.ROOT = root
+    vl.RESULTS_JSONL, vl.RESULTS_MD = (os.path.join(root, "RESULTS_TORCH.jsonl"),
+                                       os.path.join(root, "RESULTS_TORCH.md"))
+    steps, extra = 20480, "reinforcement.min_alpha=0.05"
+    args = ["--algorithms", "GAIL", "--envs", "hopper", "--steps", str(steps), "--trajectories", "10",
+            "--tuned", "--dataset-suffix", "_v2", "--extra", extra, "--eval-interval", "10240",
+            "--eval-episodes", "5"]
+    cfg = load_config(["algorithm=GAIL", "env=hopper", f"steps={steps}", "num_envs=256",
+                       "imitation.trajectories=10"], use_tuned=True)
+    n = sum(schedule(cfg, 1))
+    walls = []
+    for seed in (1, 2):
+        reset_counts()
+        t0 = time.time()
+        vl.main(args + ["--seed", str(seed)])
+        walls.append(time.time() - t0)
+        if counts() != launches_of(sac_update=n, gail_update=n):
+            raise AssertionError(f"validate_learning seed {seed}: launches {counts()} != {n} updates")
+    with open(vl.RESULTS_JSONL) as f:
+        rows = sorted((json.loads(line) for line in f), key=lambda r: r["seed"])
+    if [r["seed"] for r in rows] != [1, 2] or not all(
+            len(r["eval_curve"]) == 2 and np.isfinite(r["eval_curve"]).all() for r in rows):
+        raise AssertionError(f"validate_learning: rows {rows}")
+    png = os.path.join(root, "sample_efficiency.png")
+    t0 = time.time()
+    results = seed_sweep_report.main(["--from-results", vl.RESULTS_JSONL, "--algorithms", "GAIL",
+                                      "--envs", "hopper", "--tuned", "yes", "--dataset",
+                                      "hopper_expert_v2", "--extra", extra, "--reps", "2000",
+                                      "--out", png])
+    wall_ms = 1e3 * (time.time() - t0)
+    final = np.array([[r["eval_curve"][-1]] for r in rows])
+    point, lo, hi = stratified_bootstrap_ci(final, iqm, reps=2000)
+    if (results["GAIL"]["iqm"], results["GAIL"]["ci_lo"], results["GAIL"]["ci_hi"]) != (point, lo, hi) \
+            or png_size(png) != (960, 420):
+        raise AssertionError(f"validate_learning: the report's {results} against the rows' "
+                             f"({point}, {lo}, {hi})")
+    print(f"validate_learning (13c): GAIL hopper tuned, hopper_expert_v2, {extra}, 256 envs on the "
+          f"stepper, {steps} steps a seed, {n} updates each on sac_update and gail_update: seed 1 "
+          f"{walls[0]:.2f} s wall ({steps / walls[0]:.1f} env-steps/s), seed 2 {walls[1]:.2f} s "
+          f"({steps / walls[1]:.1f} env-steps/s), the Trainer built, run and evaluated; eval curves "
+          f"{[[round(v, 4) for v in r['eval_curve']] for r in rows]}; the report on its rows: IQM "
+          f"{point:.4f} [{lo:.4f}, {hi:.4f}] as recomputed, {wall_ms:.2f} ms wall on the host; on {smi}")
 
 
 def ptxas_report(log):
@@ -2874,7 +3028,8 @@ def main():
         for variant in (None, "tiled") if tiled_too else (None,):
             err, _, _ = check_gail(S, A, bce, dev, B=B, Hd=Hd, timed=False, variant=variant, **case)
             print(f"kernel gail_update variant S={S} A={A} B={B} Hd={Hd} {'BCE' if bce else 'Mixup'} "
-                  f"{case}: {variant or routed}{' (routed)' if variant is None else ''}, "
+                  f"{case}: {variant or routed}"
+                  f"{f' (routed, {gu.blocks(B, S + A, Hd)} block(s))' if variant is None else ''}, "
                   f"{profile_phases.variant_smem_bytes(B, S + A, Hd, variant or routed)} bytes of "
                   f"shared memory, max_abs_err {err[0]:.3g}, max_rel_err {err[1]:.3g}")
     # the Mixup draw at alpha 0.5: Beta(0.5, 0.5) from the trainer's capture-safe sampler
@@ -2886,6 +3041,13 @@ def main():
     err, _ = check_sac(5, 2, 0.0, dev, B=1024, timed=False)
     print(f"kernel sac_update pointmass B=1024 (chunked weight-gradient depth): max_abs_err "
           f"{err[0]:.3g}, max_rel_err {err[1]:.3g}")
+    # the tuned GAIL@10 batch on hopper (tuned.yaml: 512) at min_alpha 0.05: 13c's and the
+    # parity run's SAC step, the deepest product still held whole
+    err, _ = check_sac(12, 3, 0.05, dev, B=512, timed=False)
+    per_sm, sms, smem = su.grid(build.load("sac_update"), 512, 12, 3, 256)
+    print(f"kernel sac_update hopper B=512 min_alpha=0.05 (the tuned GAIL@10 batch): a cooperative "
+          f"grid of {per_sm} x {sms} blocks, {smem} bytes of dynamic shared memory a block, "
+          f"max_abs_err {err[0]:.3g}, max_rel_err {err[1]:.3g}")
     torch.cuda.synchronize()
 
     # 3b. the K-blocked kernel
@@ -3016,7 +3178,7 @@ def main():
     check_profiler_window(results)
     jobs = check_multirun()
     check_train_all()
-    check_aggregation(jobs)
+    aggregation = check_aggregation(jobs)
 
     # 8. data parallel: NCCL at world size 1, then two gloo ranks on the one card
     import torch.distributed as dist
@@ -3094,6 +3256,14 @@ def main():
 
     # 12. D4RL's HDF5 expert data through the port's reader, the main path on it, the plots
     check_d4rl_hdf5(rates, pre, smi)
+
+    # 13. the analysis layer: the two reports on phase 7's outputs, the learning-validation
+    # harness on the card (GAIL on hopper through the SAC and GAIL kernels) and the report on its rows
+    t13 = time.time()
+    check_seed_sweep_report(jobs, aggregation, smi)
+    check_hp_opt_report(smi)
+    check_validate_learning(smi)
+    print(f"phase 13 took {time.time() - t13:.1f} s")
 
     # the row-sum kernel's launches on its path: both of its entries
     launches["gaussian_rowsum"] += launches.pop("gmmil_witness_reward")

@@ -8,7 +8,8 @@ colour at alpha 0.3, an axes frame with about 5 ticks on round numbers
 each way, tick labels, both axis labels and the title, in a 5 x 7 ASCII
 bitmap font kept here (no font file). The PNG is the signature, `IHDR`,
 one `IDAT` (`zlib`, filter type 0 on each row) and `IEND`. Rasterising is
-numpy array work; nothing loops over pixels.
+numpy array work; nothing loops over pixels. `Figure` (below) holds a grid
+of axes for the seed-sweep and HP-opt reports (`iltpu_torch/analysis/`).
 """
 
 import math
@@ -240,3 +241,262 @@ def lineplot(
     os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
     with open(f"{filename}.png", "wb") as f:
         f.write(png_bytes(render(x, y, xaxis, yaxis, title)))
+
+
+# ------------------------------------------------------------------ figures
+# A figure of a given size holding a grid of axes, for the seed-sweep and
+# HP-opt reports (`iltpu_torch/analysis/`), in place of matplotlib's
+# `plt.subplots(rows, cols, figsize=(w, h))` and `savefig(..., dpi=dpi)`.
+# The canvas is round(w dpi) x round(h dpi) pixels, as matplotlib's without
+# `bbox_inches`. Each slot of the grid is an axes (`Panel`) with its own data
+# limits (the data's range with 5% margins), ticks, tick labels, title,
+# axis labels and legend. Series draw in matplotlib's order: the bands and
+# the scatter points under the lines, each group in call order. Lines take
+# the axes' line colour cycle (matplotlib's default ten colours) and bands
+# and scatter points its patch cycle, as matplotlib's. Tick labels are drawn
+# horizontally where matplotlib would rotate them (the odd ones a line lower).
+# Pixels are not matplotlib's; the size and the numbers drawn are.
+
+CYCLE = ("#1f77b4", "#ff7f0e", "#2ca02c", "#d62728", "#9467bd", "#8c564b", "#e377c2",
+         "#7f7f7f", "#bcbd22", "#17becf")  # matplotlib's default colour cycle
+# viridis at 0, 1/4, 1/2, 3/4 and 1, interpolated linearly between (matplotlib's
+# table has 256 entries; these five are its samples at those points)
+VIRIDIS = ("#440154", "#3b528b", "#21918c", "#5ec962", "#fde725")
+# a slot's margins around its axes' frame, in pixels: tick labels and the y
+# label on the left, the title above, tick labels and the x label below
+SLOT_LEFT, SLOT_RIGHT, SLOT_TOP, SLOT_BOTTOM = 64, 14, 24, 44
+
+
+def rgb(color) -> np.ndarray:
+    """A '#rrggbb' colour (or an RGB triple of 0-255) as uint8 RGB."""
+    if isinstance(color, str):
+        return np.array([int(color[i:i + 2], 16) for i in (1, 3, 5)], np.uint8)
+    return np.asarray(color, np.uint8)
+
+
+def viridis(v) -> np.ndarray:
+    """Colours of values in [0, 1] (clipped): (n, 3) uint8, linear between
+    the five samples of `VIRIDIS`."""
+    v = np.clip(np.atleast_1d(np.asarray(v, np.float64)), 0.0, 1.0)
+    anchors = np.stack([rgb(c) for c in VIRIDIS]).astype(np.float64)
+    at = np.linspace(0.0, 1.0, len(VIRIDIS))
+    return np.round(np.stack([np.interp(v, at, anchors[:, k]) for k in range(3)], -1)).astype(np.uint8)
+
+
+def _blend(img, rows, cols, color, alpha, times=None) -> None:
+    """Paint `color` at alpha `alpha` over the pixels (rows, cols), each
+    `times` times over (a pixel covered by k overlapping marks of one colour)."""
+    a = 1.0 - (1.0 - alpha) ** (1 if times is None else np.asarray(times, np.float64)[:, None])
+    under = img[rows, cols].astype(np.float64)
+    img[rows, cols] = np.round(a * color + (1.0 - a) * under).astype(np.uint8)
+
+
+class Panel:
+    """One axes of a `Figure`: its frame spans pixel columns [left, right]
+    and rows [top, bottom]; x grows rightwards and y upwards over the data
+    limits, which are fixed when the figure is drawn. Pixel (row r, column
+    c) covers [r, r + 1) x [c, c + 1)."""
+
+    def __init__(self, top: int, left: int, bottom: int, right: int, dpi: int = 100):
+        self.top, self.left, self.bottom, self.right, self.dpi = top, left, bottom, right, dpi
+        self.lines, self.fills, self.points = [], [], []
+        self.title = self.xlabel = self.ylabel = ""
+        self.xticks = self.xticklabels = None
+        self.show_legend, self.visible = False, True
+        self.x = self.y = (0.0, 1.0)
+        self._line_color = self._patch_color = 0
+
+    def _next(self, kind: str, color):
+        if color is not None:
+            return rgb(color)
+        attr = f"_{kind}_color"
+        i = getattr(self, attr)
+        setattr(self, attr, i + 1)
+        return rgb(CYCLE[i % len(CYCLE)])
+
+    def plot(self, x, y, color=None, alpha=1.0, lw=2, label=None) -> None:
+        """A line through (x, y), `lw` pixels wide; a non-finite point breaks it
+        (a point with no finite neighbour draws nothing, as in matplotlib)."""
+        self.lines.append((np.asarray(x, np.float64), np.asarray(y, np.float64),
+                           self._next("line", color), alpha, lw, label))
+
+    def fill_between(self, x, lower, upper, alpha=0.2, color=None) -> None:
+        """The band between `lower` and `upper` over x, linear between the points."""
+        self.fills.append((np.asarray(x, np.float64), np.asarray(lower, np.float64),
+                           np.asarray(upper, np.float64), self._next("patch", color), alpha))
+
+    def scatter(self, x, y, s=14, alpha=0.7, color=None) -> None:
+        """Disks of area `s` points^2 (a diameter of sqrt(s) / 72 inch)."""
+        self.points.append((np.asarray(x, np.float64), np.asarray(y, np.float64),
+                            self._next("patch", color), alpha, math.sqrt(s) / 72 * self.dpi / 2))
+
+    def set_title(self, text: str) -> None:
+        self.title = text
+
+    def set_xlabel(self, text: str) -> None:
+        self.xlabel = text
+
+    def set_ylabel(self, text: str) -> None:
+        self.ylabel = text
+
+    def set_xticks(self, ticks, labels=None) -> None:
+        self.xticks = np.asarray(ticks, np.float64)
+        self.xticklabels = None if labels is None else [str(t) for t in labels]
+
+    def legend(self) -> None:
+        self.show_legend = True
+
+    def axis(self, mode: str) -> None:
+        assert mode == "off", mode
+        self.visible = False
+
+    def autoscale(self) -> None:
+        """The data limits: every series' finite values, with 5% margins."""
+        xs, ys = [], []
+        for x, y, *_ in self.lines + self.points:
+            ok = np.isfinite(x) & np.isfinite(y)
+            xs.append(x[ok])
+            ys.append(y[ok])
+        for x, lo, hi, *_ in self.fills:
+            ok = np.isfinite(x) & np.isfinite(lo) & np.isfinite(hi)
+            xs.append(x[ok])
+            ys += [lo[ok], hi[ok]]
+        x, y = np.concatenate(xs or [np.zeros(0)]), np.concatenate(ys or [np.zeros(0)])
+        if x.size:
+            self.x = _limits(float(x.min()), float(x.max()))
+            self.y = _limits(float(y.min()), float(y.max()))
+
+    def col(self, x):
+        return self.left + (np.asarray(x, np.float64) - self.x[0]) / (self.x[1] - self.x[0]) * (
+            self.right - self.left)
+
+    def row(self, y):
+        return self.bottom - (np.asarray(y, np.float64) - self.y[0]) / (self.y[1] - self.y[0]) * (
+            self.bottom - self.top)
+
+    def x_of(self, col):
+        return self.x[0] + (np.asarray(col, np.float64) - self.left) / (self.right - self.left) * (
+            self.x[1] - self.x[0])
+
+    def _inside(self, rr, cc):
+        return (rr > self.top) & (rr < self.bottom) & (cc > self.left) & (cc < self.right)
+
+    def _fill(self, img, x, lower, upper, color, alpha) -> None:
+        ok = np.isfinite(x) & np.isfinite(lower) & np.isfinite(upper)
+        order = np.argsort(x[ok], kind="stable")
+        x, lower, upper = x[ok][order], lower[ok][order], upper[ok][order]
+        if not x.size:
+            return
+        cols = np.arange(int(math.floor(self.col(x[0]))), int(math.floor(self.col(x[-1]))) + 1)
+        centres = np.clip(self.x_of(cols + 0.5), x[0], x[-1])
+        hi, lo = self.row(np.interp(centres, x, upper)), self.row(np.interp(centres, x, lower))
+        rows = np.arange(self.top + 1, self.bottom)[:, None]
+        inside = (rows >= np.floor(np.minimum(hi, lo))) & (rows <= np.floor(np.maximum(hi, lo)))
+        rr, cc = np.nonzero(inside & self._inside(rows, cols[None, :]))
+        _blend(img, rows[rr, 0], cols[cc], color, alpha)
+
+    def _line(self, img, x, y, color, alpha, lw) -> None:
+        c, r = self.col(x), self.row(y)
+        ok = np.isfinite(c[:-1]) & np.isfinite(r[:-1]) & np.isfinite(c[1:]) & np.isfinite(r[1:])
+        seg = np.flatnonzero(ok)
+        dc, dr = c[seg + 1] - c[seg], r[seg + 1] - r[seg]
+        n = np.ceil(np.maximum(np.abs(dc), np.abs(dr))).astype(int) + 1  # samples a segment
+        k = np.repeat(np.arange(len(seg)), n)
+        t = (np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)) / np.repeat(np.maximum(n - 1, 1), n)
+        cs, rs = c[seg][k] + t * dc[k], r[seg][k] + t * dr[k]
+        off = np.stack(np.meshgrid(np.arange(lw), np.arange(lw)), -1).reshape(-1, 2)
+        cc = (np.floor(cs - (lw - 1) / 2).astype(int)[:, None] + off[:, 0]).ravel()
+        rr = (np.floor(rs - (lw - 1) / 2).astype(int)[:, None] + off[:, 1]).ravel()
+        keep = self._inside(rr, cc)
+        flat = np.unique(rr[keep] * img.shape[1] + cc[keep])
+        _blend(img, flat // img.shape[1], flat % img.shape[1], color, alpha)
+
+    def _disks(self, img, x, y, color, alpha, radius) -> None:
+        ok = np.isfinite(x) & np.isfinite(y)
+        c, r = self.col(x[ok]), self.row(y[ok])
+        span = np.arange(-math.ceil(radius), math.ceil(radius) + 1)
+        dr, dc = [a.ravel() for a in np.meshgrid(span, span, indexing="ij")]
+        rr = np.floor(r).astype(int)[:, None] + dr
+        cc = np.floor(c).astype(int)[:, None] + dc
+        near = (rr + 0.5 - r[:, None]) ** 2 + (cc + 0.5 - c[:, None]) ** 2 <= radius ** 2
+        keep = near & self._inside(rr, cc)
+        flat, times = np.unique(rr[keep] * img.shape[1] + cc[keep], return_counts=True)
+        _blend(img, flat // img.shape[1], flat % img.shape[1], color, alpha, times)
+
+    def draw(self, img) -> None:
+        if not self.visible:
+            return
+        self.autoscale()
+        for f in self.fills:
+            self._fill(img, *f)
+        for p in self.points:
+            self._disks(img, *p)
+        for x, y, color, alpha, lw, _ in self.lines:
+            self._line(img, x, y, color, alpha, lw)
+        t, l, b, r = self.top, self.left, self.bottom, self.right
+        img[t, l:r + 1] = img[b, l:r + 1] = INK
+        img[t:b + 1, l] = img[t:b + 1, r] = INK
+        if self.xticks is None:
+            ticks, step = nice_ticks(*self.x)
+            labels = [tick_label(v, step) for v in ticks]
+        else:
+            keep = (self.xticks >= self.x[0]) & (self.xticks <= self.x[1])
+            ticks = self.xticks[keep]
+            labels = [lab for lab, k in zip(self.xticklabels or [f"{v:g}" for v in self.xticks], keep) if k]
+        for i, (c, lab) in enumerate(zip(np.round(self.col(ticks)).astype(int), labels)):
+            img[b + 1:b + 5, c] = INK
+            draw_text(img, lab, b + 7 + (9 * (i % 2) if self.xticklabels else 0), c, anchor="tc")
+        ticks, step = nice_ticks(*self.y)
+        for v, rr in zip(ticks, np.round(self.row(ticks)).astype(int)):
+            img[rr, l - 4:l] = INK
+            draw_text(img, tick_label(v, step), rr, l - 7, anchor="cr")
+        draw_text(img, self.xlabel, b + 38, (l + r) / 2, anchor="bc")
+        draw_text(img, self.ylabel, (t + b) / 2, l - SLOT_LEFT + 4, anchor="cl", vertical=True)
+        draw_text(img, self.title, t - 6, (l + r) / 2, anchor="bc")
+        labelled = [(lab, color) for _, _, color, _, _, lab in self.lines if lab]
+        if self.show_legend and labelled:
+            w = 28 + 6 * max(len(lab) for lab, _ in labelled)
+            x0, y0 = r - 6 - w, t + 6
+            img[y0:y0 + 12 * len(labelled) + 4, x0:x0 + w] = 255
+            img[y0, x0:x0 + w] = img[y0 + 12 * len(labelled) + 4, x0:x0 + w] = INK
+            for i, (lab, color) in enumerate(labelled):
+                yc = y0 + 8 + 12 * i
+                img[yc:yc + 2, x0 + 4:x0 + 20] = color
+                draw_text(img, lab, yc + 1, x0 + 24, anchor="cl")
+
+
+class Figure:
+    """A white canvas of round(width_in dpi) x round(height_in dpi) pixels
+    holding a grid of `Panel`s (`grid`); `save` draws every panel and
+    writes the PNG."""
+
+    def __init__(self, width_in: float, height_in: float, dpi: int = 100):
+        self.width, self.height = int(round(width_in * dpi)), int(round(height_in * dpi))
+        self.dpi = dpi
+        self.panels: List[Panel] = []
+
+    def grid(self, rows: int, cols: int) -> List[List[Panel]]:
+        """rows x cols axes, each in an equal slot with `SLOT_*` margins
+        around its frame (matplotlib's `squeeze=False` layout)."""
+        out = []
+        for i in range(rows):
+            y0, y1 = i * self.height // rows, (i + 1) * self.height // rows
+            out.append([])
+            for j in range(cols):
+                x0, x1 = j * self.width // cols, (j + 1) * self.width // cols
+                panel = Panel(y0 + SLOT_TOP, x0 + SLOT_LEFT, y1 - SLOT_BOTTOM, x1 - SLOT_RIGHT, self.dpi)
+                out[-1].append(panel)
+                self.panels.append(panel)
+        return out
+
+    def render(self) -> np.ndarray:
+        """The figure as a (height, width, 4) uint8 RGBA array."""
+        img = np.full((self.height, self.width, 3), 255, np.uint8)
+        for panel in self.panels:
+            panel.draw(img)
+        return np.concatenate([img, np.full((self.height, self.width, 1), 255, np.uint8)], axis=2)
+
+    def save(self, path: str) -> None:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(png_bytes(self.render()))

@@ -175,3 +175,63 @@ def test_trainer_writes_the_plots_at_both_call_sites(tmp_path):
         assert len(written) == {"GAIL": 6, "BC": 1}[alg]
         for name in written:
             assert decode_png(out / name)[:2] == (600, 400)
+
+
+# the figure API the reports draw with: a canvas of a given size holding a grid of axes
+
+
+@pytest.mark.parametrize("size", [(12, 3.5, 120, 1, 3), (7.0, 9, 120, 2, 2), (3.33, 2.17, 100, 1, 1)])
+def test_figure_grid_decodes_at_its_size(tmp_path, size):
+    w_in, h_in, dpi, rows, cols = size
+    fig = plotting.Figure(w_in, h_in, dpi)
+    axes = fig.grid(rows, cols)
+    assert [len(r) for r in axes] == [cols] * rows
+    for r in axes:
+        for ax in r:
+            ax.plot([0, 1, 2], [1.0, -1.0, 3.0], label="x")
+            ax.set_title("t")
+            ax.legend()
+    fig.save(str(tmp_path / "f.png"))
+    w, h, img = decode_png(tmp_path / "f.png")
+    assert (w, h) == (round(w_in * dpi), round(h_in * dpi))
+    assert (img[..., 3] == 255).all()
+
+
+def test_figure_series_lie_where_each_axes_puts_them(tmp_path):
+    """Two axes of different data ranges: each line's pixels at its own
+    axes' transform, in the cycle's first colour (the second line in the
+    second), the band's blend at alpha 0.2 between its edges, a scatter
+    point's disk at its centre, a slot switched off white throughout."""
+    fig = plotting.Figure(10, 6, 100)
+    (a, b), (c, off) = fig.grid(2, 2)
+    x = np.array([0.0, 10.0, 20.0, 30.0])
+    a.plot(x, [1.0, 2.0, 4.0, 3.0])
+    a.plot(x, [0.0, 0.5, 0.5, 1.0])
+    b.fill_between([0, 1], [-100.0, -50.0], [100.0, 150.0], alpha=0.2)
+    c.scatter([0.25, 0.75], [5.0, 6.0], s=14, alpha=0.7)
+    off.plot([0, 1], [0, 1])
+    off.axis("off")
+    img = fig.render()[..., :3]
+    c0, c1 = plotting.rgb(plotting.CYCLE[0]), plotting.rgb(plotting.CYCLE[1])
+    assert a.y[0] < 0 and a.y[1] > 4 and b.y[0] < -100 and b.y[1] > 150  # limits of their own
+    for ax, ys, color in ((a, [1.0, 2.0, 4.0, 3.0], c0), (a, [0.0, 0.5, 0.5, 1.0], c1)):
+        for xi, yi in zip(x[1:-1], ys[1:-1]):
+            col, row = int(np.floor(ax.col(xi))), int(np.floor(ax.row(yi)))
+            assert (img[row - 1:row + 2, col - 1:col + 2] == color).all(-1).any(), (xi, yi)
+    band = np.round(0.2 * c0 + 0.8 * 255).astype(np.uint8)
+    col = int(np.floor(b.col(0.5)))
+    inside = np.flatnonzero((img[:, col] == band).all(-1))
+    assert abs(inside.min() - b.row(125.0)) <= 1 and abs(inside.max() - b.row(-75.0)) <= 1
+    assert not (img[:, col] == band).all(-1)[:b.top].any()
+    disk = np.round(0.7 * c0 + 0.3 * 255).astype(np.uint8)
+    for xi, yi in ((0.25, 5.0), (0.75, 6.0)):
+        col, row = int(np.floor(c.col(xi))), int(np.floor(c.row(yi)))
+        assert (img[row, col] == disk).all() and (img[row + 6, col] == 255).all()
+    assert (img[fig.height // 2:, fig.width // 2:] == 255).all()
+
+
+def test_viridis_anchors():
+    assert [plotting.viridis(v)[0].tolist() for v in (0.0, 0.5, 1.0)] == [
+        [0x44, 0x01, 0x54], [0x21, 0x91, 0x8C], [0xFD, 0xE7, 0x25]]
+    mid = plotting.viridis(0.125)[0].astype(int)
+    assert (np.abs(mid - (plotting.rgb("#440154").astype(int) + plotting.rgb("#3b528b")) / 2) <= 0.5).all()
