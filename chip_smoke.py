@@ -234,6 +234,25 @@ of JAX or `iltpu`. Phases, each printing its results:
    each row's eval curve 2 finite points, each run's env-steps/s; then the
    seed-sweep report on those rows, its numbers recomputed from them. Each
    part prints its host wall ms.
+14. expert-data generation on the card, its data through the main path, and
+   the results matrix and run diagnostics, on a machine with no
+   matplotlib: (14a) `iltpu_torch.generate_expert_data --env hopper
+   --env-backend native --steps 4096 --num-envs 8 --episodes 2
+   --max-attempts 6 --seed 0`: the SAC expert trained by iltpu's defaults
+   (the autograd update: no kernel launched), its env-steps/s (the
+   Trainer's build and evaluations included), the episodes kept and
+   dropped, D4RL's six float32 columns of equal length, every kept episode
+   ending in a terminal or a timeout, `expert_training/agent/` written;
+   (14b) a harvest from 14a's `agent/` and `agent_best/` (`--stochastic
+   0.3`), then two greedy rollouts from `agent/` whose files are
+   bit-equal; (14c) GAIL on 14a's file (2 trajectories) on 64 hopper envs
+   on the stepper, 4,096 steps, the SAC and GAIL kernels, the fused scan,
+   pipelined, each kernel launched once an owed update, its steady
+   env-steps/s; (14d) `iltpu_torch.analysis.results_matrix` on
+   RESULTS.jsonl and RESULTS_TORCH.jsonl (primary, `--best-variant`,
+   `--traj-grid`) at iltpu's figure sizes, and `adril_diagnosis` and
+   `decay_diagnosis` on 14a's and 14c's `metrics.pkl` (a table row each,
+   the 2160 x 432 figure). Each part prints its host wall ms.
 
 Then the steady rates and the pretraining times with the nvidia-smi line, one `kernels` JSON
 line (the per-update and K-blocked kernels at hopper's shapes with their
@@ -2945,6 +2964,187 @@ def check_validate_learning(smi):
           f"{point:.4f} [{lo:.4f}, {hi:.4f}] as recomputed, {wall_ms:.2f} ms wall on the host; on {smi}")
 
 
+class TimedLines:
+    """Standard output captured line by line, each line with the time it was
+    written."""
+
+    def __init__(self):
+        self.partial, self.lines = "", []
+
+    def write(self, text):
+        self.partial += text
+        while "\n" in self.partial:
+            line, self.partial = self.partial.split("\n", 1)
+            self.lines.append((time.time(), line))
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+def captured(fn, argv):
+    """(fn(argv), [(time, line)] it printed, seconds it took)."""
+    import contextlib
+
+    out = TimedLines()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        result = fn(argv)
+    return result, out.lines, t0, time.time() - t0
+
+
+def check_d4rl_columns(path, kept):
+    """D4RL's six float32 columns of equal length, in `kept` episodes each
+    ending (and only there) in a terminal or a timeout. Returns the rows."""
+    import numpy as np
+    from iltpu_torch.generate_expert_data import COLUMNS
+
+    with np.load(path) as f:
+        data = {k: f[k] for k in f.files}
+    n = len(data["rewards"])
+    if list(data) != list(COLUMNS) or any(v.dtype != np.float32 or len(v) != n for v in data.values()):
+        raise AssertionError(f"{path}: columns {[(k, v.dtype, v.shape) for k, v in data.items()]}")
+    ends = np.flatnonzero(data["terminals"] + data["timeouts"])
+    if len(ends) != kept or (kept and ends[-1] != n - 1):
+        raise AssertionError(f"{path}: {len(ends)} episode ends at {ends[:8]} in {n} rows, "
+                             f"{kept} episodes kept")
+    return n
+
+
+def check_expert_data(rates, pre, smi):
+    """Phase 14: (14a) the expert trained and rolled out on the card by
+    `generate_expert_data`, (14b) harvested from its checkpoints, (14c)
+    its file through the main path's kernels, (14d) the results matrix and
+    the run diagnostics on the card's host."""
+    import shutil
+
+    import numpy as np
+    from iltpu_torch import generate_expert_data as ged
+    from iltpu_torch.analysis import adril_diagnosis, decay_diagnosis, load_metrics, results_matrix
+    from iltpu_torch.config import load_config
+
+    t14 = time.time()
+    root = os.path.join(REPO, "outputs", "chip_smoke", "expert_data")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    npz = os.path.join(root, "hopper_expert.npz")
+    argv = ["--env", "hopper", "--env-backend", "native", "--steps", "4096", "--num-envs", "8",
+            "--episodes", "2", "--max-attempts", "6", "--seed", "0"]
+    cfg = load_config(ged.overrides(ged.parser().parse_args(argv + ["--out", npz])))
+    reset_counts()
+    _, lines, t0, wall = captured(ged.main, argv + ["--out", npz])
+    launched = counts()
+    text = [line for _, line in lines]
+    trained_at = next(t for t, line in lines if line.startswith("expert trained:"))
+    kept = sum(line.startswith("episode ") for line in text)
+    dropped = sum(" dropped (" in line for line in text)
+    training = os.path.join(root, "expert_training")
+    if cfg.training.sac_pallas or launched != launches_of() or kept != 2:
+        raise AssertionError(f"14a: sac_pallas={cfg.training.sac_pallas}, launches {launched}, "
+                             f"{kept} episodes kept: {text}")
+    rows = check_d4rl_columns(npz, kept)
+    if not os.path.isdir(os.path.join(training, "agent")):
+        raise AssertionError(f"14a: {training} has no agent/")
+    train_s = trained_at - t0
+    rates["expert_sac_autograd"] = 4096 / train_s
+    print(f"expert data (14a): SAC on 8 hopper envs, 4096 steps, the autograd update (training."
+          f"sac_pallas={cfg.training.sac_pallas}, no kernel launched: {launched}), trained in "
+          f"{train_s:.2f} s wall ({4096 / train_s:.1f} env-steps/s, the Trainer's build and "
+          f"{len(range(cfg.evaluation.interval, 4097, cfg.evaluation.interval))} evaluations of "
+          f"{cfg.evaluation.episodes} episodes included); {kept} episodes kept, {dropped} dropped, "
+          f"{rows} transitions; the command {1e3 * wall:.2f} ms wall; on {smi}")
+    for line in text:
+        print(f"  14a| {line}")
+
+    # 14b: a harvest from both snapshots, then greedy twice from agent/
+    snapshots = ",".join(os.path.join(training, d) for d in ("agent", "agent_best"))
+    harvest = os.path.join(root, "harvest.npz")
+    _, lines, _, wall = captured(ged.main, ["--env", "hopper", "--env-backend", "native", "--from-checkpoint",
+                                            snapshots, "--stochastic", "0.3", "--episodes", "2",
+                                            "--max-attempts", "6", "--out", harvest])
+    text = [line for _, line in lines]
+    kept = sum(line.startswith("episode ") for line in text)
+    rows = check_d4rl_columns(harvest, kept)
+    greedy = []
+    for i in range(2):
+        path = os.path.join(root, f"greedy_{i}.npz")
+        _, _, _, g_wall = captured(ged.main, ["--env", "hopper", "--env-backend", "native",
+                                              "--from-checkpoint", os.path.join(training, "agent"),
+                                              "--episodes", "2", "--max-attempts", "6", "--out", path])
+        with np.load(path) as f:
+            greedy.append(({k: f[k].tobytes() for k in f.files}, g_wall))
+    if greedy[0][0] != greedy[1][0] or kept == 0:
+        raise AssertionError(f"14b: greedy rollouts differ or nothing harvested: {text}")
+    print(f"expert data (14b): harvest from agent/ and agent_best/ at --stochastic 0.3: {kept} kept, "
+          f"{sum(' dropped (' in line for line in text)} dropped, {rows} transitions, "
+          f"{1e3 * wall:.2f} ms wall; greedy from agent/ twice, bit-equal files, "
+          f"{1e3 * greedy[0][1]:.2f} and {1e3 * greedy[1][1]:.2f} ms wall; on {smi}")
+    for line in text:
+        print(f"  14b| {line}")
+
+    # 14c: the generated file through the main path's kernels, pipelined
+    args = ("env=hopper", "env_backend=native", f"expert_data.source={npz}", "imitation.trajectories=2",
+            "num_envs=64", "steps=4096", "training.start=100", "training.pipeline=true",
+            "logging.interval=512")
+    t0 = time.time()
+    counted, rates["expert_gail_pipeline"], pre["expert_gail_pipeline"] = run_trainer(
+        "expert_gail_pipeline", args, owed(per_update))
+    print(f"expert data (14c): GAIL on 64 hopper envs from 14a's file (2 trajectories), pipelined, "
+          f"launches {counted} (each the owed updates), steady {rates['expert_gail_pipeline']:.1f} "
+          f"env-steps/s, {1e3 * (time.time() - t0):.2f} ms wall; on {smi}")
+
+    # 14d: the results matrix on both rows files, the diagnostics on 14a's and 14c's runs
+    t0 = time.time()
+    sizes = []
+    for results in ("RESULTS.jsonl", "RESULTS_TORCH.jsonl"):
+        for mode in ([], ["--best-variant"], ["--traj-grid"]):
+            argv = ["--results", os.path.join(REPO, results), *mode]
+            png = os.path.join(root, f"matrix_{results[:-6]}{''.join(mode)}.png")
+            spec = results_matrix.figure_spec(results_matrix.parser().parse_args(argv))
+            captured(results_matrix.main, argv + ["--out", png])
+            want = (1800, 420 * spec["grid"][0]) if mode == ["--traj-grid"] else (1650, 1050)
+            if png_size(png) != want or not spec["legend"]:
+                raise AssertionError(f"14d: {png} is {png_size(png)}, not {want}; legend {spec['legend']}")
+            sizes.append(f"{results} {' '.join(mode) or 'primary'} {want[0]} x {want[1]}")
+    matrix_ms = 1e3 * (time.time() - t0)
+    gail_dir = os.path.join(REPO, "outputs", "chip_smoke", "expert_gail_pipeline")
+    rows_file = os.path.join(root, "rows.jsonl")
+    with open(rows_file, "w") as f:
+        for alg, traj, run in (("SAC", 1, training), ("GAIL", 2, gail_dir)):
+            m = load_metrics(run)
+            curve = [float(np.mean(x)) for x in m["test_returns_normalized"]]
+            f.write(json.dumps({"algorithm": alg, "env": "hopper", "trajectories": traj, "seed": 0,
+                                "num_envs": {"SAC": 8, "GAIL": 64}[alg], "final_normalized_score": float(np.mean(curve)),
+                                "best_normalized_score": max(curve), "last_normalized_score": curve[-1],
+                                "out_dir": os.path.relpath(run, adril_diagnosis.ROOT)}) + "\n")
+    t0 = time.time()
+    table = []
+    for alg, traj in (("SAC", 1), ("GAIL", 2)):
+        png = os.path.join(root, f"diagnosis_{alg}.png")
+        panels, lines, _, _ = captured(adril_diagnosis.main, ["--rows", f"{alg}:hopper:{traj}",
+                                                              "--results", rows_file, "--out", png])
+        text = [line for _, line in lines]
+        if len(text) != 4 or not panels or png_size(png) != (2160, 432):
+            raise AssertionError(f"14d: adril_diagnosis on {alg}: {text}, figure {png_size(png)}")
+        table.append(text[2])
+    decay = []
+    for run in (training, gail_dir):
+        _, lines, _, _ = captured(decay_diagnosis.main, [os.path.join(run, "metrics.pkl")])
+        decay.append([line for _, line in lines])
+        if len(decay[-1]) < 3:
+            raise AssertionError(f"14d: decay_diagnosis on {run}: {decay[-1]}")
+    diag_ms = 1e3 * (time.time() - t0)
+    for mod in ("matplotlib", "PIL"):
+        if mod in sys.modules:
+            raise AssertionError(f"14d: {mod} was imported")
+    print(f"expert data (14d): results_matrix {'; '.join(sizes)} in {matrix_ms:.2f} ms wall; "
+          f"adril_diagnosis rows {table}, 2160 x 432 figures, and decay_diagnosis "
+          f"({len(decay[0])} and {len(decay[1])} lines) in {diag_ms:.2f} ms wall; on {smi}")
+    for line in decay[1]:
+        print(f"  14d| {line}")
+    print(f"phase 14 took {time.time() - t14:.1f} s")
+
+
 def ptxas_report(log):
     """The `-Xptxas -v` register lines of a build log, and every function
     with spills."""
@@ -3264,6 +3464,10 @@ def main():
     check_hp_opt_report(smi)
     check_validate_learning(smi)
     print(f"phase 13 took {time.time() - t13:.1f} s")
+
+    # 14. expert data generated on the card (autograd SAC), harvested, through the main path's
+    # kernels; the results matrix and the run diagnostics on the card's host
+    check_expert_data(rates, pre, smi)
 
     # the row-sum kernel's launches on its path: both of its entries
     launches["gaussian_rowsum"] += launches.pop("gmmil_witness_reward")

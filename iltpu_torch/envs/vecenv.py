@@ -205,12 +205,53 @@ class HostEnv:
 BACKENDS = ("jax", "native", "auto", "mujoco")
 
 
-def host_env(name: str, num_envs: int, *, absorbing: bool, seed: int, backend: str):
-    """iltpu's `_make_env` for the host backends: `native` builds the C++
-    stepper (raising where it cannot), `auto` takes it where it builds and
-    gymnasium's envs otherwise (with a warning), `mujoco` takes gymnasium's."""
+class ArrayHostEnv:
+    """An array env (`VecEnv`) behind the host envs' API, as iltpu's
+    `_JaxEnvAdapter` (`iltpu/trainer.py:77-112`): `reset(seed)` -> the
+    observations and `step(actions)` -> (next_obs, rewards, terminals,
+    timeouts, obs_after), numpy arrays in and out, the env on `device`.
+    `reset(seed)` reseeds the torch generator that draws the initial states
+    and every auto-reset (with the env's own seed where `seed` is falsy, as
+    iltpu's `seed or self._seed`), so its draws are the port's own, not
+    JAX's."""
+
+    def __init__(self, name: str, num_envs: int, *, absorbing: bool, seed: int, device=None):
+        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.generator = torch.Generator(self.device)
+        self.venv = make_env(name, num_envs, absorbing=absorbing, device=self.device,
+                             generator=self.generator)
+        self.num_envs, self._seed, self._state = num_envs, seed, None
+        self.ref_min_score = self.venv.env.ref_min_score
+        self.ref_max_score = self.venv.env.ref_max_score
+
+    obs_size = property(lambda self: self.venv.obs_size)
+    action_size = property(lambda self: self.venv.action_size)
+    max_episode_steps = property(lambda self: self.venv.max_episode_steps)
+
+    def reset(self, seed: Optional[int] = None) -> np.ndarray:
+        self.generator.manual_seed(seed or self._seed)
+        self._state = self.venv.reset()
+        return self._state["obs"].to("cpu", copy=True).numpy()
+
+    def step(self, actions):
+        a = torch.as_tensor(np.asarray(actions, np.float32), device=self.device)
+        self._state, out = self.venv.step(self._state, a)
+        return tuple(t.to("cpu", copy=True).numpy() for t in (
+            out["next_obs"], out["reward"], out["terminal"], out["timeout"], self._state["obs"]))
+
+    def close(self):
+        pass
+
+
+def host_env(name: str, num_envs: int, *, absorbing: bool, seed: int, backend: str, device=None):
+    """iltpu's `_make_env`: `native` builds the C++ stepper (raising where
+    it cannot), `auto` takes it where it builds and gymnasium's envs
+    otherwise (with a warning), `mujoco` takes gymnasium's; `jax` the array
+    env on `device` behind the same API (`ArrayHostEnv`)."""
     from iltpu_torch.envs.host import HostVecEnv
 
+    if backend == "jax":
+        return ArrayHostEnv(name, num_envs, absorbing=absorbing, seed=seed, device=device)
     if backend in ("native", "auto"):
         from iltpu_torch.envs import native
 

@@ -100,6 +100,13 @@ def load_aux(path: str) -> Dict:
     return _header(path)["aux"]
 
 
+def load_leaves(path: str) -> Dict[str, np.ndarray]:
+    """{leaf path (as `flatten` names it): leaf} of a directory the port wrote."""
+    header = _header(path)
+    with np.load(os.path.join(path, LEAVES)) as data:
+        return {p: data[f"leaf_{i}"] for i, p in enumerate(header["paths"])}
+
+
 def load_checkpoint(path: str, like=None):
     """(the leaves, or a tree shaped like `like`, and the aux) of a
     directory the port wrote; with `like`, its leaf paths must be the

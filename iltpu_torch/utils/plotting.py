@@ -72,7 +72,7 @@ def _stamp(img: np.ndarray, mask: np.ndarray, row: int, col: int, color) -> None
 
 
 def draw_text(img, text: str, row: float, col: float, scale: int = 1, anchor: str = "cc",
-              vertical: bool = False) -> None:
+              vertical: bool = False, color=INK) -> None:
     """Draw `text` anchored at (row, col): `anchor` is two letters, the row's
     (t top, c centre, b bottom) and the column's (l left, c centre, r right);
     `vertical` turns it a quarter to read upwards, as a y label."""
@@ -84,7 +84,7 @@ def draw_text(img, text: str, row: float, col: float, scale: int = 1, anchor: st
     h, w = mask.shape
     dr = {"t": 0, "c": h // 2, "b": h}[anchor[0]]
     dc = {"l": 0, "c": w // 2, "r": w}[anchor[1]]
-    _stamp(img, mask, int(round(row)) - dr, int(round(col)) - dc, INK)
+    _stamp(img, mask, int(round(row)) - dr, int(round(col)) - dc, color)
 
 
 def nice_ticks(lo: float, hi: float) -> Tuple[np.ndarray, float]:
@@ -244,9 +244,10 @@ def lineplot(
 
 
 # ------------------------------------------------------------------ figures
-# A figure of a given size holding a grid of axes, for the seed-sweep and
-# HP-opt reports (`iltpu_torch/analysis/`), in place of matplotlib's
-# `plt.subplots(rows, cols, figsize=(w, h))` and `savefig(..., dpi=dpi)`.
+# A figure of a given size holding a grid of axes, for the reports, the
+# results matrix and the run diagnostics (`iltpu_torch/analysis/`), in place
+# of matplotlib's `plt.subplots(rows, cols, figsize=(w, h))` and
+# `savefig(..., dpi=dpi)`.
 # The canvas is round(w dpi) x round(h dpi) pixels, as matplotlib's without
 # `bbox_inches`. Each slot of the grid is an axes (`Panel`) with its own data
 # limits (the data's range with 5% margins), ticks, tick labels, title,
@@ -291,18 +292,58 @@ def _blend(img, rows, cols, color, alpha, times=None) -> None:
     img[rows, cols] = np.round(a * color + (1.0 - a) * under).astype(np.uint8)
 
 
+
+
+# matplotlib's dash patterns, in units of the line's width: (on, off)
+DASHES = {"--": (3.7, 1.6), ":": (1.0, 1.65)}
+
+
+def _dashed(arc, ls: str, lw: float) -> np.ndarray:
+    """Which samples at arc lengths `arc` (pixels along the line) a line of
+    style `ls` ('-', '--' or ':') and width `lw` pixels paints."""
+    if ls == "-":
+        return np.ones(np.shape(arc), bool)
+    on, off = (v * lw for v in DASHES[ls])
+    # a sample paints lw pixels along the line: its dashes start lw - 1 shorter
+    return np.mod(arc, on + off) < max(1.0, on - (lw - 1))
+
+
+def _margins(lo: float, hi: float, log: bool) -> Tuple[float, float]:
+    """`_limits` in the scale's own space (log10 for a log scale)."""
+    if not log:
+        return _limits(lo, hi)
+    a, b = _limits(math.log10(lo), math.log10(hi))
+    return 10.0 ** a, 10.0 ** b
+
+
+def log_ticks(lo: float, hi: float) -> Tuple[np.ndarray, List[str]]:
+    """A log axis's ticks: the powers of ten in [lo, hi] (where fewer than
+    two, about 5 linear ticks) and their labels."""
+    k = np.arange(math.ceil(math.log10(lo) - 1e-9), math.floor(math.log10(hi) + 1e-9) + 1)
+    if len(k) >= 2:
+        return 10.0 ** k, [f"1e{int(e)}" for e in k]
+    ticks, step = nice_ticks(lo, hi)
+    ticks = ticks[ticks > 0]
+    return ticks, [tick_label(v, step) for v in ticks]
+
+
 class Panel:
     """One axes of a `Figure`: its frame spans pixel columns [left, right]
-    and rows [top, bottom]; x grows rightwards and y upwards over the data
-    limits, which are fixed when the figure is drawn. Pixel (row r, column
-    c) covers [r, r + 1) x [c, c + 1)."""
+    and rows [top, bottom]; x grows rightwards and y upwards (linear, or
+    log10 with `set_yscale("log")`) over the data limits, which are fixed
+    when the figure is drawn: `set_xlim`/`set_ylim` where given, else the
+    data's range with 5% margins (over every panel sharing y with this one,
+    `Figure.grid(sharey=...)`). Pixel (row r, column c) covers
+    [r, r + 1) x [c, c + 1)."""
 
     def __init__(self, top: int, left: int, bottom: int, right: int, dpi: int = 100):
         self.top, self.left, self.bottom, self.right, self.dpi = top, left, bottom, right, dpi
-        self.lines, self.fills, self.points = [], [], []
+        self.lines, self.fills, self.points, self.hlines, self.texts = [], [], [], [], []
         self.title = self.xlabel = self.ylabel = ""
         self.xticks = self.xticklabels = None
-        self.show_legend, self.visible = False, True
+        self.show_legend, self.visible, self.grid_color = False, True, None
+        self.xlim = self.ylim = None
+        self.yscale = "linear"
         self.x = self.y = (0.0, 1.0)
         self._line_color = self._patch_color = 0
 
@@ -314,11 +355,16 @@ class Panel:
         setattr(self, attr, i + 1)
         return rgb(CYCLE[i % len(CYCLE)])
 
-    def plot(self, x, y, color=None, alpha=1.0, lw=2, label=None) -> None:
-        """A line through (x, y), `lw` pixels wide; a non-finite point breaks it
-        (a point with no finite neighbour draws nothing, as in matplotlib)."""
+    def plot(self, x, y, color=None, alpha=1.0, lw=2, label=None, ls="-") -> None:
+        """A line through (x, y), `lw` pixels wide, solid ('-'), dashed ('--')
+        or dotted (':'); a non-finite point breaks it (a point with no finite
+        neighbour draws nothing, as in matplotlib)."""
         self.lines.append((np.asarray(x, np.float64), np.asarray(y, np.float64),
-                           self._next("line", color), alpha, lw, label))
+                           self._next("line", color), alpha, lw, label, ls))
+
+    def axhline(self, y: float, color, lw=1, ls="-") -> None:
+        """A horizontal line at y across the axes, under the data."""
+        self.hlines.append((float(y), rgb(color), lw, ls))
 
     def fill_between(self, x, lower, upper, alpha=0.2, color=None) -> None:
         """The band between `lower` and `upper` over x, linear between the points."""
@@ -330,6 +376,13 @@ class Panel:
         self.points.append((np.asarray(x, np.float64), np.asarray(y, np.float64),
                             self._next("patch", color), alpha, math.sqrt(s) / 72 * self.dpi / 2))
 
+    def text(self, x: float, y: float, text: str, ha: str = "left", va: str = "bottom",
+             color=INK) -> None:
+        """`text` (lines split at newlines) at (x, y) in axes coordinates
+        ((0, 0) the frame's lower left, (1, 1) its upper right), aligned by
+        `ha` (left, center, right) and `va` (bottom, center, top)."""
+        self.texts.append((x, y, text, ha, va, rgb(color)))
+
     def set_title(self, text: str) -> None:
         self.title = text
 
@@ -338,6 +391,23 @@ class Panel:
 
     def set_ylabel(self, text: str) -> None:
         self.ylabel = text
+
+    def set_xlim(self, lo: float, hi: float) -> None:
+        self.xlim = (float(lo), float(hi))
+
+    def set_ylim(self, lo: float, hi: float) -> None:
+        self.ylim = (float(lo), float(hi))
+
+    def set_yscale(self, scale: str) -> None:
+        """'linear' or 'log' (limits (1, 10) until data or `set_ylim` fix them)."""
+        assert scale in ("linear", "log"), scale
+        self.yscale = scale
+        if scale == "log":
+            self.y = (1.0, 10.0)
+
+    def grid(self, color="#e8e6dc") -> None:
+        """Grid lines at the ticks, under the data."""
+        self.grid_color = rgb(color)
 
     def set_xticks(self, ticks, labels=None) -> None:
         self.xticks = np.asarray(ticks, np.float64)
@@ -350,8 +420,9 @@ class Panel:
         assert mode == "off", mode
         self.visible = False
 
-    def autoscale(self) -> None:
-        """The data limits: every series' finite values, with 5% margins."""
+    def extent(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The x and y values the data limits cover: every series' finite
+        points (positive y only on a log scale) and the horizontal lines' y."""
         xs, ys = [], []
         for x, y, *_ in self.lines + self.points:
             ok = np.isfinite(x) & np.isfinite(y)
@@ -361,18 +432,38 @@ class Panel:
             ok = np.isfinite(x) & np.isfinite(lo) & np.isfinite(hi)
             xs.append(x[ok])
             ys += [lo[ok], hi[ok]]
-        x, y = np.concatenate(xs or [np.zeros(0)]), np.concatenate(ys or [np.zeros(0)])
-        if x.size:
+        ys.append(np.array([h[0] for h in self.hlines]))
+        x, y = np.concatenate(xs or [np.zeros(0)]), np.concatenate(ys)
+        return x, (y[y > 0] if self.yscale == "log" else y)
+
+    def autoscale(self, ys=None) -> None:
+        """Fix the data limits: the set ones, else the extent's (in y, `ys`
+        where given: a shared range) with 5% margins."""
+        x, own = self.extent()
+        y = own if ys is None else ys
+        if self.xlim:
+            self.x = self.xlim
+        elif x.size:
             self.x = _limits(float(x.min()), float(x.max()))
-            self.y = _limits(float(y.min()), float(y.max()))
+        if self.ylim:
+            self.y = self.ylim
+        elif y.size:
+            self.y = _margins(float(y.min()), float(y.max()), self.yscale == "log")
+
+    def _fy(self, y):
+        y = np.asarray(y, np.float64)
+        if self.yscale != "log":
+            return y
+        with np.errstate(divide="ignore", invalid="ignore"):
+            return np.where(y > 0, np.log10(np.where(y > 0, y, 1.0)), np.nan)
 
     def col(self, x):
         return self.left + (np.asarray(x, np.float64) - self.x[0]) / (self.x[1] - self.x[0]) * (
             self.right - self.left)
 
     def row(self, y):
-        return self.bottom - (np.asarray(y, np.float64) - self.y[0]) / (self.y[1] - self.y[0]) * (
-            self.bottom - self.top)
+        lo, hi = self._fy(self.y)
+        return self.bottom - (self._fy(y) - lo) / (hi - lo) * (self.bottom - self.top)
 
     def x_of(self, col):
         return self.x[0] + (np.asarray(col, np.float64) - self.left) / (self.right - self.left) * (
@@ -395,7 +486,7 @@ class Panel:
         rr, cc = np.nonzero(inside & self._inside(rows, cols[None, :]))
         _blend(img, rows[rr, 0], cols[cc], color, alpha)
 
-    def _line(self, img, x, y, color, alpha, lw) -> None:
+    def _line(self, img, x, y, color, alpha, lw, ls="-") -> None:
         c, r = self.col(x), self.row(y)
         ok = np.isfinite(c[:-1]) & np.isfinite(r[:-1]) & np.isfinite(c[1:]) & np.isfinite(r[1:])
         seg = np.flatnonzero(ok)
@@ -404,6 +495,9 @@ class Panel:
         k = np.repeat(np.arange(len(seg)), n)
         t = (np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)) / np.repeat(np.maximum(n - 1, 1), n)
         cs, rs = c[seg][k] + t * dc[k], r[seg][k] + t * dr[k]
+        length = np.hypot(dc, dr)
+        on = _dashed((np.cumsum(length) - length)[k] + t * length[k], ls, lw)  # the pattern runs on
+        cs, rs = cs[on], rs[on]
         off = np.stack(np.meshgrid(np.arange(lw), np.arange(lw)), -1).reshape(-1, 2)
         cc = (np.floor(cs - (lw - 1) / 2).astype(int)[:, None] + off[:, 0]).ravel()
         rr = (np.floor(rs - (lw - 1) / 2).astype(int)[:, None] + off[:, 1]).ravel()
@@ -423,77 +517,144 @@ class Panel:
         flat, times = np.unique(rr[keep] * img.shape[1] + cc[keep], return_counts=True)
         _blend(img, flat // img.shape[1], flat % img.shape[1], color, alpha, times)
 
+    def ticks(self):
+        """((x ticks, their labels), (y ticks, their labels)) inside the limits."""
+        if self.xticks is None:
+            xt, step = nice_ticks(*self.x)
+            xl = [tick_label(v, step) for v in xt]
+        else:
+            keep = (self.xticks >= self.x[0]) & (self.xticks <= self.x[1])
+            xt = self.xticks[keep]
+            xl = [lab for lab, k in zip(self.xticklabels or [f"{v:g}" for v in self.xticks], keep) if k]
+        if self.yscale == "log":
+            yt, yl = log_ticks(*self.y)
+        else:
+            yt, step = nice_ticks(*self.y)
+            yl = [tick_label(v, step) for v in yt]
+        return (xt, xl), (yt, yl)
+
     def draw(self, img) -> None:
+        """Draw the panel; its limits are fixed first unless the figure fixed them."""
         if not self.visible:
             return
-        self.autoscale()
+        t, l, b, r = self.top, self.left, self.bottom, self.right
+        (xt, xl), (yt, yl) = self.ticks()
+        xc, yr = np.round(self.col(xt)).astype(int), np.round(self.row(yt)).astype(int)
+        if self.grid_color is not None:
+            img[t + 1:b, xc[(xc > l) & (xc < r)]] = self.grid_color
+            img[yr[(yr > t) & (yr < b)], l + 1:r] = self.grid_color
+        for y, color, lw, ls in self.hlines:
+            self._line(img, np.array(self.x), np.array([y, y]), color, 1.0, lw, ls)
         for f in self.fills:
             self._fill(img, *f)
         for p in self.points:
             self._disks(img, *p)
-        for x, y, color, alpha, lw, _ in self.lines:
-            self._line(img, x, y, color, alpha, lw)
-        t, l, b, r = self.top, self.left, self.bottom, self.right
+        for x, y, color, alpha, lw, _, ls in self.lines:
+            self._line(img, x, y, color, alpha, lw, ls)
         img[t, l:r + 1] = img[b, l:r + 1] = INK
         img[t:b + 1, l] = img[t:b + 1, r] = INK
-        if self.xticks is None:
-            ticks, step = nice_ticks(*self.x)
-            labels = [tick_label(v, step) for v in ticks]
-        else:
-            keep = (self.xticks >= self.x[0]) & (self.xticks <= self.x[1])
-            ticks = self.xticks[keep]
-            labels = [lab for lab, k in zip(self.xticklabels or [f"{v:g}" for v in self.xticks], keep) if k]
-        for i, (c, lab) in enumerate(zip(np.round(self.col(ticks)).astype(int), labels)):
+        for i, (c, lab) in enumerate(zip(xc, xl)):
             img[b + 1:b + 5, c] = INK
             draw_text(img, lab, b + 7 + (9 * (i % 2) if self.xticklabels else 0), c, anchor="tc")
-        ticks, step = nice_ticks(*self.y)
-        for v, rr in zip(ticks, np.round(self.row(ticks)).astype(int)):
+        for rr, lab in zip(yr, yl):
             img[rr, l - 4:l] = INK
-            draw_text(img, tick_label(v, step), rr, l - 7, anchor="cr")
+            draw_text(img, lab, rr, l - 7, anchor="cr")
         draw_text(img, self.xlabel, b + 38, (l + r) / 2, anchor="bc")
         draw_text(img, self.ylabel, (t + b) / 2, l - SLOT_LEFT + 4, anchor="cl", vertical=True)
         draw_text(img, self.title, t - 6, (l + r) / 2, anchor="bc")
-        labelled = [(lab, color) for _, _, color, _, _, lab in self.lines if lab]
+        for x, y, text, ha, va, color in self.texts:
+            lines = text.split("\n")
+            top = b - y * (b - t) - {"bottom": 8 * len(lines) - 1, "center": 4 * len(lines), "top": 0}[va]
+            col = l + x * (r - l)
+            for i, line in enumerate(lines):
+                draw_text(img, line, top + 8 * i, col, anchor="t" + ha[0], color=color)
+        labelled = [(lab, color, ls) for _, _, color, _, _, lab, ls in self.lines if lab]
         if self.show_legend and labelled:
-            w = 28 + 6 * max(len(lab) for lab, _ in labelled)
-            x0, y0 = r - 6 - w, t + 6
-            img[y0:y0 + 12 * len(labelled) + 4, x0:x0 + w] = 255
-            img[y0, x0:x0 + w] = img[y0 + 12 * len(labelled) + 4, x0:x0 + w] = INK
-            for i, (lab, color) in enumerate(labelled):
-                yc = y0 + 8 + 12 * i
-                img[yc:yc + 2, x0 + 4:x0 + 20] = color
-                draw_text(img, lab, yc + 1, x0 + 24, anchor="cl")
+            _legend(img, labelled, t + 6, r - 6, "right", 1)
+
+
+def _sample(img, row: int, col: int, color, ls: str, length: int = 16, lw: int = 2) -> None:
+    """A legend's line sample: `length` pixels of `ls` from (row, col) rightwards."""
+    cols = col + np.flatnonzero(_dashed(np.arange(length) + 0.5, ls, lw))
+    img[row:row + lw, cols] = color
+
+
+def _legend(img, entries, row: int, col: int, align: str, ncol: int) -> None:
+    """A boxed legend of (label, colour, style) entries in `ncol` columns,
+    its top edge at `row`, its right edge (align='right') or centre
+    (align='center') at `col`."""
+    width = 28 + 6 * max(len(lab) for lab, _, _ in entries)
+    nrow = -(-len(entries) // ncol)
+    w, h = width * min(ncol, len(entries)), 12 * nrow + 4
+    x0 = col - w if align == "right" else col - w // 2
+    img[row:row + h, x0:x0 + w] = 255
+    img[row, x0:x0 + w] = img[row + h, x0:x0 + w] = INK
+    for i, (lab, color, ls) in enumerate(entries):
+        yc, xc = row + 8 + 12 * (i // ncol), x0 + width * (i % ncol)
+        _sample(img, yc, xc + 4, color, ls)
+        draw_text(img, lab, yc + 1, xc + 24, anchor="cl")
 
 
 class Figure:
     """A white canvas of round(width_in dpi) x round(height_in dpi) pixels
-    holding a grid of `Panel`s (`grid`); `save` draws every panel and
-    writes the PNG."""
+    holding a grid of `Panel`s (`grid`), a legend of its own (`legend`) and
+    a title above them (`suptitle`); `save` draws it and writes the PNG."""
 
     def __init__(self, width_in: float, height_in: float, dpi: int = 100):
         self.width, self.height = int(round(width_in * dpi)), int(round(height_in * dpi))
         self.dpi = dpi
         self.panels: List[Panel] = []
+        self.shared: List[List[Panel]] = []  # groups of panels with one y range
+        self.title, self.entries = "", []
 
-    def grid(self, rows: int, cols: int) -> List[List[Panel]]:
+    def grid(self, rows: int, cols: int, sharey=False,
+             rect: Tuple[float, float, float, float] = (0.0, 0.0, 1.0, 1.0)) -> List[List[Panel]]:
         """rows x cols axes, each in an equal slot with `SLOT_*` margins
-        around its frame (matplotlib's `squeeze=False` layout)."""
+        around its frame (matplotlib's `squeeze=False` layout), the slots
+        filling `rect` (left, bottom, right, top as fractions of the figure,
+        as `tight_layout(rect=...)`); `sharey` True gives every axes one y
+        range, "row" each row its own."""
+        x_lo, x_hi = round(rect[0] * self.width), round(rect[2] * self.width)
+        y_lo, y_hi = round((1 - rect[3]) * self.height), round((1 - rect[1]) * self.height)
         out = []
         for i in range(rows):
-            y0, y1 = i * self.height // rows, (i + 1) * self.height // rows
+            y0, y1 = y_lo + i * (y_hi - y_lo) // rows, y_lo + (i + 1) * (y_hi - y_lo) // rows
             out.append([])
             for j in range(cols):
-                x0, x1 = j * self.width // cols, (j + 1) * self.width // cols
+                x0, x1 = x_lo + j * (x_hi - x_lo) // cols, x_lo + (j + 1) * (x_hi - x_lo) // cols
                 panel = Panel(y0 + SLOT_TOP, x0 + SLOT_LEFT, y1 - SLOT_BOTTOM, x1 - SLOT_RIGHT, self.dpi)
                 out[-1].append(panel)
                 self.panels.append(panel)
+        if sharey == "row":
+            self.shared += out
+        elif sharey:
+            self.shared.append([p for row in out for p in row])
         return out
+
+    def legend(self, entries, ncol: int) -> None:
+        """A legend of (label, colour, style) entries at the bottom centre."""
+        self.entries = [(lab, rgb(color), ls) for lab, color, ls in entries]
+        self.ncol = ncol
+
+    def suptitle(self, text: str) -> None:
+        self.title = text
 
     def render(self) -> np.ndarray:
         """The figure as a (height, width, 4) uint8 RGBA array."""
         img = np.full((self.height, self.width, 3), 255, np.uint8)
+        grouped = {id(p) for group in self.shared for p in group}
+        for group in self.shared:
+            ys = np.concatenate([p.extent()[1] for p in group])
+            for p in group:
+                p.autoscale(ys)
         for panel in self.panels:
+            if id(panel) not in grouped:
+                panel.autoscale()
             panel.draw(img)
+        draw_text(img, self.title, 6, self.width / 2, anchor="tc")
+        if self.entries:
+            _legend(img, self.entries, self.height - 12 * -(-len(self.entries) // self.ncol) - 10,
+                    self.width // 2, "center", self.ncol)
         return np.concatenate([img, np.full((self.height, self.width, 1), 255, np.uint8)], axis=2)
 
     def save(self, path: str) -> None:

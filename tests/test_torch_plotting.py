@@ -235,3 +235,72 @@ def test_viridis_anchors():
         [0x44, 0x01, 0x54], [0x21, 0x91, 0x8C], [0xFD, 0xE7, 0x25]]
     mid = plotting.viridis(0.125)[0].astype(int)
     assert (np.abs(mid - (plotting.rgb("#440154").astype(int) + plotting.rgb("#3b528b")) / 2) <= 0.5).all()
+
+
+# what the results matrix and the run diagnostics add to the figure API: line
+# styles, horizontal lines, fixed and shared limits, a log scale, grid lines,
+# text in axes coordinates, a figure legend and a suptitle
+
+
+@pytest.mark.parametrize("ls,share", [("-", 1.0), ("--", 3.7 / 5.3), (":", 1.0 / 2.65)])
+def test_line_styles_paint_their_share_of_a_line(ls, share):
+    fig = plotting.Figure(6, 3, 100)
+    (ax,) = fig.grid(1, 1)[0]
+    ax.plot([0.0, 1.0], [0.5, 0.5], color="#ff0000", lw=3, ls=ls)
+    ax.set_ylim(0, 1)
+    img = fig.render()[..., :3]
+    row = int(np.floor(ax.row(0.5) - 1))
+    painted = (img[row, int(np.ceil(ax.col(0.0))):int(ax.col(1.0))] == [255, 0, 0]).all(-1)
+    assert abs(painted.mean() - share) < 0.08
+    if ls != "-":  # dashes: several runs, not one
+        assert np.count_nonzero(np.diff(painted.astype(int)) == 1) >= 5
+
+
+def test_shared_and_fixed_limits_log_scale_and_hline():
+    fig = plotting.Figure(8, 6, 100)
+    (a, b), (c, d) = fig.grid(2, 2, sharey="row")
+    a.plot([0, 1], [0.0, 1.0])
+    b.plot([0, 1], [5.0, 6.0])
+    c.plot([0, 1], [10.0, 20.0])
+    d.axhline(1.0, "#6b6a60", lw=1, ls=":")
+    d.set_xlim(0, 100)
+    c.set_yscale("log")
+    fig.render()
+    assert a.y == b.y and a.y[0] < 0.0 and a.y[1] > 6.0  # one range along the row
+    assert c.x == (-0.05, 1.05) and d.x == (0.0, 100.0) and d.y[0] < 1.0 < 20.0 < d.y[1]
+    # the log scale: equal decades; the row's range (the horizontal line's 1.0 counts)
+    # with 5% margins in log space; powers-of-ten ticks
+    assert c.row(10.0) - c.row(100.0) == pytest.approx(c.row(1.0) - c.row(10.0))
+    lo, hi = np.log10(c.y)
+    assert (lo, hi) == pytest.approx((-0.05 * np.log10(20), 1.05 * np.log10(20)))
+    assert plotting.log_ticks(0.01, 2.0) == (pytest.approx([0.01, 0.1, 1.0]), ["1e-2", "1e-1", "1e0"])
+    whole = plotting.Figure(6, 3, 100)
+    (e, f) = whole.grid(1, 2, sharey=True)[0]
+    e.plot([0, 1], [0.0, 1.0])
+    f.plot([0, 1], [3.0, 4.0])
+    f.set_ylim(-1, 2)
+    empty = whole.grid(1, 1)[0][0]
+    empty.set_yscale("log")  # a log panel with no data still draws
+    whole.render()
+    assert f.y == (-1.0, 2.0) and e.y == plotting._limits(0.0, 4.0) and empty.y == (1.0, 10.0)
+
+
+def test_text_grid_figure_legend_and_suptitle():
+    fig = plotting.Figure(8, 4, 100)
+    (ax,) = fig.grid(1, 1, rect=(0, 0.1, 1, 0.9))[0]
+    ax.plot([0, 1], [0, 1], color="#2a78d6", lw=2)
+    ax.text(0.99, 0.02, "GAIL: tuned s=2\nPWIL: untuned s=1", ha="right", va="bottom", color="#00ff00")
+    ax.grid("#e8e6dc")
+    fig.legend([("GAIL", "#2a78d6", "-"), ("SQIL", "#1baf7a", "--")], ncol=2)
+    fig.suptitle("a title")
+    img = fig.render()[..., :3]
+    assert ax.top >= 0.1 * fig.height and ax.bottom <= 0.9 * fig.height  # inside the rect's slot
+    rows, cols = np.nonzero((img == [0, 255, 0]).all(-1))
+    right, bottom = ax.left + 0.99 * (ax.right - ax.left), ax.bottom - 0.02 * (ax.bottom - ax.top)
+    assert cols.max() <= right and right - cols.max() < 3 and rows.max() <= bottom
+    assert rows.max() - rows.min() > 8  # two lines of text
+    assert (img[ax.top + 1:ax.bottom, ax.left + 1:ax.right] == [0xE8, 0xE6, 0xDC]).all(-1).any()
+    legend = img[int(0.9 * fig.height):]
+    for color in ("#2a78d6", "#1baf7a"):
+        assert (legend == plotting.rgb(color)).all(-1).any()
+    assert (img[:ax.top - 20] == 0).all(-1).any()  # the suptitle's ink above the axes
