@@ -253,6 +253,20 @@ of JAX or `iltpu`. Phases, each printing its results:
    `--traj-grid`) at iltpu's figure sizes, and `adril_diagnosis` and
    `decay_diagnosis` on 14a's and 14c's `metrics.pkl` (a table row each,
    the 2160 x 432 figure). Each part prints its host wall ms.
+15. h5py's newer formats (`libver='latest'`) through the port's reader, on
+   a machine with no h5py: (15a) `load_d4rl_hdf5` on
+   `data/d4rl/hopper_expert_latest.hdf5` (superblock v3, `OHDR` headers,
+   fixed-array chunk indexes) equal to data/hopper_expert.npz (floats
+   bit-equal, flags bool), and `read_datasets` on
+   `data/d4rl/formats_latest.hdf5` (link-message groups, dense and
+   compact, every chunk index, strings, compound, array, variable-length
+   and committed types, lzf, nbit, scale-offset, szip) equal to the arrays
+   `fixture.formats_arrays()` makes again from their seed (dtype, shape,
+   bytes), h5py never imported, each read's wall ms beside 12a's; (15b)
+   10b's pipelined main path (GAIL on 512 hopper envs on the stepper, the
+   SAC and GAIL kernels, the fused scan, 4,096 steps) from the latest
+   file: its expert ring bit-equal to the npz run's, each kernel launched
+   once an owed update, its steady env-steps/s beside 12b's.
 
 Then the steady rates and the pretraining times with the nvidia-smi line, one `kernels` JSON
 line (the per-update and K-blocked kernels at hopper's shapes with their
@@ -2517,15 +2531,21 @@ def check_mujoco(dev, results, rates, pre, launches, smi):
           f"the block's {h2d_ms:.4f}); on {smi}; phase 10 took {time.time() - t10:.1f} s")
 
 
-def d4rl_fixture():
-    """data/d4rl/hopper_expert.hdf5, decoded from its committed text form."""
+def d4rl_fixtures():
+    """data/d4rl/fixture.py: the HDF5 fixtures decoded from their committed
+    text forms, and formats_latest.hdf5's seeded arrays."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
         "d4rl_fixture", os.path.join(REPO, "data", "d4rl", "fixture.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.unpack()
+    return module
+
+
+def d4rl_fixture():
+    """data/d4rl/hopper_expert.hdf5, decoded from its committed text form."""
+    return d4rl_fixtures().unpack()
 
 
 def png_size(path):
@@ -2563,10 +2583,9 @@ def check_d4rl_hdf5(rates, pre, smi):
     (10b's pipelined GAIL on 512 hopper envs) with expert_data.source=hdf5,
     its expert ring bit-equal to the npz run's, each kernel launched once an
     owed update; (12c) the six plots that run wrote, valid 600 x 400 PNGs,
-    and the ms of one `_plots` call."""
+    and the ms of one `_plots` call. Returns 12a's read in ms."""
     import shutil
 
-    import numpy as np
     import torch
     from iltpu_torch.config import load_config
     from iltpu_torch.data import load_d4rl_hdf5
@@ -2580,17 +2599,7 @@ def check_d4rl_hdf5(rates, pre, smi):
     data = load_d4rl_hdf5(path)
     load_ms = 1e3 * (time.perf_counter() - t0)
     data.update(read_datasets(path, ["rewards"]))
-    with np.load(os.path.join(REPO, "data", "hopper_expert.npz")) as npz:
-        if sorted(data) != sorted(npz.files):
-            raise AssertionError(f"12a: keys {sorted(data)} != the npz's {sorted(npz.files)}")
-        for k in npz.files:
-            flag = k in ("terminals", "timeouts")
-            if data[k].dtype != (bool if flag else np.float32) or data[k].shape != npz[k].shape:
-                raise AssertionError(f"12a: {k} {data[k].dtype} {data[k].shape}")
-            same = (np.array_equal(data[k].astype(np.float32), npz[k]) if flag
-                    else data[k].tobytes() == npz[k].tobytes())
-            if not same:
-                raise AssertionError(f"12a: {k} differs from the npz's")
+    same_as_npz(data, "12a")
     if "h5py" in sys.modules:
         raise AssertionError("12a: h5py was imported")
     print(f"d4rl hdf5: {path} ({os.path.getsize(path)} bytes, {len(data['observations'])} rows) "
@@ -2643,6 +2652,95 @@ def check_d4rl_hdf5(rates, pre, smi):
           f"call {plots_ms:.2f} ms wall ({len(m['test_steps'])} evaluations, "
           f"{len(m['train_steps'])} episode ends, {len(m['update_steps'])} logged updates); "
           f"on {smi}; phase 12 took {time.time() - t12:.1f} s")
+    return load_ms
+
+
+def same_as_npz(data, phase):
+    """`data` (load_d4rl_hdf5's and the rewards) equal to data/hopper_expert.npz:
+    the floats bit-equal, the flags bool."""
+    import numpy as np
+
+    with np.load(os.path.join(REPO, "data", "hopper_expert.npz")) as npz:
+        if sorted(data) != sorted(npz.files):
+            raise AssertionError(f"{phase}: keys {sorted(data)} != the npz's {sorted(npz.files)}")
+        for k in npz.files:
+            flag = k in ("terminals", "timeouts")
+            if data[k].dtype != (bool if flag else np.float32) or data[k].shape != npz[k].shape:
+                raise AssertionError(f"{phase}: {k} {data[k].dtype} {data[k].shape}")
+            same = (np.array_equal(data[k].astype(np.float32), npz[k]) if flag
+                    else data[k].tobytes() == npz[k].tobytes())
+            if not same:
+                raise AssertionError(f"{phase}: {k} differs from the npz's")
+
+
+def measured(value, unit=""):
+    """A number of this call, or "not run" where its phase was not run."""
+    return "not run" if value is None else f"{value:.2f}{unit}"
+
+
+def check_latest_hdf5(rates, pre, read_12a_ms, smi):
+    """Phase 15: h5py's newer formats (libver='latest') on the card's
+    machine. (15a) hopper_expert_latest.hdf5 (superblock v3, OHDR headers,
+    fixed-array chunk indexes) through load_d4rl_hdf5 equal to
+    data/hopper_expert.npz, and formats_latest.hdf5 (every structure the
+    reader reads) through read_datasets equal to its arrays made again from
+    their seed, h5py never imported; (15b) 10b's pipelined main path from
+    the latest file: its expert ring bit-equal to the npz run's, each kernel
+    launched once an owed update, its steady env-steps/s."""
+    import torch
+    from iltpu_torch.config import load_config
+    from iltpu_torch.data import load_d4rl_hdf5
+    from iltpu_torch.data.hdf5 import read_datasets
+    from iltpu_torch.data.replay import COLUMNS
+    from iltpu_torch.trainer import Trainer
+
+    t15 = time.time()
+    fixtures = d4rl_fixtures()
+    path = fixtures.unpack("hopper_expert_latest.hdf5")
+    t0 = time.perf_counter()
+    data = load_d4rl_hdf5(path)
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    data.update(read_datasets(path, ["rewards"]))
+    same_as_npz(data, "15a")
+    formats = fixtures.unpack("formats_latest.hdf5")
+    want = fixtures.formats_arrays()
+    t0 = time.perf_counter()
+    got = read_datasets(formats, list(want))
+    formats_ms = 1e3 * (time.perf_counter() - t0)
+    fixtures.same(got, want)
+    if "h5py" in sys.modules:
+        raise AssertionError("15a: h5py was imported")
+    print(f"hdf5 latest (15a): {path} ({os.path.getsize(path)} bytes, {len(data['observations'])} "
+          f"rows) read by load_d4rl_hdf5 in {load_ms:.2f} ms wall (12a's earliest-format file: "
+          f"{measured(read_12a_ms, ' ms')}), equal to data/hopper_expert.npz (floats bit-equal, flags bool); "
+          f"{formats} ({os.path.getsize(formats)} bytes, {len(want)} datasets) read by "
+          f"read_datasets in {formats_ms:.2f} ms wall, equal to fixture.formats_arrays() (dtype, "
+          f"shape, bytes); h5py not imported; on {smi}")
+
+    # 15b: 10b's main path, pipelined, from the latest file
+    args = (*HOPPER, "training.start=100", "training.pipeline=true")
+    hdf5 = ("expert_data.source=hdf5", f"expert_data.path={path}")
+    kept = []
+    counted, rates["hopper_latest_pipeline"], pre["hopper_latest_pipeline"] = run_trainer(
+        "hopper_latest_pipeline", (*args, *hdf5), owed(per_update), keep=kept)
+    trainer = kept[0]
+    out_dir = os.path.join(REPO, "outputs", "chip_smoke", "hopper_latest_npz")
+    npz_trainer = Trainer(load_config(TRAINER_ARGS + list(args) + [f"output_dir={out_dir}"]),
+                          out_dir=out_dir)
+    npz_trainer.env.close()
+    for col in COLUMNS:
+        a, b = trainer.expert.rows(col), npz_trainer.expert.rows(col)
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"15b: the expert ring's {col} differs from the npz run's")
+    rows = int(trainer.expert.rows("states").shape[0])
+    print(f"hdf5 latest (15b): GAIL on 512 hopper envs from the latest-format file, pipelined: "
+          f"expert ring ({rows} rows, {len(COLUMNS)} columns) bit-equal to the npz trainer's, "
+          f"launches {counted} for {trainer.updates_done} owed updates; steady "
+          f"{rates['hopper_latest_pipeline']:.1f} env-steps/s (12b from the earliest-format file: "
+          f"{measured(rates.get('hopper_hdf5_pipeline'))}; 10b pipelined: "
+          f"{measured(rates.get('hopper_pipeline'))} and "
+          f"{measured(rates.get('hopper_pipeline_again'))}) on {smi}; phase 15 took "
+          f"{time.time() - t15:.1f} s")
 
 
 # Phase 7's GAIL runs: phase 5's kernel path at a small size
@@ -3455,7 +3553,7 @@ def main():
     wide_launches = check_wide_trainers(dev, rates, pre, smi)
 
     # 12. D4RL's HDF5 expert data through the port's reader, the main path on it, the plots
-    check_d4rl_hdf5(rates, pre, smi)
+    read_12a_ms = check_d4rl_hdf5(rates, pre, smi)
 
     # 13. the analysis layer: the two reports on phase 7's outputs, the learning-validation
     # harness on the card (GAIL on hopper through the SAC and GAIL kernels) and the report on its rows
@@ -3468,6 +3566,9 @@ def main():
     # 14. expert data generated on the card (autograd SAC), harvested, through the main path's
     # kernels; the results matrix and the run diagnostics on the card's host
     check_expert_data(rates, pre, smi)
+
+    # 15. h5py's newer formats through the port's reader, the main path on a latest-format file
+    check_latest_hdf5(rates, pre, read_12a_ms, smi)
 
     # the row-sum kernel's launches on its path: both of its entries
     launches["gaussian_rowsum"] += launches.pop("gmmil_witness_reward")

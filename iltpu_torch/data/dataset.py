@@ -3,7 +3,8 @@ copy of `load_d4rl_hdf5` and `build_expert_transitions` from
 `iltpu/data/dataset.py`, numpy only.
 
 `load_d4rl_hdf5` reads a D4RL HDF5 file through the port's own reader of
-the format (`data/hdf5.py`, no h5py). `build_expert_transitions` does the
+the format (`data/hdf5.py` and its sibling modules: what h5py writes under
+every `libver`, no h5py). `build_expert_transitions` does the
 trajectory splitting at terminal/timeout indices, truncation to the first N
 trajectories, DAC absorbing-state wrapping, within-trajectory subsampling
 that keeps the absorbing pair, weights 1/subsample on absorbing transitions,

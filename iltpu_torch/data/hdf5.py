@@ -1,90 +1,64 @@
-"""A reader of the HDF5 files that D4RL ships, in numpy and the standard
-library (`struct`, `zlib`, `mmap`): no h5py, which the card's machine lacks.
+"""A reader of HDF5 files in numpy and the standard library (`struct`,
+`zlib`, `mmap`): no h5py, which the card's machine lacks.
 
     read_datasets(path, names) -> {name: np.ndarray}
 
-returns the root group's datasets among `names`, in the root's order, each
-with the dtype and shape h5py gives (`np.asarray(f[name])`). It reads the
-subset of the format that h5py writes under its default
-`libver=('earliest', ...)`, which is the one D4RL's files use:
+returns the root group's datasets among `names`, in the order h5py's
+`f.keys()` gives (name order, or creation order where the group tracks
+it), each with the dtype, shape and values h5py gives (`np.asarray(f[name])`).
+It reads what h5py writes under every `libver`, from the file format
+specification (version 3.0):
 
-- superblock version 0 or 1, at offset 0, 512, 1024, 2048, ... (after a
-  user block); every address is relative to its base address;
-- version-1 object headers (messages 8-byte aligned, continuation blocks
-  followed);
-- groups as symbol tables: a v1 B-tree of `SNOD` nodes, names in a local
-  `HEAP`;
-- datatypes: fixed-point (1-8 bytes, either byte order, signed or not),
-  IEEE floating point (2, 4, 8 bytes, either byte order), enums (h5py's
-  bool, an enum FALSE=0 / TRUE=1, reads as `bool`; any other as its base
-  integer type);
+- superblock versions 0-3, after a user block; every address is relative
+  to the base address; v2/v3's checksum is verified;
+- object headers of version 1 and 2 (`OHDR`, its flags, continuation
+  blocks `OCHK`, each v2 block's checksum verified); messages that do not
+  bear on the data (attributes, times, ...) are skipped; a shared message
+  is read from the object header it names (a committed datatype) or from
+  the shared-message table's fractal heap (`SMTB`, in the superblock
+  extension);
+- groups as symbol tables (a v1 B-tree of `SNOD` nodes, names in a local
+  `HEAP`) and as links: compact (link messages in the header) or dense (a
+  fractal heap of link messages under a v2 B-tree name index,
+  `hdf5_fractal_heap.py`, `hdf5_btree2.py`); hard links are followed, soft
+  links resolved inside the file;
+- datatypes and variable-length data: `hdf5_types.py`;
 - dataspaces of version 1 and 2, simple or scalar;
-- layout version 3: compact, contiguous (an undefined address reads as the
-  fill value) and chunked under a v1 B-tree of any depth (a chunk never
-  written reads as the fill value);
-- the filters deflate, shuffle and fletcher32 (a chunk skips those its
-  filter mask names).
+- layouts of version 3 and 4: compact, contiguous (an undefined address
+  reads as the fill value) and chunked under every chunk index
+  (`hdf5_chunk_index.py`; a chunk never written reads as the fill value);
+- the filters of `hdf5_filters.py`; a chunk skips those its mask names.
 
-Anything else (superblock v2/v3, `OHDR` headers, link messages and
-fractal heaps, layout v4 chunk indexes, other filters) raises ValueError
-naming the structure and ROADMAP.md's 'HDF5 newer formats': h5py writes
-those under `libver='latest'`.
+Anything else raises ValueError naming the structure and ROADMAP.md's
+'HDF5 newer formats': the virtual layout, raw data in external files,
+external and user-defined links, filtered fractal heaps, null dataspaces,
+and the datatype classes `hdf5_types.py` names.
 """
 
 import mmap
-import zlib
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
+from iltpu_torch.data import hdf5_chunk_index, hdf5_types
+from iltpu_torch.data.hdf5_btree2 import BTree2
+from iltpu_torch.data.hdf5_checksum import refuse, verify
+from iltpu_torch.data.hdf5_filters import fletcher32 as _fletcher32  # noqa: F401
+from iltpu_torch.data.hdf5_filters import decode, pipeline
+from iltpu_torch.data.hdf5_fractal_heap import FractalHeap
+
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
-ITEM = "HDF5 newer formats"
 
 # object header message types
-DATASPACE, DATATYPE, FILL, LAYOUT, FILTERS = 0x1, 0x3, 0x5, 0x8, 0xB
-CONTINUATION, SYMBOL_TABLE = 0x10, 0x11
-NEW_STYLE_GROUP = {0x2: "link info message", 0x6: "link message", 0xA: "group info message"}
-DEFLATE, SHUFFLE, FLETCHER32 = 1, 2, 3
-
-
-def _refuse(what: str) -> ValueError:
-    return ValueError(f"{what} is not read by the port's HDF5 reader: ROADMAP.md, '{ITEM}'")
-
-
-def _fletcher32(data: bytes) -> Tuple[int, int]:
-    """HDF5's Fletcher-32 sums (H5_checksum_fletcher32: big-endian 16-bit
-    words, an odd last byte as the high byte of a word), each mod 65535."""
-    if len(data) % 2:
-        data += b"\0"
-    w = np.frombuffer(data, ">u2").astype(np.uint64)
-    n = len(w)
-    s1 = int(w.sum()) % 65535
-    # sum2 = sum_i (n - i) w_i; the weights reduced mod 65535 keep it in uint64
-    s2 = int((w * (np.arange(n, 0, -1, dtype=np.uint64) % 65535)).sum()) % 65535
-    return s1, s2
-
-
-def _check_fletcher32(raw: bytes) -> bytes:
-    data, stored = raw[:-4], int.from_bytes(raw[-4:], "little")
-    s1, s2 = _fletcher32(data)
-    # the library also accepts the byte-swapped halves an old version wrote
-    swapped = ((stored & 0x00FF00FF) << 8) | ((stored >> 8) & 0x00FF00FF)
-    for v in (stored, swapped):
-        if (v & 0xFFFF) % 65535 == s1 and (v >> 16) % 65535 == s2:
-            return data
-    raise ValueError("HDF5 chunk fails its fletcher32 checksum")
-
-
-def _unshuffle(raw: bytes, size: int) -> bytes:
-    n = len(raw) // size
-    if size == 1 or n == 0:
-        return raw
-    planes = np.frombuffer(raw, np.uint8, n * size).reshape(size, n)
-    return planes.T.tobytes() + raw[n * size:]
+DATASPACE, LINK_INFO, DATATYPE, FILL, LINK, EXTERNAL, LAYOUT = 0x1, 0x2, 0x3, 0x5, 0x6, 0x7, 0x8
+FILTERS, SHARED_TABLE, CONTINUATION, SYMBOL_TABLE = 0xB, 0xF, 0x10, 0x11
+GROUP_MESSAGES = (LINK_INFO, LINK, SYMBOL_TABLE)
+HARD, SOFT = 0, 1
 
 
 class _File:
-    """The superblock's sizes and base address over a read-only map."""
+    """The superblock's sizes and base address over a read-only map, and
+    the object headers, groups and datasets under it."""
 
     def __init__(self, mm):
         self.mm = mm
@@ -94,13 +68,25 @@ class _File:
             if p + 8 > len(mm):
                 raise ValueError("not an HDF5 file: no superblock signature")
         version = mm[p + 8]
-        if version not in (0, 1):
-            raise _refuse(f"superblock version {version}")
-        self.so, self.sl = mm[p + 13], mm[p + 14]
-        q = p + 24 + (4 if version == 1 else 0)
-        self.base = self.addr(q)
-        root = q + 4 * self.so  # after the superblock's four addresses, base address first
-        self.root = self.addr(root + self.so)  # the root entry's object header
+        self.extension = None
+        if version in (0, 1):
+            self.so, self.sl = mm[p + 13], mm[p + 14]
+            q = p + 24 + (4 if version == 1 else 0)
+            self.base = self.addr(q)
+            root = q + 4 * self.so  # after the superblock's four addresses, base address first
+            self.root = self.addr(root + self.so)  # the root entry's object header
+        elif version in (2, 3):
+            self.so, self.sl = mm[p + 9], mm[p + 10]
+            q = p + 12
+            verify(mm, p, q + 4 * self.so, f"superblock version {version}")
+            self.base = self.addr(q)
+            self.extension = self.addr(q + self.so)  # an object header: the shared-message table's
+            self.root = self.addr(q + 3 * self.so)  # after the end-of-file address
+        else:
+            raise refuse(f"superblock version {version}")
+        self.global_heap = hdf5_types.GlobalHeap(self)
+        self.groups = {}
+        self.heaps = None  # the shared-message table's (message type flags, heap)
 
     def uint(self, off: int, n: int) -> int:
         return int.from_bytes(self.mm[off:off + n], "little")
@@ -113,31 +99,99 @@ class _File:
     def at(self, addr: int) -> int:
         return self.base + addr
 
+    # ---------------------------------------------------- object headers
+
     def messages(self, addr: int) -> List[Tuple[int, int, int]]:
-        """(type, data offset, size) of a version-1 object header's
-        messages, continuation blocks followed."""
-        p = self.at(addr)
-        if self.mm[p:p + 4] == b"OHDR":
-            raise _refuse("object header version 2 (OHDR)")
-        if self.mm[p] != 1:
-            raise _refuse(f"object header version {self.mm[p]}")
-        blocks, out = [(p + 16, self.uint(p + 8, 4))], []
+        """(type, data offset, size) of an object header's messages, version
+        1 or 2, continuation blocks followed and shared messages read from
+        the header they name."""
+        p, mm = self.at(addr), self.mm
+        if mm[p:p + 4] == b"OHDR":
+            if mm[p + 4] != 2:
+                raise refuse(f"object header version {mm[p + 4]} (OHDR)")
+            flags = mm[p + 5]
+            q = p + 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+            width = 1 << (flags & 0x3)
+            start = q + width
+            end = start + self.uint(q, width)
+            verify(mm, p, end, "object header")
+            # a message's header: type (1 byte), size (2), flags (1), creation order (2)
+            blocks, v2, head = [(start, end)], True, 6 if flags & 0x4 else 4
+        elif mm[p] == 1:
+            blocks, v2, head = [(p + 16, p + 16 + self.uint(p + 8, 4))], False, 8
+        else:
+            raise refuse(f"object header version {mm[p]}")
+        out = []
         while blocks:
-            q, length = blocks.pop(0)
-            end = q + length
-            while q + 8 <= end:
-                kind, size, flags = self.uint(q, 2), self.uint(q + 2, 2), self.mm[q + 4]
-                data = q + 8
-                if flags & 0x2:
-                    raise _refuse(f"shared message of type {kind:#x}")
+            q, end = blocks.pop(0)
+            while q + head <= end:  # what is left short of a message's header is a gap
+                if v2:
+                    kind, size, flags = mm[q], self.uint(q + 1, 2), mm[q + 3]
+                    data = q + head
+                    q = data + size
+                else:
+                    kind, size, flags = self.uint(q, 2), self.uint(q + 2, 2), mm[q + 4]
+                    data = q + 8
+                    q = data + ((size + 7) & ~7)  # aligned relative to the block's start
                 if kind == CONTINUATION:
-                    blocks.append((self.at(self.addr(data)), self.uint(data + self.so, self.sl)))
+                    block, length = self.at(self.addr(data)), self.uint(data + self.so, self.sl)
+                    if v2:
+                        if mm[block:block + 4] != b"OCHK":
+                            raise ValueError(f"HDF5 object header continuation expected at {block}")
+                        verify(mm, block, block + length - 4, "object header continuation")
+                        blocks.append((block + 4, block + length - 4))
+                    else:
+                        blocks.append((block, block + length))
+                elif flags & 0x2:
+                    out.append(self.shared(kind, data))
                 elif kind:
                     out.append((kind, data, size))
-                q = data + ((size + 7) & ~7)  # aligned relative to the block's start
         return out
 
-    def btree_leaves(self, addr: int, node_type: int, key: int) -> Iterable[Tuple[int, int]]:
+    def shared(self, kind: int, p: int) -> Tuple[int, int, int]:
+        """A shared message (version 1-3) read from the object header it
+        names (a committed datatype's) or from the shared-message table's
+        heap."""
+        version, where = self.mm[p], self.mm[p + 1]
+        if version == 1:
+            target = self.addr(p + 8)
+        elif version == 2 or (version == 3 and where == 2):
+            target = self.addr(p + 2)
+        elif version == 3 and where == 1:  # in the heap of the table's index for its type
+            start, size = self.shared_heap(kind).locate(p + 2)
+            return kind, start, size
+        else:
+            raise ValueError(f"HDF5 shared message version {version}, type {where}")
+        for found in self.messages(target):
+            if found[0] == kind:
+                return found
+        raise ValueError(f"HDF5 shared message of type {kind:#x}: not in its object header")
+
+    def shared_heap(self, kind: int) -> FractalHeap:
+        """The fractal heap of the shared-message table's index that holds
+        messages of type `kind`: the table (`SMTB`) is named by a message
+        (0xF) in the superblock extension's header; each index lists the
+        message types it takes (bit `kind` of its flags) and its heap."""
+        if self.extension is None:
+            raise ValueError("HDF5 shared message in a file without a shared-message table")
+        if self.heaps is None:
+            found = {k: p for k, p, _ in self.messages(self.extension)}
+            if SHARED_TABLE not in found:
+                raise ValueError("HDF5 shared message in a file without a shared-message table")
+            q = found[SHARED_TABLE]
+            table, n = self.at(self.addr(q + 1)), self.mm[q + 1 + self.so]
+            if self.mm[table:table + 4] != b"SMTB":
+                raise ValueError(f"HDF5 shared-message table expected at {table}")
+            entry = 14 + 2 * self.so
+            verify(self.mm, table, table + 4 + n * entry, "shared-message table")
+            self.heaps = [(self.uint(e + 2, 2), FractalHeap(self, self.addr(e + 14 + self.so)))
+                          for e in range(table + 4, table + 4 + n * entry, entry)]
+        for flags, heap in self.heaps:
+            if flags & (1 << kind):
+                return heap
+        raise ValueError(f"HDF5 shared-message table has no index for messages of type {kind:#x}")
+
+    def btree_leaves(self, addr: int, node_type: int, key: int):
         """(key offset, child address) of every entry of a v1 B-tree's
         level-0 nodes, in key order, every level walked; `key` is the key's
         size in bytes."""
@@ -159,16 +213,30 @@ class _File:
 
     # ------------------------------------------------------------- groups
 
-    def group(self, addr: int) -> Dict[str, int]:
-        """A symbol-table group's {name: object header address}, in name order."""
+    def group(self, addr: int) -> Dict[str, Tuple[int, object]]:
+        """A group's {name: (link type, target)} in h5py's order: a hard
+        link's target is an object header address, a soft link's a path
+        (each group read once)."""
+        if addr not in self.groups:
+            self.groups[addr] = self._group(addr)
+        return self.groups[addr]
+
+    def _group(self, addr: int) -> Dict[str, Tuple[int, object]]:
         msgs = self.messages(addr)
-        for kind, _, _ in msgs:
-            if kind in NEW_STYLE_GROUP:
-                raise _refuse(f"a group stored by {NEW_STYLE_GROUP[kind]}s and a fractal heap")
-        table = [d for kind, d, _ in msgs if kind == SYMBOL_TABLE]
-        if not table:
+        found = {kind: p for kind, p, _ in msgs}
+        if SYMBOL_TABLE in found:
+            return self._symbol_table(found[SYMBOL_TABLE])
+        if LINK_INFO not in found and LINK not in found:
             raise ValueError("HDF5 object is not a group")
-        btree, heap = self.addr(table[0]), self.addr(table[0] + self.so)
+        tracked = LINK_INFO in found and bool(self.mm[found[LINK_INFO] + 1] & 0x1)
+        links = [self._link(p) for kind, p, _ in msgs if kind == LINK]
+        if LINK_INFO in found:
+            links += self._dense_links(found[LINK_INFO])
+        links.sort(key=lambda link: (link[0], link[1]) if tracked else link[1])
+        return {name: target for _, name, target in links}
+
+    def _symbol_table(self, table: int) -> Dict[str, Tuple[int, object]]:
+        btree, heap = self.addr(table), self.addr(table + self.so)
         h = self.at(heap)
         if self.mm[h:h + 4] != b"HEAP":
             raise ValueError("HDF5 local heap expected")
@@ -181,158 +249,171 @@ class _File:
             entry = 2 * self.so + 24
             for i in range(self.uint(s + 6, 2)):
                 e = s + 8 + i * entry
-                start = names + self.uint(e, self.so)
-                name = self.mm[start:self.mm.find(b"\0", start)].decode()
-                out[name] = self.addr(e + self.so)
+                name = self._string(names + self.uint(e, self.so))
+                if self.uint(e + 2 * self.so, 4) == 2:  # cached as a soft link: its path's offset
+                    out[name] = (SOFT, self._string(names + self.uint(e + 2 * self.so + 8, 4)))
+                else:
+                    out[name] = (HARD, self.addr(e + self.so))
         return out
+
+    def _string(self, start: int) -> str:
+        return self.mm[start:self.mm.find(b"\0", start)].decode()
+
+    def _link(self, p: int):
+        """A link message's (creation order, name, (link type, target))."""
+        flags, q = self.mm[p + 1], p + 2
+        kind = order = 0
+        if flags & 0x8:
+            kind, q = self.mm[q], q + 1
+        if flags & 0x4:
+            order, q = self.uint(q, 8), q + 8
+        if flags & 0x10:
+            q += 1  # the name's character set
+        width = 1 << (flags & 0x3)
+        n, q = self.uint(q, width), q + width
+        name, q = self.mm[q:q + n].decode(), q + n
+        if kind == HARD:
+            return order, name, (kind, self.uint(q, self.so))
+        target = self.mm[q + 2:q + 2 + self.uint(q, 2)]
+        return order, name, (kind, target.decode() if kind == SOFT else target)
+
+    def _dense_links(self, p: int):
+        """The links of a group's fractal heap, by its v2 B-tree name index."""
+        q = p + 2 + (8 if self.mm[p + 1] & 0x1 else 0)
+        heap_addr, names = self.addr(q), self.addr(q + self.so)
+        if heap_addr is None:
+            return []
+        heap = FractalHeap(self, heap_addr)
+        tree = BTree2(self, names)
+        if tree.kind != 5:
+            raise ValueError(f"HDF5 group name index: v2 B-tree of record type {tree.kind}")
+        # each record: the name's hash (4 bytes), then the link's heap ID
+        return [self._link(heap.locate(r + 4)[0]) for r in tree.records()]
+
+    def resolve(self, group: int, link: Tuple[int, object], hops: int = 16) -> int:
+        """The object header address a link reaches: a hard link's target, a
+        soft link's path walked from the root or from `group`."""
+        kind, target = link
+        if kind == HARD:
+            return target
+        if kind != SOFT:
+            raise refuse("external link" if kind == 64 else f"link of type {kind}")
+        if not hops:
+            raise ValueError("HDF5 soft links nest too deep")
+        here = self.root if target.startswith("/") else group
+        for part in (s for s in target.split("/") if s and s != "."):
+            links = self.group(here)
+            if part not in links:
+                raise KeyError(f"HDF5 soft link to {target!r}: no {part!r}")
+            here = self.resolve(here, links[part], hops - 1)
+        return here
 
     # ----------------------------------------------------------- datasets
 
-    def dtype(self, p: int) -> Tuple[np.dtype, int]:
-        """A datatype message's numpy dtype and its length in bytes."""
-        cls, version = self.mm[p] & 0xF, self.mm[p] >> 4
-        bits, size = self.uint(p + 1, 3), self.uint(p + 4, 4)
-        order = ">" if bits & 1 else "<"
-        if cls == 0 and size in (1, 2, 4, 8):
-            return np.dtype(f"{order}{'i' if bits & 0x8 else 'u'}{size}"), 12
-        if cls == 1 and size in (2, 4, 8) and not bits & 0x40:
-            return np.dtype(f"{order}f{size}"), 20
-        if cls == 8:
-            base, n = self.dtype(p + 8)
-            q, members = p + 8 + n, []
-            for _ in range(bits & 0xFFFF):
-                end = self.mm.find(b"\0", q)
-                members.append(self.mm[q:end].decode())
-                q = end + 1 if version >= 3 else q + ((end - q) // 8 + 1) * 8
-            values = np.frombuffer(self.mm[q:q + len(members) * base.itemsize], base).tolist()
-            q += len(members) * base.itemsize
-            if base.kind in "iu" and dict(zip(members, values)) == {"FALSE": 0, "TRUE": 1}:
-                return np.dtype(bool), q - p  # h5py's bool
-            return base, q - p
-        raise _refuse(f"datatype class {cls} of {size} bytes")
-
-    def shape(self, p: int) -> Tuple[int, ...]:
-        version, rank = self.mm[p], self.mm[p + 1]
+    def shape(self, p: int) -> Tuple[Tuple[int, ...], Tuple[Optional[int], ...]]:
+        """A dataspace's dimensions and maximum dimensions (None: unlimited)."""
+        version, rank, flags = self.mm[p], self.mm[p + 1], self.mm[p + 2]
         if version == 1:
             dims = p + 8
         elif version == 2:
             if self.mm[p + 3] == 2:
-                raise _refuse("null dataspace")
+                raise refuse("null dataspace")
             dims = p + 4
         else:
-            raise _refuse(f"dataspace version {version}")
-        return tuple(self.uint(dims + i * self.sl, self.sl) for i in range(rank))
+            raise refuse(f"dataspace version {version}")
+        shape = tuple(self.uint(dims + i * self.sl, self.sl) for i in range(rank))
+        if not flags & 0x1:
+            return shape, shape
+        top = (1 << (8 * self.sl)) - 1
+        maxshape = tuple(self.uint(dims + (rank + i) * self.sl, self.sl) for i in range(rank))
+        return shape, tuple(None if m == top else m for m in maxshape)
 
-    def filters(self, p: int) -> List[Tuple[int, Tuple[int, ...]]]:
-        version, n = self.mm[p], self.mm[p + 1]
-        if version not in (1, 2):
-            raise _refuse(f"filter pipeline version {version}")
-        q, out = p + (8 if version == 1 else 2), []
-        for _ in range(n):
-            fid = self.uint(q, 2)
-            if version == 1 or fid >= 256:
-                name_len, q = self.uint(q + 2, 2), q + 4
-            else:
-                name_len, q = 0, q + 2
-            ncd = self.uint(q + 2, 2)
-            q += 4 + name_len
-            client = tuple(self.uint(q + 4 * i, 4) for i in range(ncd))
-            q += 4 * ncd + (4 if version == 1 and ncd % 2 else 0)
-            if fid not in (DEFLATE, SHUFFLE, FLETCHER32):
-                raise _refuse(f"filter id {fid}")
-            out.append((fid, client))
-        return out
-
-    def fill(self, msgs, dtype: np.dtype) -> Optional[bytes]:
-        """The fill value's bytes (the fill-value message's, version 1 or 2),
-        or None for the default (zeros)."""
+    def fill(self, msgs, size: int) -> Optional[bytes]:
+        """The fill value's bytes (the fill-value message's, version 1-3), or
+        None for the default (zeros)."""
         for kind, p, _ in msgs:
             if kind == FILL:
-                version, defined, size = self.mm[p], self.mm[p + 3], self.uint(p + 4, 4)
-                if version not in (1, 2):
-                    raise _refuse(f"fill value message version {version}")
-                if (version == 2 and not defined) or size != dtype.itemsize:
-                    return None
-                return self.mm[p + 8:p + 8 + size]
+                version = self.mm[p]
+                if version == 3:
+                    if not self.mm[p + 1] & 0x20:  # no fill value defined
+                        return None
+                    n, value = self.uint(p + 2, 4), p + 6
+                elif version in (1, 2):
+                    if version == 2 and not self.mm[p + 3]:
+                        return None
+                    n, value = self.uint(p + 4, 4), p + 8
+                else:
+                    raise refuse(f"fill value message version {version}")
+                return self.mm[value:value + size] if n == size else None
         return None
 
     def dataset(self, addr: int) -> np.ndarray:
         msgs = self.messages(addr)
         found = {kind: p for kind, p, _ in msgs}
-        if SYMBOL_TABLE in found or any(k in NEW_STYLE_GROUP for k in found):
+        if any(k in GROUP_MESSAGES for k in found):
             raise ValueError("HDF5 object is a group, not a dataset")
         for kind in (DATASPACE, DATATYPE, LAYOUT):
             if kind not in found:
                 raise ValueError(f"HDF5 dataset without a message of type {kind:#x}")
-        dtype, _ = self.dtype(found[DATATYPE])
-        shape = self.shape(found[DATASPACE])
-        fill = self.fill(msgs, dtype)
-        out = np.zeros(shape, dtype)
+        if EXTERNAL in found:
+            raise refuse("raw data in external files (message 0x7)")
+        dtype, _ = hdf5_types.parse(self, found[DATATYPE])
+        shape, maxshape = self.shape(found[DATASPACE])
+        size = dtype.storage.itemsize
+        raw = np.zeros(shape, f"V{size}")  # the elements' bytes, as stored
+        fill = self.fill(msgs, size)
         if fill is not None:
-            out.fill(np.frombuffer(fill, dtype)[0])
-        count = out.size
+            raw.fill(np.frombuffer(fill, f"V{size}")[0])
+        nbytes = raw.size * size
         p = found[LAYOUT]
-        if self.mm[p] != 3:
-            raise _refuse(f"layout version {self.mm[p]}")
-        cls = self.mm[p + 1]
+        version, cls = self.mm[p], self.mm[p + 1]
+        if version not in (3, 4):
+            raise refuse(f"layout version {version}")
         if cls == 0:  # compact: the data in the message
-            out[...] = np.frombuffer(self.mm[p + 4:p + 4 + count * dtype.itemsize], dtype).reshape(shape)
+            raw[...] = np.frombuffer(self.mm[p + 4:p + 4 + nbytes], raw.dtype).reshape(shape)
         elif cls == 1:  # contiguous
             data = self.addr(p + 2)
             if data is not None:
                 start = self.at(data)
-                out[...] = np.frombuffer(self.mm[start:start + count * dtype.itemsize],
-                                         dtype).reshape(shape)
+                raw[...] = np.frombuffer(self.mm[start:start + nbytes], raw.dtype).reshape(shape)
         elif cls == 2:
-            filters = self.filters(found[FILTERS]) if FILTERS in found else []
-            self._chunks(p, out, filters)
+            filters = pipeline(self, found[FILTERS]) if FILTERS in found else []
+            self._chunks(p, raw, shape, maxshape, filters)
+        elif cls == 3:
+            raise refuse("virtual dataset layout")
         else:
-            raise _refuse(f"layout class {cls}")
-        return out
+            raise refuse(f"layout class {cls}")
+        return dtype.read(raw.view(dtype.storage) if dtype.storage.shape == () else
+                          np.ndarray(shape, dtype.storage, raw))
 
-    def _chunks(self, p: int, out: np.ndarray, filters) -> None:
+    def _chunks(self, p: int, out: np.ndarray, shape, maxshape, filters) -> None:
         """Every written chunk of a chunked layout into `out`, each cropped to
         the dataset's bounds in every dimension by one slice assignment."""
-        ndims = self.mm[p + 2]
-        btree = self.addr(p + 3)
-        dims = [self.uint(p + 3 + self.so + 4 * i, 4) for i in range(ndims)]
-        chunk, itemsize, count = tuple(dims[:-1]), dims[-1], int(np.prod(dims[:-1]))
-        if btree is None:
-            return
-        for key, child in self.btree_leaves(btree, 1, 8 + 8 * ndims):
-            size, mask = self.uint(key, 4), self.uint(key + 4, 4)
-            offsets = [self.uint(key + 8 + 8 * i, 8) for i in range(ndims - 1)]
-            start = self.at(child)
-            raw = self.mm[start:start + size]
-            for i in reversed(range(len(filters))):
-                if mask & (1 << i):
-                    continue
-                fid, client = filters[i]
-                if fid == DEFLATE:
-                    raw = zlib.decompress(raw)
-                elif fid == SHUFFLE:
-                    raw = _unshuffle(raw, client[0] if client else itemsize)
-                else:
-                    raw = _check_fletcher32(raw)
-            if len(raw) < count * out.dtype.itemsize:
-                raise ValueError(f"HDF5 chunk at {offsets} holds {len(raw)} bytes, not "
-                                 f"{count * out.dtype.itemsize}")
+        chunk, itemsize, chunks = hdf5_chunk_index.layout(self, p, shape, maxshape, bool(filters))
+        count = int(np.prod(chunk))
+        nbytes = count * out.dtype.itemsize
+        for offsets, start, size, mask in chunks:
+            if any(o >= s for o, s in zip(offsets, shape)):
+                continue  # past the current extent (a dataset made smaller)
+            raw = decode(self.mm[start:start + size], filters, mask, itemsize, nbytes)
+            if len(raw) < nbytes:
+                raise ValueError(f"HDF5 chunk at {offsets} holds {len(raw)} bytes, not {nbytes}")
             data = np.frombuffer(raw, out.dtype, count).reshape(chunk)
-            part = tuple(min(c, s - o) for c, s, o in zip(chunk, out.shape, offsets))
+            part = tuple(min(c, s - o) for c, s, o in zip(chunk, shape, offsets))
             out[tuple(slice(o, o + k) for o, k in zip(offsets, part))] = \
                 data[tuple(slice(0, k) for k in part)]
 
 
 def read_datasets(path: str, names: Iterable[str]) -> Dict[str, np.ndarray]:
-    """The root group's datasets among `names` (in the root's order), as
-    h5py reads them. A missing file raises FileNotFoundError; a structure
-    outside the reader's subset raises ValueError naming ROADMAP.md's 'HDF5
-    newer formats'."""
+    """The root group's datasets among `names` (in h5py's order of the root),
+    as h5py reads them. A missing file raises FileNotFoundError; a structure
+    outside the reader raises ValueError naming ROADMAP.md's 'HDF5 newer
+    formats'."""
     wanted = set(names)
     with open(path, "rb") as f:
         if not f.seek(0, 2):
             raise ValueError(f"not an HDF5 file: {path} is empty")
         with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
             h5 = _File(mm)
-            return {name: h5.dataset(addr) for name, addr in h5.group(h5.root).items()
-                    if name in wanted}
+            return {name: h5.dataset(h5.resolve(h5.root, link))
+                    for name, link in h5.group(h5.root).items() if name in wanted}

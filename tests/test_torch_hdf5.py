@@ -5,10 +5,14 @@ layout at three gzip levels, the other filters and layouts, chunks that
 divide neither dimension, chunk B-trees of several levels, other dtypes, a
 user block, a root of several symbol nodes, header continuation blocks,
 a chunk stored raw under its filter mask, unwritten chunks with a fill
-value, and the reconstruction of `next_observations`; a hypothesis test
-over random datasets; `libver='latest'` files raise ValueError naming the
-ROADMAP item; and a 200,000-row file reads in well under 2 s."""
+value, and the reconstruction of `next_observations`, each under h5py's
+default `libver` and under 'latest', ('v108', 'latest'), ('v110', 'v110')
+and ('v108', 'v108') (superblock v2/v3, `OHDR` headers, link-message
+groups, layout v4 chunk indexes); lzf; a hypothesis test over random
+datasets, `libver`s and `maxshape`s; and a 200,000-row file reads in well
+under 2 s under both the earliest and the latest format."""
 
+import functools
 import os
 import time
 
@@ -46,10 +50,12 @@ def d4rl_arrays(rows=1000, S=11, A=3, seed=0, every=97):
     }
 
 
-def write(path, arrays, file_kw=None, meta=True, **dataset_kw):
+def write(path, arrays, file_kw=None, meta=True, libver=None, **dataset_kw):
     """`arrays` as D4RL writes them (`create_dataset(k, data=v, ...)`), with a
-    `metadata/` group; a (value, kwargs) pair takes its own kwargs."""
-    with h5py.File(path, "w", **(file_kw or {})) as f:
+    `metadata/` group; a (value, kwargs) pair takes its own kwargs; `libver`
+    None is h5py's default."""
+    file_kw = dict(file_kw or {}, **({} if libver is None else {"libver": libver}))
+    with h5py.File(path, "w", **file_kw) as f:
         for k, v in arrays.items():
             v, kw = v if isinstance(v, tuple) else (v, dataset_kw)
             f.create_dataset(k, data=v, **kw)
@@ -77,33 +83,35 @@ def compact(f, name, arr):
     dsid.write(h5py.h5s.ALL, h5py.h5s.ALL, np.ascontiguousarray(arr))
 
 
-def _case(name, tmp_path):
+def _case(name, tmp_path, libver=None):
+    """PR 15's D4RL case `name`, written under `libver` (None: h5py's default)."""
     p = tmp_path / f"{name}.hdf5"
+    put = functools.partial(write, libver=libver)
     if name.startswith("gzip"):
-        return write(p, d4rl_arrays(), compression="gzip", compression_opts=int(name[4:]))
+        return put(p, d4rl_arrays(), compression="gzip", compression_opts=int(name[4:]))
     if name == "shuffle_gzip":
-        return write(p, d4rl_arrays(), compression="gzip", shuffle=True)
+        return put(p, d4rl_arrays(), compression="gzip", shuffle=True)
     if name == "fletcher32":
-        return write(p, d4rl_arrays(), fletcher32=True)
+        return put(p, d4rl_arrays(), fletcher32=True)
     if name == "fletcher32_shuffle_gzip":
-        return write(p, d4rl_arrays(rows=777), fletcher32=True, shuffle=True, compression="gzip")
+        return put(p, d4rl_arrays(rows=777), fletcher32=True, shuffle=True, compression="gzip")
     if name == "contiguous":
-        return write(p, d4rl_arrays())
+        return put(p, d4rl_arrays())
     if name == "chunked_raw":
-        return write(p, d4rl_arrays(), chunks=True)
+        return put(p, d4rl_arrays(), chunks=True)
     if name == "compact":
-        with h5py.File(p, "w") as f:
+        with h5py.File(p, "w", **({} if libver is None else {"libver": libver})) as f:
             for k, v in d4rl_arrays(rows=12, every=5).items():
                 compact(f, k, v)
         return str(p)
     if name == "odd_chunks":  # 1,001 x 11 in (7, 3) chunks: edge chunks cropped both ways
         a = d4rl_arrays(rows=1001)
-        return write(p, {k: (v, dict(chunks=(7, 3) if v.ndim == 2 else (7,), compression="gzip"))
-                         for k, v in a.items()})
+        return put(p, {k: (v, dict(chunks=(7, 3) if v.ndim == 2 else (7,), compression="gzip"))
+                       for k, v in a.items()})
     if name == "multilevel":  # 1,250 chunks: a chunk B-tree of two levels
         a = d4rl_arrays(rows=20000)
-        return write(p, {k: (v, dict(chunks=(16, v.shape[1]) if v.ndim == 2 else (16,)))
-                         for k, v in a.items()})
+        return put(p, {k: (v, dict(chunks=(16, v.shape[1]) if v.ndim == 2 else (16,)))
+                       for k, v in a.items()})
     if name == "dtypes":
         a = d4rl_arrays()
         a["observations"] = a["observations"].astype(">f4")
@@ -111,20 +119,20 @@ def _case(name, tmp_path):
         a["terminals"] = a["terminals"].astype(np.uint8)
         a["timeouts"] = a["timeouts"].astype(">i2")
         a["rewards"] = a["rewards"].astype(np.float16)
-        return write(p, a, compression="gzip")
+        return put(p, a, compression="gzip")
     if name == "userblock":
-        return write(p, d4rl_arrays(), file_kw=dict(userblock_size=512), compression="gzip")
+        return put(p, d4rl_arrays(), file_kw=dict(userblock_size=512), compression="gzip")
     if name == "root40":  # 40 entries, some groups: the root spans several SNODs
         a = dict(d4rl_arrays())
         for i in range(34):
             a[f"info{i:02d}"] = np.arange(i + 1, dtype=np.int32)
-        path = write(p, a, compression="gzip")
+        path = put(p, a, compression="gzip")
         with h5py.File(path, "a") as f:
             for i in range(5):
                 f.create_group(f"group{i}").create_dataset("x", data=np.arange(3))
         return path
     if name == "continuation":  # attributes push the headers into continuation blocks
-        path = write(p, d4rl_arrays(), compression="gzip")
+        path = put(p, d4rl_arrays(), compression="gzip")
         with h5py.File(path, "a") as f:
             for k in ("observations", "terminals"):
                 for i in range(24):
@@ -134,8 +142,8 @@ def _case(name, tmp_path):
         return path
     if name == "filter_mask":  # one chunk written raw, its deflate bit set in its mask
         a = d4rl_arrays(rows=40)
-        path = write(p, {k: (v, dict(chunks=(20,) + v.shape[1:], compression="gzip"))
-                         for k, v in a.items()})
+        path = put(p, {k: (v, dict(chunks=(20,) + v.shape[1:], compression="gzip"))
+                       for k, v in a.items()})
         with h5py.File(path, "a") as f:
             d = f["observations"]
             d.id.write_direct_chunk((20, 0), np.full((20, 11), 5.0, np.float32).tobytes(),
@@ -143,7 +151,7 @@ def _case(name, tmp_path):
         return path
     if name == "unwritten":  # chunks never written read as the fill value
         a = d4rl_arrays(rows=100)
-        path = write(p, {k: v for k, v in a.items() if k != "observations"}, compression="gzip")
+        path = put(p, {k: v for k, v in a.items() if k != "observations"}, compression="gzip")
         with h5py.File(path, "a") as f:
             d = f.create_dataset("observations", shape=(100, 11), dtype=np.float32,
                                  chunks=(10, 4), fillvalue=-2.5, compression="gzip")
@@ -152,10 +160,12 @@ def _case(name, tmp_path):
     if name == "no_next_observations":
         a = d4rl_arrays()
         del a["next_observations"]
-        return write(p, a, compression="gzip")
+        return put(p, a, compression="gzip")
     raise KeyError(name)
 
 
+# h5py's newer formats: superblock v2/v3, OHDR headers, link-message groups, layout v4
+LIBVERS = ["latest", ("v108", "latest"), ("v110", "v110"), ("v108", "v108")]
 CASES = ["gzip1", "gzip4", "gzip9", "shuffle_gzip", "fletcher32", "fletcher32_shuffle_gzip",
          "contiguous", "chunked_raw", "compact", "odd_chunks", "multilevel", "dtypes",
          "userblock", "root40", "continuation", "filter_mask", "unwritten", "no_next_observations"]
@@ -173,20 +183,22 @@ def test_load_d4rl_hdf5_matches_iltpu(tmp_path, name):
             assert f["observations"].id.get_num_chunks() == 1250
 
 
-def test_reads_every_root_dataset_as_h5py(tmp_path):
+@pytest.mark.parametrize("libver", [None, "latest"])
+def test_reads_every_root_dataset_as_h5py(tmp_path, libver):
     """`read_datasets` beyond D4RL's keys: every dataset of the 40-entry
     root and of the compact file, groups skipped, as h5py reads them."""
     for name in ("root40", "compact", "dtypes"):
-        path = _case(name, tmp_path)
+        path = _case(name, tmp_path, libver)
         with h5py.File(path) as f:
             names = [k for k in f if isinstance(f[k], h5py.Dataset)]
             ref = {k: np.asarray(f[k]) for k in names}
         assert_same(read_datasets(path, names), ref)
 
 
-def test_scalars_and_enums_as_h5py(tmp_path):
+@pytest.mark.parametrize("libver", [None, "latest"])
+def test_scalars_and_enums_as_h5py(tmp_path, libver):
     path = str(tmp_path / "misc.hdf5")
-    with h5py.File(path, "w") as f:
+    with h5py.File(path, "w", **({} if libver is None else {"libver": libver})) as f:
         f.create_dataset("scalar", data=np.float64(3.25))
         f.create_dataset("int_scalar", data=np.int16(-7))
         f.create_dataset("enum", data=np.array([0, 1, 42], np.int16),
@@ -212,11 +224,15 @@ DTYPES = ["<f4", ">f4", "<f8", ">f8", "<f2", "<i1", "<u1", "<i2", ">u2", "<i4", 
     shuffle=st.booleans(),
     fletcher32=st.booleans(),
     seed=st.integers(0, 2**16),
+    libver=st.sampled_from([None, *LIBVERS]),
+    maxshape=st.lists(st.sampled_from(["same", "larger", "unlimited"]), min_size=3, max_size=3),
 )
 def test_random_datasets_match_iltpu(tmp_path_factory, shape, dtype, chunk_frac, layout, gzip,
-                                     shuffle, fletcher32, seed):
-    """Random shapes, dtypes, chunk shapes and filters for `observations` in
-    a small D4RL file, through both loaders."""
+                                     shuffle, fletcher32, seed, libver, maxshape):
+    """Random shapes, dtypes, chunk shapes, filters, `libver`s and maximum
+    shapes (a chunked layout's: equal, larger or unlimited in each
+    dimension, which picks layout v4's chunk index) for `observations` in a
+    small D4RL file, through both loaders."""
     rng = np.random.default_rng(seed)
     dt = np.dtype(dtype)
     if dt.kind == "f":
@@ -233,30 +249,40 @@ def test_random_datasets_match_iltpu(tmp_path_factory, shape, dtype, chunk_frac,
         if gzip is not None:
             kw.update(compression="gzip", compression_opts=gzip)
         kw.update(shuffle=shuffle, fletcher32=fletcher32)
+        kw["maxshape"] = tuple(n if m == "same" else 2 * n if m == "larger" else None
+                               for n, m in zip(shape, maxshape))
     rows = shape[0]
     a = d4rl_arrays(rows=rows, every=7, seed=seed)
     a["observations"] = (obs, kw)
     a["next_observations"] = (obs, kw)
-    path = write(tmp_path_factory.mktemp("h") / "r.hdf5", a, compression="gzip")
+    path = write(tmp_path_factory.mktemp("h") / "r.hdf5", a, compression="gzip", libver=libver)
     assert_same(load_d4rl_hdf5(path), jax_load(path))
 
 
-def test_newer_formats_raise_naming_the_roadmap_item(tmp_path):
-    """h5py's libver='latest' structures (superblock v3, OHDR headers, link
-    messages, layout v4 indexes) are outside the subset: ValueError naming
-    the ROADMAP item, while iltpu reads the file through h5py."""
-    for libver in ("latest", ("v108", "latest"), ("v110", "v110")):
-        path = write(tmp_path / f"{libver!r}.hdf5", d4rl_arrays(), file_kw=dict(libver=libver),
-                     compression="gzip")
-        assert len(jax_load(path)["observations"]) == 1000
-        with pytest.raises(ValueError, match="ROADMAP.md, 'HDF5 newer formats'"):
-            load_d4rl_hdf5(path)
+@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("libver", LIBVERS, ids=lambda v: "-".join(v) if isinstance(v, tuple) else v)
+def test_newer_formats_raise_naming_the_roadmap_item(tmp_path, libver, name):
+    """Once refused, now read: every D4RL case under h5py's newer formats
+    (superblock v2/v3, `OHDR` headers, link-message groups, layout v4's
+    fixed-array and single-chunk indexes, filter pipeline v2) reads through
+    the port's loader exactly as through iltpu's h5py loader."""
+    path = _case(name, tmp_path, libver)
+    with open(path, "rb") as f:
+        head = f.read(1024)
+    assert head[head.index(b"\x89HDF\r\n\x1a\n") + 8] in (2, 3)  # the superblock's version
+    assert_same(load_d4rl_hdf5(path), jax_load(path))
 
 
-def test_unsupported_filter_raises_naming_it(tmp_path):
-    path = write(tmp_path / "lzf.hdf5", d4rl_arrays(), compression="lzf")
-    with pytest.raises(ValueError, match="filter id 32000 .*'HDF5 newer formats'"):
-        load_d4rl_hdf5(path)
+@pytest.mark.parametrize("rows", [1000, 20000])
+def test_unsupported_filter_raises_naming_it(tmp_path, rows):
+    """lzf (id 32000, h5py's own filter), once refused, now read: a small
+    file and one whose `observations` chunks hold runs (long copies)."""
+    a = d4rl_arrays(rows=rows)
+    a["observations"][::3] = 0.0
+    path = write(tmp_path / "lzf.hdf5", a, compression="lzf")
+    with h5py.File(path) as f:
+        assert f["observations"].compression == "lzf"
+    assert_same(load_d4rl_hdf5(path), jax_load(path))
 
 
 def test_missing_file_raises_file_not_found_in_both(tmp_path):
@@ -295,12 +321,19 @@ def test_fletcher32_sums_match_the_library_loop(size):
     assert _fletcher32(b"\xff" * size) == _fletcher32_reference(b"\xff" * size)
 
 
-def test_a_large_gzip_file_reads_fast(tmp_path):
+@pytest.mark.parametrize("libver", [None, "latest"])
+def test_a_large_gzip_file_reads_fast(tmp_path, libver):
     """200,000 x 11 float32 under gzip with h5py's automatic chunks (D4RL's
-    1M-row files have thousands of chunks) in well under 2 s on the CPU."""
+    1M-row files have thousands of chunks) in well under 2 s on the CPU;
+    under 'latest' in chunks of (1000, 2), 1,200 of them: past a fixed
+    array's 1,024 entries a page, so its index is paged."""
     rng = np.random.default_rng(1)
     big = rng.standard_normal((200_000, 11)).astype(np.float32)
-    path = write(tmp_path / "big.hdf5", {"observations": big}, meta=False, compression="gzip")
+    path = write(tmp_path / "big.hdf5", {"observations": big}, meta=False, compression="gzip",
+                 libver=libver, chunks=(1000, 2) if libver else True)
+    if libver:
+        with h5py.File(path) as f:
+            assert f["observations"].id.get_num_chunks() == 1200
     t0 = time.perf_counter()
     got = read_datasets(path, ["observations"])
     seconds = time.perf_counter() - t0
