@@ -267,6 +267,21 @@ of JAX or `iltpu`. Phases, each printing its results:
    SAC and GAIL kernels, the fused scan, 4,096 steps) from the latest
    file: its expert ring bit-equal to the npz run's, each kernel launched
    once an owed update, its steady env-steps/s beside 12b's.
+16. render=true on the card, with no OpenGL and no PIL: (16a) 10b's
+   pipelined main path (GAIL on 512 hopper envs, the SAC and GAIL kernels),
+   2,048 steps with render=true: each kernel launched once an owed update,
+   then the greedy rollout's frames (MuJoCo's abstract scene from the
+   stepper, ray cast on the card) in rollout.npz ((N, 480, 480, 3) uint8)
+   and rollout.gif (N images); (16b) the same scenes cast again on the card
+   (bit-equal) and, with frames of a 500-frame halfcheetah rollout (zero
+   actions), 24 cast on the CPU: at least 99.5% of the pixels equal, the
+   largest difference elsewhere printed; (16c) ms a frame cast on the card
+   in batches of 16 and one at a time, the palette's and LZW's ms a frame,
+   the scene export's us a step, a 500-frame render's rollout, cast, npz
+   and GIF seconds; (16d) `python -m
+   iltpu_torch.render_rollout` on 16a's agent/: the frame count it prints,
+   the npz, the GIF walked block by block (header, loop block, a control
+   block and an image a frame) and its first and last images decoded.
 
 Then the steady rates and the pretraining times with the nvidia-smi line, one `kernels` JSON
 line (the per-update and K-blocked kernels at hopper's shapes with their
@@ -3243,6 +3258,258 @@ def check_expert_data(rates, pre, smi):
     print(f"phase 14 took {time.time() - t14:.1f} s")
 
 
+def gif_blocks(path):
+    """Walk an animated GIF's blocks: the GIF89a header and logical screen,
+    a global colour table if flagged, then extensions (the NETSCAPE2.0 loop
+    block, a graphics control block before each image), images (their local
+    colour table and LZW sub-blocks) and the trailer. Returns the size, the
+    loop count, each frame's delay in hundredths of a second and each
+    image's (local palette, LZW minimum code size, data bytes)."""
+    data = open(path, "rb").read()
+    if data[:6] != b"GIF89a":
+        raise AssertionError(f"{path}: header {data[:6]!r}")
+    w, h = int.from_bytes(data[6:8], "little"), int.from_bytes(data[8:10], "little")
+    p = 13 + (3 * 2 ** ((data[10] & 7) + 1) if data[10] & 0x80 else 0)
+
+    def sub_blocks(p):
+        out = bytearray()
+        while data[p]:
+            out += data[p + 1:p + 1 + data[p]]
+            p += 1 + data[p]
+        return bytes(out), p + 1
+
+    loop, delays, images, pending = None, [], [], None
+    while True:
+        tag = data[p]
+        if tag == 0x3B:
+            if p != len(data) - 1:
+                raise AssertionError(f"{path}: {len(data) - 1 - p} bytes after the trailer")
+            break
+        if tag == 0x21:
+            label = data[p + 1]
+            body, q = sub_blocks(p + 2)
+            if label == 0xFF and body[:11] == b"NETSCAPE2.0":
+                loop = int.from_bytes(body[12:14], "little")
+            elif label == 0xF9:
+                if pending is not None:
+                    raise AssertionError(f"{path}: two graphics control blocks before an image")
+                pending = int.from_bytes(body[1:3], "little")
+            p = q
+        elif tag == 0x2C:
+            iw, ih = int.from_bytes(data[p + 5:p + 7], "little"), int.from_bytes(data[p + 7:p + 9], "little")
+            flags = data[p + 9]
+            p += 10
+            palette = None
+            if flags & 0x80:
+                n = 3 * 2 ** ((flags & 7) + 1)
+                palette, p = data[p:p + n], p + n
+            if (iw, ih) != (w, h) or pending is None:
+                raise AssertionError(f"{path}: image {iw} x {ih} of {w} x {h}, control block {pending}")
+            code_size = data[p]
+            body, p = sub_blocks(p + 1)
+            images.append((palette, code_size, body))
+            delays.append(pending)
+            pending = None
+        else:
+            raise AssertionError(f"{path}: block 0x{tag:02x} at byte {p}")
+    return (w, h), loop, delays, images
+
+
+def lzw_decode(body, code_size, n):
+    """GIF's LZW decoder, for one image's `n` indices."""
+    clear, end = 1 << code_size, (1 << code_size) + 1
+    out, acc, bits, pos = bytearray(), 0, 0, 0
+    size, table, prev = code_size + 1, None, None
+    while True:
+        while bits < size:
+            acc |= body[pos] << bits
+            pos += 1
+            bits += 8
+        code = acc & ((1 << size) - 1)
+        acc >>= size
+        bits -= size
+        if code == clear:
+            table = [bytes([i]) for i in range(clear)] + [b"", b""]
+            size, prev = code_size + 1, None
+            continue
+        if code == end:
+            break
+        if prev is None:
+            entry = table[code]
+        else:
+            entry = table[code] if code < len(table) else prev + prev[:1]
+            if len(table) < 4096:
+                table.append(prev + entry[:1])
+                if len(table) == 1 << size and size < 12:
+                    size += 1
+        out += entry
+        prev = entry
+    if len(out) != n:
+        raise AssertionError(f"LZW decoded {len(out)} indices, want {n}")
+    return bytes(out)
+
+
+def check_render(dev, rates, pre, smi):
+    """Phase 16: render=true on the card. (16a) 10b's pipelined main path
+    (GAIL on 512 hopper envs, the SAC and GAIL kernels) for 2,048 steps with
+    render=true: each kernel launched once an owed update, then the greedy
+    rollout rendered on the card into rollout.npz ((N, 480, 480, 3) uint8)
+    and rollout.gif (N frames); (16b) the rollout's scenes again, cast on the
+    card (bit-equal to the npz), and with frames of a 500-frame halfcheetah
+    rollout (zero actions: it never terminates), 24 frames cast on the CPU:
+    the share of equal pixels (at least 99.5%) and the largest difference
+    elsewhere; (16c) ms a frame cast on the card in batches of 16 and one at
+    a time, the palette's and LZW's ms a frame, the scene export's us a
+    step, the 500-frame render's parts (rollout, cast, npz, GIF); (16d)
+    `python -m iltpu_torch.render_rollout` on 16a's agent/: the frame count
+    it prints, the npz, and the GIF walked block by block (header, loop
+    block, a control block and an image a frame, the first and last images
+    decoded to their palette's colours)."""
+    import numpy as np
+    import torch
+    from iltpu_torch.envs import host, render
+    from iltpu_torch.envs.native import NativeVecEnv
+    from iltpu_torch.utils import gif, raycast
+
+    t16 = time.time()
+    kept = []
+    args = (*HOPPER, "training.start=100", "training.pipeline=true", "render=true", "steps=2048",
+            "training.timing_skip_steps=1024")
+    counted, rates["hopper_render"], pre["hopper_render"] = run_trainer(
+        "hopper_render", args, owed(per_update), keep=kept)
+    t = kept[0]
+    npz, gif_path = (os.path.join(t.out_dir, f"rollout.{e}") for e in ("npz", "gif"))
+    with np.load(npz) as f:
+        frames = f["frames"]
+    n = len(frames)
+    size, loop, delays, images = gif_blocks(gif_path)
+    if frames.dtype != np.uint8 or frames.shape != (n, 480, 480, 3) or not 1 <= n <= 500 \
+            or len(images) != n or size != (480, 480) or loop != 0 or set(delays) != {3}:
+        raise AssertionError(f"16a: frames {frames.shape} {frames.dtype}, GIF {size} loop {loop}, "
+                             f"{len(images)} images, delays {sorted(set(delays))}")
+    print(f"render (16a): GAIL on 512 hopper envs, pipelined, render=true: launches {counted} for "
+          f"{t.updates_done} owed updates; {n} frames {frames.shape} {frames.dtype}, rollout.npz "
+          f"{os.path.getsize(npz)} bytes, rollout.gif {os.path.getsize(gif_path)} bytes ({len(images)} "
+          f"images, delay {delays[0]} cs, loop {loop}); on {smi}")
+
+    # 16b: the same scenes on the card and on the CPU; halfcheetah never terminates, so with
+    # zero actions its rollout runs the whole 500 frames of a render
+    greedy = t._greedy_fn()
+    scenes, textures = host.rollout_scenes("hopper", greedy, seed=t.cfg.seed + 39916801, max_frames=500)
+    if len(scenes) != n:
+        raise AssertionError(f"16b: {len(scenes)} scenes again, {n} frames")
+    tex = raycast.Textures(textures, dev)
+    again = raycast.render_scenes(scenes, tex, device=dev, batch=16)
+    if not np.array_equal(again, frames):
+        raise AssertionError("16b: the scenes cast again on the card differ from rollout.npz")
+    t0 = time.perf_counter()
+    long_scenes, long_textures = host.rollout_scenes(
+        "halfcheetah", lambda obs: np.zeros((len(obs), 6), np.float32), seed=0, max_frames=500)
+    roll_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    long_frames = raycast.render_scenes(long_scenes, long_textures, device=dev, batch=16)
+    cast_s = time.perf_counter() - t0
+    cpu_tex = [raycast.Textures(x, "cpu") for x in (textures, long_textures)]
+    picked = [(scenes, cpu_tex[0], frames, i) for i in range(min(n, 24))]
+    step = max(1, 500 // max(1, 24 - len(picked)))
+    picked += [(long_scenes, cpu_tex[1], long_frames, i) for i in range(0, 500, step)][:24 - len(picked)]
+    t0 = time.time()
+    diff = np.concatenate([np.abs(raycast.render_scenes([sc[i]], tx, device="cpu").astype(np.int16)
+                                  - fr[i:i + 1].astype(np.int16)).max(-1) for sc, tx, fr, i in picked])
+    cpu_s = time.time() - t0
+    share = float((diff == 0).mean())
+    if share < 0.995:
+        raise AssertionError(f"16b: only {share:.5f} of the pixels equal on the card and the CPU")
+    print(f"render (16b): {len(picked)} scenes ({min(n, 24)} of 16a's, the rest every {step} of a "
+          f"500-frame halfcheetah rollout) cast on the card and on the CPU: {share:.6f} of the "
+          f"pixels equal (limit 0.995), {int((diff == 1).sum())} off by 1, the largest difference "
+          f"{int(diff.max())} of 255 ({int((diff > 2).sum())} pixels past 2: silhouette edges); "
+          f"the card's frames cast again bit-equal to rollout.npz; the CPU took "
+          f"{1e3 * cpu_s / len(picked):.1f} ms a frame ({torch.get_num_threads()} threads)")
+
+    # 16c: times
+    def card_ms(batch, frames_of):
+        raycast.render_scenes(frames_of[:batch], tex, device=dev, batch=batch)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raycast.render_scenes(frames_of, tex, device=dev, batch=batch)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / len(frames_of)
+
+    tex = raycast.Textures(long_textures, dev)
+    batched_ms, single_ms = card_ms(16, long_scenes[:64]), card_ms(1, long_scenes[:32])
+    t0 = time.perf_counter()
+    palettes = [gif.quantize(f) for f in long_frames[:64]]
+    quant_ms = 1e3 * (time.perf_counter() - t0) / 64
+    t0 = time.perf_counter()
+    for _, idx in palettes:
+        gif.lzw(idx)
+    lzw_ms = 1e3 * (time.perf_counter() - t0) / 64
+    long_out = os.path.join(REPO, "outputs", "chip_smoke", "render_halfcheetah")
+    os.makedirs(long_out, exist_ok=True)
+    t0 = time.perf_counter()
+    np.savez_compressed(os.path.join(long_out, "rollout.npz"), frames=long_frames)
+    npz_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gif.save_frames_gif(long_frames, os.path.join(long_out, "rollout.gif"), fps=30)
+    gif_s = time.perf_counter() - t0
+    env = NativeVecEnv("hopper", 1)
+    env.set_auto_reset(False)
+    env.reset()
+    cam = render.camera("hopper", env.geom_xpos(0))
+    rng = np.random.default_rng(0)
+    export = []
+    for _ in range(200):
+        env.step(rng.uniform(-0.2, 0.2, (1, 3)).astype(np.float32))
+        t0 = time.perf_counter()
+        env.scene(0, cam)
+        export.append(time.perf_counter() - t0)
+    env.close()
+    export_us = 1e6 * float(np.median(export))
+    print(f"render (16c): halfcheetah (9 geoms), {batched_ms:.3f} ms a 480 x 480 frame cast on the "
+          f"card in batches of 16, {single_ms:.3f} ms one at a time; the palette (numpy median cut) "
+          f"{quant_ms:.2f} ms and LZW (C++) {lzw_ms:.3f} ms a frame on the host (64 frames); the scene export "
+          f"(hopper) {export_us:.2f} us a step (median of 200); a 500-frame render's parts: the "
+          f"rollout with its scenes {roll_s:.2f} s, the cast {cast_s:.2f} s, the npz {npz_s:.2f} s, "
+          f"the GIF {gif_s:.2f} s ({os.path.getsize(os.path.join(long_out, 'rollout.gif'))} bytes); "
+          f"on {smi}")
+
+    # 16d: the script on 16a's agent
+    out = os.path.join(REPO, "outputs", "chip_smoke", "render_script", "rollout")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "iltpu_torch.render_rollout", "--env", "hopper",
+                        "--agent", os.path.join(t.out_dir, "agent"), "--out", out],
+                       cwd=REPO, capture_output=True, text=True, timeout=600)
+    script_s = time.time() - t0
+    if r.returncode:
+        raise AssertionError(f"16d: render_rollout exited {r.returncode}: {r.stderr[-2000:]}")
+    m = re.fullmatch(r"wrote (.+)\.npz / (.+)\.gif \((\d+) frames\)", r.stdout.strip())
+    if not m or m.group(1) != out or m.group(2) != out:
+        raise AssertionError(f"16d: printed {r.stdout!r}")
+    k = int(m.group(3))
+    with np.load(out + ".npz") as f:
+        frames2 = f["frames"]
+    size, loop, delays, images = gif_blocks(out + ".gif")
+    if frames2.shape != (k, 480, 480, 3) or len(images) != k or set(delays) != {2} or loop != 0:
+        raise AssertionError(f"16d: {frames2.shape}, {len(images)} images, delays {set(delays)}, "
+                             f"loop {loop}")
+    worst = 0
+    for i in sorted({0, k - 1}):
+        palette, code_size, body = images[i]
+        idx = np.frombuffer(lzw_decode(body, code_size, 480 * 480), np.uint8)
+        rgb = np.frombuffer(palette, np.uint8).reshape(-1, 3)[idx].reshape(480, 480, 3)
+        want_palette, want_idx = gif.quantize(frames2[i])
+        if not np.array_equal(idx.reshape(480, 480), want_idx):
+            raise AssertionError(f"16d: image {i}'s decoded indices differ from its quantization")
+        worst = max(worst, float(np.abs(rgb.astype(np.int16) - frames2[i]).mean()))
+    print(f"render (16d): python -m iltpu_torch.render_rollout on 16a's agent/ ({script_s:.1f} s): "
+          f"{k} frames, npz {frames2.shape}, GIF walked: {size[0]} x {size[1]}, loop {loop}, "
+          f"{len(images)} control blocks and images at {delays[0]} cs, the first and last images "
+          f"decoded to their quantized indices (mean abs error {worst:.3f} of 255); phase 16 took "
+          f"{time.time() - t16:.1f} s")
+
+
 def ptxas_report(log):
     """The `-Xptxas -v` register lines of a build log, and every function
     with spills."""
@@ -3569,6 +3836,9 @@ def main():
 
     # 15. h5py's newer formats through the port's reader, the main path on a latest-format file
     check_latest_hdf5(rates, pre, read_12a_ms, smi)
+
+    # 16. render=true: the main path, then its greedy rollout cast on the card, the GIF
+    check_render(dev, rates, pre, smi)
 
     # the row-sum kernel's launches on its path: both of its entries
     launches["gaussian_rowsum"] += launches.pop("gmmil_witness_reward")

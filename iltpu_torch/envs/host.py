@@ -1,5 +1,6 @@
 """Host-side vectorised MuJoCo environments through gymnasium: the port of
-`iltpu/envs/host.py` (`HostVecEnv`, `evaluate_policy`).
+`iltpu/envs/host.py` (`HostVecEnv`, `evaluate_policy`, `render_rollout`,
+`save_frames_gif`).
 
 `HostVecEnv` steps N gymnasium envs on a thread pool, with iltpu's
 contract: one (N, S) float32 observation block a step, per-env
@@ -10,6 +11,15 @@ truncations (flagged as timeouts). gymnasium is imported when an env is
 built: without it (the GPU machine has none) `env_backend=mujoco` raises
 its ImportError, as iltpu does there. `native.NativeVecEnv` has the same
 contract without gymnasium.
+
+`render_rollout` draws a greedy rollout as gymnasium's `rgb_array` frames
+would show it, with neither gymnasium nor OpenGL: it steps the port's C++
+stepper (whatever the trainer's `env_backend`; it is the port's gymnasium
+counterpart) from gymnasium's reset draw, takes MuJoCo's abstract scene
+after each step through gymnasium's camera (`envs.render`), casts the
+frames in batches on a torch device (`utils.raycast`) and writes them as
+iltpu does: a compressed npz (`frames`) and, given `gif_path`, a GIF
+(`utils.gif`, no PIL).
 """
 
 import concurrent.futures
@@ -17,8 +27,12 @@ import os
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
+from iltpu_torch.envs import render
+from iltpu_torch.envs.native import STATE_SIZES, NativeVecEnv
 from iltpu_torch.envs.scores import SPECS, EnvSpec
+from iltpu_torch.utils import gif, raycast
 
 
 def _make_env(spec: EnvSpec):
@@ -169,3 +183,58 @@ def evaluate_policy(env_name: str, act_fn, num_episodes: int, *, absorbing: bool
             "terminals": terms,
         })
     return returns.tolist(), trajectories
+
+
+def rollout_scenes(env_name: str, act_fn, *, absorbing: bool = True, seed: int = 0,
+                   max_frames: int = 500):
+    """The scenes of iltpu's `render_rollout` loop and the model's textures.
+    gymnasium's `env.reset(seed=seed)` state set on one stepper env (auto-reset
+    off), then per frame: the greedy action on the (absorbing-augmented)
+    observation, one step, the scene after it through gymnasium's camera
+    (built after the first step, as gymnasium's viewer is), and a stop on
+    termination or truncation, the last state still drawn."""
+    env = NativeVecEnv(env_name, 1, absorbing=absorbing, seed=seed)
+    try:
+        env.set_auto_reset(False)
+        env.reset()
+        qpos, qvel = render.reset_state(env_name, seed, env.qpos0(), STATE_SIZES[env_name][1])
+        env.set_state(0, qpos, qvel)
+        obs = env.observation(0)
+        scenes, camera = [], None
+        for _ in range(max_frames):
+            action = np.asarray(act_fn(obs[None]))[0]
+            next_obs, _, terminals, timeouts, _ = env.step(action[None])
+            if camera is None:
+                camera = render.camera(env_name, env.geom_xpos(0))
+            scenes.append(env.scene(0, camera))
+            obs = next_obs[0]
+            if terminals[0] or timeouts[0]:
+                break
+        return scenes, env.textures()
+    finally:
+        env.close()
+
+
+def render_rollout(env_name: str, act_fn, out_path: str, *, absorbing: bool = True, seed: int = 0,
+                   max_frames: int = 500, gif_path: str = None, fps: int = 30, device="cuda") -> int:
+    """Greedy rollout with (N, 480, 480, 3) uint8 frames, saved as a
+    compressed npz (key `frames`) and, given `gif_path`, an animated GIF
+    (iltpu's `render_rollout`). The frames are cast on `device`, 16 at a
+    time on the card, 4 on the CPU (less memory: each batch holds
+    tensors of batch x 230,400 rays). Returns the number of frames written."""
+    scenes, textures = rollout_scenes(env_name, act_fn, absorbing=absorbing, seed=seed,
+                                      max_frames=max_frames)
+    device = torch.device(device)
+    frames = raycast.render_scenes(scenes, textures, width=render.WIDTH, height=render.HEIGHT,
+                                   device=device, batch=16 if device.type == "cuda" else 4)
+    np.savez_compressed(out_path, frames=frames)
+    if gif_path:
+        save_frames_gif(frames, gif_path, fps=fps)
+    return len(frames)
+
+
+def save_frames_gif(frames: np.ndarray, gif_path: str, fps: int = 30) -> None:
+    """Write an (N, H, W, 3) uint8 frame stack as an animated GIF (iltpu's
+    `save_frames_gif`: one image a frame, a delay of max(1000 // fps, 10) ms,
+    looping forever), with the port's own palette and coder."""
+    gif.save_frames_gif(frames, gif_path, fps=fps)

@@ -130,6 +130,24 @@ def _bind(lib):
     lib.vecenv_get_state.argtypes = [h, ctypes.c_int, f64, f64]
     lib.vecenv_destroy.restype = None
     lib.vecenv_destroy.argtypes = [h]
+    i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.vecenv_set_auto_reset.restype = None
+    lib.vecenv_set_auto_reset.argtypes = [h, ctypes.c_int]
+    lib.vecenv_obs.restype = None
+    lib.vecenv_obs.argtypes = [h, ctypes.c_int, f32]
+    lib.vecenv_qpos0.restype = None
+    lib.vecenv_qpos0.argtypes = [h, f64]
+    lib.vecenv_render_sizes.restype = None
+    lib.vecenv_render_sizes.argtypes = [h, i64]
+    lib.vecenv_geom_xpos.restype = None
+    lib.vecenv_geom_xpos.argtypes = [h, ctypes.c_int, f64]
+    lib.vecenv_textures.restype = None
+    lib.vecenv_textures.argtypes = [h, i64, u8, i32, f32, i32]
+    lib.vecenv_scene.restype = ctypes.c_int
+    lib.vecenv_scene.argtypes = [h, ctypes.c_int, f64, ctypes.c_int, f32, f32,
+                                 ctypes.POINTER(ctypes.c_int), f32]
     return lib
 
 
@@ -234,6 +252,71 @@ class NativeVecEnv:
         qvel = np.zeros(nv, np.float64)
         _lib.vecenv_get_state(self._h, i, qpos, qvel)
         return qpos, qvel
+
+    # ------------------------------------------------------- rendering
+    def set_auto_reset(self, on: bool):
+        """Off: a finished env keeps its last state (and obs_after is the
+        step's observation), so the frame of that state can be drawn."""
+        _lib.vecenv_set_auto_reset(self._h, int(on))
+
+    def _render_sizes(self):
+        out = np.zeros(6, np.int64)
+        _lib.vecenv_render_sizes(self._h, out)
+        return dict(zip(("ngeom", "ntex", "ntexdata", "nmat", "ntexrole", "maxlight"),
+                        out.tolist()))
+
+    def observation(self, i: int) -> np.ndarray:
+        """Env i's observation of its state as it stands, (obs_size,)."""
+        out = np.zeros(self.obs_size, np.float32)
+        _lib.vecenv_obs(self._h, i, out)
+        return out
+
+    def qpos0(self) -> np.ndarray:
+        out = np.zeros(STATE_SIZES[self.env_name][0], np.float64)
+        _lib.vecenv_qpos0(self._h, out)
+        return out
+
+    def geom_xpos(self, i: int) -> np.ndarray:
+        """Env i's geom positions, (ngeom, 3) float64."""
+        out = np.zeros((self._render_sizes()["ngeom"], 3), np.float64)
+        _lib.vecenv_geom_xpos(self._h, i, out)
+        return out
+
+    def textures(self) -> dict:
+        """The model's textures and materials: `tex` (ntex, 5) int64 rows of
+        (type, height, width, nchannel, adr), `data` uint8, `mat_texid`
+        (nmat, ntexrole), `mat_texrepeat` (nmat, 2), `mat_texuniform` (nmat)."""
+        n = self._render_sizes()
+        out = {
+            "tex": np.zeros((n["ntex"], 5), np.int64),
+            "data": np.zeros(n["ntexdata"], np.uint8),
+            "mat_texid": np.zeros((n["nmat"], n["ntexrole"]), np.int32),
+            "mat_texrepeat": np.zeros((n["nmat"], 2), np.float32),
+            "mat_texuniform": np.zeros(n["nmat"], np.int32),
+        }
+        _lib.vecenv_textures(self._h, out["tex"], out["data"], out["mat_texid"],
+                             out["mat_texrepeat"], out["mat_texuniform"])
+        return out
+
+    def scene(self, i: int, camera: np.ndarray, maxgeom: int = 1000) -> dict:
+        """MuJoCo's abstract scene of env i as it stands (mjv_updateScene,
+        mjCAT_ALL, no mj_forward), seen through `camera`, a float64 (10,)
+        array (type, fixedcamid, trackbodyid, lookat[3], distance, azimuth,
+        elevation, orthographic) that mjv_updateScene may update in place.
+        Returns `geoms` (ngeom, 25), `lights` (nlight, 23) and `cameras`
+        (2, 16) float32 rows, laid out as `vecenv_scene` says."""
+        if camera.dtype != np.float64 or camera.shape != (10,) or not camera.flags.c_contiguous:
+            raise ValueError("camera must be a contiguous float64 array of 10")
+        n = self._render_sizes()
+        geoms = np.zeros((maxgeom, 25), np.float32)
+        lights = np.zeros((n["maxlight"], 23), np.float32)
+        cameras = np.zeros((2, 16), np.float32)
+        nlight = ctypes.c_int(0)
+        ngeom = _lib.vecenv_scene(self._h, i, camera, maxgeom, geoms, lights,
+                                  ctypes.byref(nlight), cameras)
+        if ngeom > maxgeom:
+            raise RuntimeError(f"the scene has {ngeom} geoms, past maxgeom {maxgeom}")
+        return {"geoms": geoms[:ngeom], "lights": lights[:nlight.value], "cameras": cameras}
 
     def close(self):
         if getattr(self, "_h", None):

@@ -1,5 +1,6 @@
 // Native vectorised MuJoCo environment stepper: the port's copy of
-// native/vecenv.cc (the same code and C ABI; only these comments differ).
+// native/vecenv.cc (the same code and C ABI, plus the calls for rendering
+// at the end: scene and textures out, auto-reset off).
 //
 // The host half of the host-actor/device-learner split. Replaces the
 // per-env Python loop of iltpu_torch/envs/host.py (and the reference's
@@ -16,6 +17,9 @@
 //   - appends the DAC absorbing indicator bit (always 0 for live states;
 //     reference environments.py:27,32,39) directly into the float32
 //     output block, so Python does zero per-step array surgery.
+// Rendering reads MuJoCo's abstract scene (mjv_updateScene, CPU code; no
+// OpenGL) of one env and the model's textures: iltpu_torch/envs/render.py
+// and iltpu_torch/utils/raycast.py turn them into pixels.
 //
 // Exposed as a C ABI consumed via ctypes (iltpu_torch/envs/native.py),
 // built with g++ against the MuJoCo C library in third_party/mujoco.
@@ -52,7 +56,14 @@ struct VecEnv {
   bool absorbing;
   int obs_base;  // obs size without the absorbing bit
   int torso_body = -1;
+  bool auto_reset = true;  // off: a finished env keeps its last state (rendering)
   std::vector<double> init_qpos, init_qvel;
+  // abstract scene for rendering, made at its first use (gymnasium's
+  // MjvScene(model, max_geom=1000), default mjvOption and mjvPerturb)
+  bool scene_made = false;
+  mjvScene scene;
+  mjvOption vopt;
+  mjvPerturb pert;
   std::vector<EnvInstance> envs;
 
   // persistent thread pool (generation-counter barrier)
@@ -78,6 +89,7 @@ struct VecEnv {
     }
     cv_work.notify_all();
     for (auto& t : workers) t.join();
+    if (scene_made) mjv_freeScene(&scene);
     for (auto& e : envs)
       if (e.data) mj_deleteData(e.data);
     if (model) mj_deleteModel(model);
@@ -251,7 +263,7 @@ void step_env(VecEnv* v, int i) {
   v->terminals[i] = (terminated && !truncated) ? 1.0f : 0.0f;
   v->timeouts[i] = truncated ? 1.0f : 0.0f;
 
-  if (terminated || truncated) {
+  if ((terminated || truncated) && v->auto_reset) {
     reset_env(v, e);
     write_obs(v, e, v->obs_after + (size_t)i * S);
   } else {
@@ -391,6 +403,149 @@ void vecenv_get_state(void* h, int i, double* qpos, double* qvel) {
   mjData* d = v->envs[i].data;
   std::memcpy(qpos, d->qpos, sizeof(double) * v->model->nq);
   std::memcpy(qvel, d->qvel, sizeof(double) * v->model->nv);
+}
+
+// Off: a finished env is not reset, so its last state can still be drawn
+// (gymnasium renders the step's state before any reset). obs_after is then
+// the step's observation.
+void vecenv_set_auto_reset(void* h, int on) { ((VecEnv*)h)->auto_reset = on != 0; }
+
+// Env i's observation as it stands (after vecenv_set_state: gymnasium's
+// reset observation), absorbing bit included.
+void vecenv_obs(void* h, int i, float* out) {
+  auto* v = (VecEnv*)h;
+  write_obs(v, v->envs[i], out);
+}
+
+void vecenv_qpos0(void* h, double* out) {
+  auto* v = (VecEnv*)h;
+  std::memcpy(out, v->model->qpos0, sizeof(double) * v->model->nq);
+}
+
+// The model's sizes for rendering: ngeom, ntex, ntexdata, nmat, mjNTEXROLE,
+// mjMAXLIGHT.
+void vecenv_render_sizes(void* h, int64_t* out) {
+  const mjModel* m = ((VecEnv*)h)->model;
+  out[0] = m->ngeom;
+  out[1] = m->ntex;
+  out[2] = m->ntexdata;
+  out[3] = m->nmat;
+  out[4] = mjNTEXROLE;
+  out[5] = mjMAXLIGHT;
+}
+
+// Env i's geom_xpos (ngeom x 3): where gymnasium's viewer looks at first.
+void vecenv_geom_xpos(void* h, int i, double* out) {
+  auto* v = (VecEnv*)h;
+  std::memcpy(out, v->envs[i].data->geom_xpos, sizeof(double) * 3 * v->model->ngeom);
+}
+
+// The textures and materials (mjmodel.h:682-694): per texture (type,
+// height, width, nchannel, adr), tex_data, mat_texid (nmat x mjNTEXROLE),
+// mat_texrepeat (nmat x 2), mat_texuniform (nmat).
+void vecenv_textures(void* h, int64_t* tex, uint8_t* data, int* mat_texid,
+                     float* mat_texrepeat, int* mat_texuniform) {
+  const mjModel* m = ((VecEnv*)h)->model;
+  for (int t = 0; t < m->ntex; t++) {
+    tex[5 * t + 0] = m->tex_type[t];
+    tex[5 * t + 1] = m->tex_height[t];
+    tex[5 * t + 2] = m->tex_width[t];
+    tex[5 * t + 3] = m->tex_nchannel[t];
+    tex[5 * t + 4] = m->tex_adr[t];
+  }
+  std::memcpy(data, m->tex_data, (size_t)m->ntexdata);
+  std::memcpy(mat_texid, m->mat_texid, sizeof(int) * m->nmat * mjNTEXROLE);
+  std::memcpy(mat_texrepeat, m->mat_texrepeat, sizeof(float) * 2 * m->nmat);
+  for (int k = 0; k < m->nmat; k++) mat_texuniform[k] = m->mat_texuniform[k];
+}
+
+// mjv_updateScene on env i's mjData as it stands (no mj_forward: after a
+// step the kinematics are those of the last substep's start, as gymnasium
+// draws them), with mjCAT_ALL and the camera cam = (type, fixedcamid,
+// trackbodyid, lookat[3], distance, azimuth, elevation, orthographic),
+// which it may update in place. Copies out up to maxgeom geoms as rows of
+// 25 floats (type, matid, size[3], pos[3], mat[9], rgba[4], emission,
+// specular, shininess, reflectance), the lights as rows of 23 (pos[3],
+// dir[3], type, castshadow, headlight, attenuation[3], cutoff, exponent,
+// ambient[3], diffuse[3], specular[3]) and both GL cameras as rows of 16
+// (pos[3], forward[3], up[3], frustum center, width, bottom, top, near,
+// far, orthographic). Returns ngeom; *nlight is set.
+int vecenv_scene(void* h, int i, double* cam, int maxgeom, float* geoms,
+                 float* lights, int* nlight, float* cameras) {
+  auto* v = (VecEnv*)h;
+  if (!v->scene_made) {
+    mjv_defaultScene(&v->scene);
+    mjv_makeScene(v->model, &v->scene, 1000);
+    mjv_defaultOption(&v->vopt);
+    mjv_defaultPerturb(&v->pert);
+    v->scene_made = true;
+  }
+  mjvCamera c;
+  mjv_defaultCamera(&c);
+  c.type = (int)cam[0];
+  c.fixedcamid = (int)cam[1];
+  c.trackbodyid = (int)cam[2];
+  for (int k = 0; k < 3; k++) c.lookat[k] = cam[3 + k];
+  c.distance = cam[6];
+  c.azimuth = cam[7];
+  c.elevation = cam[8];
+  c.orthographic = (int)cam[9];
+  mjvScene* s = &v->scene;
+  mjv_updateScene(v->model, v->envs[i].data, &v->vopt, &v->pert, &c, mjCAT_ALL, s);
+  cam[0] = c.type;
+  cam[1] = c.fixedcamid;
+  cam[2] = c.trackbodyid;
+  for (int k = 0; k < 3; k++) cam[3 + k] = c.lookat[k];
+  cam[6] = c.distance;
+  cam[7] = c.azimuth;
+  cam[8] = c.elevation;
+  cam[9] = c.orthographic;
+  const int n = s->ngeom < maxgeom ? s->ngeom : maxgeom;
+  for (int g = 0; g < n; g++) {
+    const mjvGeom& x = s->geoms[g];
+    float* o = geoms + 25 * g;
+    o[0] = (float)x.type;
+    o[1] = (float)x.matid;
+    std::memcpy(o + 2, x.size, sizeof(float) * 3);
+    std::memcpy(o + 5, x.pos, sizeof(float) * 3);
+    std::memcpy(o + 8, x.mat, sizeof(float) * 9);
+    std::memcpy(o + 17, x.rgba, sizeof(float) * 4);
+    o[21] = x.emission;
+    o[22] = x.specular;
+    o[23] = x.shininess;
+    o[24] = x.reflectance;
+  }
+  for (int l = 0; l < s->nlight; l++) {
+    const mjvLight& x = s->lights[l];
+    float* o = lights + 23 * l;
+    std::memcpy(o, x.pos, sizeof(float) * 3);
+    std::memcpy(o + 3, x.dir, sizeof(float) * 3);
+    o[6] = (float)x.type;
+    o[7] = (float)x.castshadow;
+    o[8] = (float)x.headlight;
+    std::memcpy(o + 9, x.attenuation, sizeof(float) * 3);
+    o[12] = x.cutoff;
+    o[13] = x.exponent;
+    std::memcpy(o + 14, x.ambient, sizeof(float) * 3);
+    std::memcpy(o + 17, x.diffuse, sizeof(float) * 3);
+    std::memcpy(o + 20, x.specular, sizeof(float) * 3);
+  }
+  *nlight = s->nlight;
+  for (int k = 0; k < 2; k++) {
+    const mjvGLCamera& x = s->camera[k];
+    float* o = cameras + 16 * k;
+    std::memcpy(o, x.pos, sizeof(float) * 3);
+    std::memcpy(o + 3, x.forward, sizeof(float) * 3);
+    std::memcpy(o + 6, x.up, sizeof(float) * 3);
+    o[9] = x.frustum_center;
+    o[10] = x.frustum_width;
+    o[11] = x.frustum_bottom;
+    o[12] = x.frustum_top;
+    o[13] = x.frustum_near;
+    o[14] = x.frustum_far;
+    o[15] = (float)x.orthographic;
+  }
+  return s->ngeom;
 }
 
 void vecenv_destroy(void* h) { delete (VecEnv*)h; }

@@ -75,8 +75,10 @@ torch.profiler, a Chrome trace). After every evaluation (and at BC's
 early exit) rank 0 writes iltpu's six metric plots (`utils.plotting`, PNG
 without matplotlib). `expert_data.source=hdf5` reads D4RL's HDF5 file
 through the port's own reader (`data.hdf5`). `render=true` on a MuJoCo env
-raises NotImplementedError naming the ROADMAP.md item; kernel flags that
-iltpu refuses raise iltpu's ValueError.
+renders a greedy rollout at the end (`envs.host.render_rollout`: the
+stepper's scenes ray cast on the trainer's device) into iltpu's
+`rollout.npz` and `rollout.gif`; kernel flags that iltpu refuses raise
+iltpu's ValueError.
 `evaluation.on_host` (iltpu's default, true) evaluates through a numpy copy
 of the actor (`models.host_inference.host_greedy_fn`); false, through the
 device forward.
@@ -127,7 +129,7 @@ from iltpu_torch.data import (
 )
 from iltpu_torch.data.replay import COLUMNS
 from iltpu_torch.envs import SPECS, make_env
-from iltpu_torch.envs.host import evaluate_policy
+from iltpu_torch.envs.host import evaluate_policy, render_rollout, rollout_scenes
 from iltpu_torch.models import SoftActor, TwinCritic
 from iltpu_torch.models.actor import DRIL_ENSEMBLE_SIZE
 from iltpu_torch.models.distributions import beta_sample
@@ -180,15 +182,8 @@ def resolve_device(platform: Optional[str], rank: Optional[int] = None) -> torch
     raise ValueError(f"unknown platform {platform!r}: cpu or gpu")
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md, '{item}'"
-    )
-
-
 def check_supported(cfg: DotDict) -> None:
-    """Raise for what the port cannot run: ValueError where iltpu refuses
-    the configuration too, NotImplementedError otherwise."""
+    """Raise iltpu's ValueError for the configurations iltpu refuses."""
     t, icfg, rcfg = cfg.training, cfg.imitation, cfg.reinforcement
     alg = cfg.algorithm
     d = icfg.get("discriminator") or {}
@@ -217,8 +212,6 @@ def check_supported(cfg: DotDict) -> None:
             "training.fused_update_scan=true requires algorithm=GAIL with training.sac_pallas "
             "and training.disc_pallas, no bc_aux_loss, and a single-device (mesh-free) run"
         )
-    if cfg.render and cfg.env_backend != "jax":  # iltpu renders only the MuJoCo envs
-        raise _not_ported("render=true", "Render")
 
 
 def _load_expert_dataset(cfg: DotDict, env) -> Dict[str, np.ndarray]:
@@ -1222,6 +1215,8 @@ class Trainer:
     def _finish(self) -> float:
         self._flush_logs()
         cfg = self.cfg
+        if cfg.render and self.host_env:  # iltpu renders the MuJoCo envs only
+            self._render()
         if cfg.save_trajectories and self.host_env:  # gymnasium's envs, whatever the backend
             _, trajectories = evaluate_policy(
                 cfg.env, self._greedy_fn(), cfg.evaluation.episodes,
@@ -1233,6 +1228,23 @@ class Trainer:
         if self.host_env:  # its threads and MuJoCo's data
             self.env.close()
         return float(np.mean(self.score)) if self.score else 0.0
+
+
+    def _render(self):
+        """iltpu's render at the end of a run: a greedy rollout from seed +
+        39916801, up to 500 frames, to `<prefix>rollout.npz` and
+        `<prefix>rollout.gif` at 30 fps, cast on the trainer's device. Every
+        rank rolls out (the actor's reads are collective under the
+        tensor-parallel layout); rank 0 renders and writes."""
+        cfg = self.cfg
+        kw = dict(absorbing=cfg.imitation.absorbing, seed=cfg.seed + 39916801, max_frames=500)
+        greedy = self._greedy_fn()
+        if not self.writer:
+            rollout_scenes(cfg.env, greedy, **kw)
+            return
+        render_rollout(cfg.env, greedy, os.path.join(self.out_dir, self.prefix + "rollout.npz"),
+                       gif_path=os.path.join(self.out_dir, self.prefix + "rollout.gif"), fps=30,
+                       device=self.device, **kw)
 
 
 def train(cfg: Dict, out_dir: str = ".", file_prefix: str = "") -> float:

@@ -32,6 +32,7 @@ from iltpu_torch.ops.gaussian_rowsum import (
 from iltpu_torch.rewards import GMMILDiscriminator
 from iltpu_torch.trainer import Trainer
 from test_torch_convert import assert_trees_close, jax_sac_tree
+from test_torch_render import rollout_files
 from test_torch_trainer import BASE, _iltpu_noise, _step_data
 
 torch.set_num_threads(1)
@@ -245,9 +246,11 @@ def test_kernel_flags_iltpu_refuses_raise_value_error(tmp_path, flag):
     ("render=true env=walker2d env_backend=mujoco", "Render"),
 ])
 def test_refuses_what_is_not_ported(tmp_path, override, item):
-    """Rendering a MuJoCo env raises NotImplementedError naming its ROADMAP
-    item; D4RL's hdf5 expert data is ported, and a file that is not there
-    raises FileNotFoundError in both packages (iltpu's through h5py)."""
+    """What ROADMAP.md once listed as not ported runs: `render=true` on a
+    MuJoCo env ('Render') renders the trainer's greedy rollout into iltpu's
+    rollout.npz and rollout.gif, whatever the env backend; D4RL's hdf5
+    expert data is ported, and a file that is not there raises
+    FileNotFoundError in both packages (iltpu's through h5py)."""
     args = GMMIL + override.split()
     if item is None:
         with pytest.raises(FileNotFoundError):
@@ -255,5 +258,7 @@ def test_refuses_what_is_not_ported(tmp_path, override, item):
         with pytest.raises(FileNotFoundError):
             JaxTrainer(jax_load_config(args), out_dir=str(tmp_path / "jax"))
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, '{item}'"):
-        Trainer(load_config(args + ["platform=cpu"]), out_dir=str(tmp_path))
+    t = Trainer(load_config(args + ["platform=cpu"]), out_dir=str(tmp_path))
+    t._render()
+    t.env.close()
+    assert rollout_files(t.out_dir, t.prefix) >= 1

@@ -337,7 +337,8 @@ def test_port_imports_neither_jax_nor_iltpu(tmp_path):
     """Every module of the port (train_all, sweep, analysis, parallel and its
     tensor-parallel layout named too), a plain CLI run, a hopper run on the
     C++ stepper (which imports neither MuJoCo's bindings nor gymnasium
-    either), a data-parallel one
+    either) and the render script on its agent (the rollout ray cast and
+    written as a GIF without PIL), a data-parallel one
     (a one-rank gloo group) and one under parallel.shard_params, a two-job
     `-m` run, and a pipelined run that checkpoints,
     resumed: beside an `agent_best/` that holds only iltpu's header.pkl (a
@@ -361,6 +362,13 @@ from iltpu_torch.config import load_config
 main({CLI + ['platform=cpu', f'output_dir={tmp_path}']!r})
 main({[a for a in CLI if not a.startswith("env")] + HOPPER + ['platform=cpu',
                                                              f'output_dir={tmp_path / "hop"}']!r})
+import torch
+torch.set_num_threads(1)  # the frames' ray cast, beside the suite's other workers
+hop = glob.glob({str(tmp_path / 'hop')!r} + "/*/*/")[0]
+from iltpu_torch.render_rollout import main as render_main
+render_main(["--env", "hopper", "--agent", hop + "agent", "--out", hop + "roll", "--max-frames", "3",
+             "--hidden-size", "16", "--platform", "cpu"])
+assert glob.glob(hop + "roll.npz") and glob.glob(hop + "roll.gif")
 main({CLI + ['platform=cpu', 'training.fused_update_scan=false', 'training.sac_pallas=false',
              'training.disc_pallas=false', 'parallel.data_axis=data',
              f'output_dir={tmp_path / "dp"}']!r})
@@ -406,22 +414,33 @@ MISSING_HDF5 = "expert_data.source=hdf5 expert_data.path=no/such/d4rl.hdf5"
     (MISSING_HDF5, FileNotFoundError, "d4rl.hdf5"),
     ("imitation.discriminator.reward_shaping=true", ValueError, "training.disc_pallas=true supports"),
     ("imitation.state_only=true", ValueError, "training.disc_pallas=true supports"),
-    ("render=true env=hopper env_backend=native", NotImplementedError, "ROADMAP.md, 'Render'"),
+    # renders now; the case keeps its id
+    pytest.param("render=true env=hopper env_backend=native", None, None,
+                 id="render=true env=hopper env_backend=native-NotImplementedError-ROADMAP.md, 'Render'"),
     ("reinforcement.critic.depth=3", ValueError, "training.sac_pallas=true requires"),
     ("imitation.loss_function=PUGAIL", ValueError, "training.disc_pallas=true supports"),
 ])
 def test_refuses_pwil_gail_options_and_kernel_shapes(tmp_path, override, error, match):
-    """Rendering a MuJoCo env is not ported; D4RL's hdf5 expert data is, and
-    an HDF5 file that is not there raises FileNotFoundError in both packages
-    (iltpu's through h5py); the kernel flags refuse what iltpu refuses (the
-    GAIL input options on the GAIL kernel among them), with its ValueError."""
+    """Rendering a MuJoCo env is ported: the trainer renders its greedy
+    rollout into rollout.npz and rollout.gif; D4RL's hdf5 expert data is,
+    and an HDF5 file that is not there raises FileNotFoundError in both
+    packages (iltpu's through h5py); the kernel flags refuse what iltpu
+    refuses (the GAIL input options on the GAIL kernel among them), with its
+    ValueError."""
     base = BASE if error is ValueError else COMMON + ["algorithm=GAIL"]
     args = base + TUNEDLIKE[:1] + override.split() + ["platform=cpu"]
+    if error is None:
+        from test_torch_render import rollout_files
+
+        t = Trainer(load_config(args), out_dir=str(tmp_path))
+        t._render()
+        t.env.close()
+        assert rollout_files(t.out_dir, t.prefix) >= 1
+        return
     with pytest.raises(error, match=match):
         Trainer(load_config(args), out_dir=str(tmp_path))
-    if error is not NotImplementedError:
-        with pytest.raises(error):
-            JaxTrainer(jax_load_config(args[:-1]), out_dir=str(tmp_path / "jax"))
+    with pytest.raises(error):
+        JaxTrainer(jax_load_config(args[:-1]), out_dir=str(tmp_path / "jax"))
 
 
 def _pair(tmp_path, args):
