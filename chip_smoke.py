@@ -130,9 +130,12 @@ of JAX or `iltpu`. Phases, each printing its results:
    1,024 steps): two job directories, `multirun.yaml` read back, launches
    equal to the two schedules' updates; (7c) `python -m
    iltpu_torch.train_all --envs pointmass,pendulum --sweep 4 --sobol 2`,
-   each trial two forkserver workers on the card at once (the SAC kernel,
-   the discriminator step on autograd: the sweep sets shapes the GAIL
-   kernel refuses): `sweep.jsonl`'s records and the best-trial line; (7d)
+   1,280 steps a trial, each trial two forkserver workers on the card at
+   once (the SAC kernel, the discriminator step on autograd: the sweep sets
+   shapes the GAIL kernel refuses), each worker's launches those its
+   trial's schedule owes (281 updates an env where the trial drew
+   training.start=1000, none where it drew 10000), at least one trial
+   trained: `sweep.jsonl`'s records and the best-trial line; (7d)
    the IQM of 7b's two seeds with its stratified bootstrap CI;
 8. data parallel (`parallel.data_axis=data`): (8a) NCCL at world size 1:
    for GAIL on the per-update kernels and on the autograd updates, a
@@ -266,7 +269,19 @@ of JAX or `iltpu`. Phases, each printing its results:
    10b's pipelined main path (GAIL on 512 hopper envs on the stepper, the
    SAC and GAIL kernels, the fused scan, 4,096 steps) from the latest
    file: its expert ring bit-equal to the npz run's, each kernel launched
-   once an owed update, its steady env-steps/s beside 12b's.
+   once an owed update, its steady env-steps/s beside 12b's; (15c) the
+   rest of what h5py reads, h5py never imported: `load_d4rl_hdf5` on
+   `data/d4rl/hopper_expert_vds.hdf5` (each key virtual over row blocks of
+   the two large fixtures, split at trajectory ends) and
+   `hopper_expert_links.hdf5` (each key an external link into one of them)
+   equal to the npz, `read_datasets` on `formats_remainder.hdf5` (external
+   raw data under HDF5_EXTFILE_PREFIX=${ORIGIN}, an external link, virtual
+   datasets with `.`, printf-style, converted and missing sources, a
+   deflated root link heap with a huge link name, a 24-bit float and a VAX
+   float) equal to `fixture.remainder_arrays()`, each read's host ms; then
+   10b's pipelined main path from the virtual file for 2,048 steps: its
+   expert ring bit-equal to the npz run's, each kernel launched once an
+   owed update, its steady env-steps/s.
 16. render=true on the card, with no OpenGL and no PIL: (16a) 10b's
    pipelined main path (GAIL on 512 hopper envs, the SAC and GAIL kernels),
    2,048 steps with render=true: each kernel launched once an owed update,
@@ -2601,12 +2616,9 @@ def check_d4rl_hdf5(rates, pre, smi):
     and the ms of one `_plots` call. Returns 12a's read in ms."""
     import shutil
 
-    import torch
-    from iltpu_torch.config import load_config
     from iltpu_torch.data import load_d4rl_hdf5
     from iltpu_torch.data.hdf5 import read_datasets
     from iltpu_torch.data.replay import COLUMNS
-    from iltpu_torch.trainer import Trainer
 
     t12 = time.time()
     path = d4rl_fixture()
@@ -2633,15 +2645,7 @@ def check_d4rl_hdf5(rates, pre, smi):
     counted, rates["hopper_hdf5_pipeline"], pre["hopper_hdf5_pipeline"] = run_trainer(
         "hopper_hdf5_pipeline", (*args, *hdf5), owed(per_update), keep=kept)
     trainer = kept[0]
-    out_dir = os.path.join(REPO, "outputs", "chip_smoke", "hopper_expert_npz")
-    npz_trainer = Trainer(load_config(TRAINER_ARGS + list(args) + [f"output_dir={out_dir}"]),
-                          out_dir=out_dir)
-    npz_trainer.env.close()
-    for col in COLUMNS:
-        a, b = trainer.expert.rows(col), npz_trainer.expert.rows(col)
-        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
-            raise AssertionError(f"12b: the expert ring's {col} differs from the npz run's")
-    rows = int(trainer.expert.rows("states").shape[0])
+    rows = same_expert_ring(trainer, args, "hopper_expert_npz", "12b")
     print(f"d4rl hdf5: GAIL on 512 hopper envs from the HDF5 file, pipelined: expert ring "
           f"({rows} rows, {len(COLUMNS)} columns) bit-equal to the npz trainer's, launches "
           f"{counted} for {trainer.updates_done} owed updates; steady "
@@ -2688,6 +2692,25 @@ def same_as_npz(data, phase):
                 raise AssertionError(f"{phase}: {k} differs from the npz's")
 
 
+def same_expert_ring(trainer, args, name, phase):
+    """The expert ring of `trainer` (a run from an HDF5 file) bit-equal to
+    that of a trainer built with `args` on the npz; returns its rows."""
+    import torch
+    from iltpu_torch.config import load_config
+    from iltpu_torch.data.replay import COLUMNS
+    from iltpu_torch.trainer import Trainer
+
+    out_dir = os.path.join(REPO, "outputs", "chip_smoke", name)
+    npz_trainer = Trainer(load_config(TRAINER_ARGS + list(args) + [f"output_dir={out_dir}"]),
+                          out_dir=out_dir)
+    npz_trainer.env.close()
+    for col in COLUMNS:
+        a, b = trainer.expert.rows(col), npz_trainer.expert.rows(col)
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{phase}: the expert ring's {col} differs from the npz run's")
+    return int(trainer.expert.rows("states").shape[0])
+
+
 def measured(value, unit=""):
     """A number of this call, or "not run" where its phase was not run."""
     return "not run" if value is None else f"{value:.2f}{unit}"
@@ -2702,12 +2725,9 @@ def check_latest_hdf5(rates, pre, read_12a_ms, smi):
     their seed, h5py never imported; (15b) 10b's pipelined main path from
     the latest file: its expert ring bit-equal to the npz run's, each kernel
     launched once an owed update, its steady env-steps/s."""
-    import torch
-    from iltpu_torch.config import load_config
     from iltpu_torch.data import load_d4rl_hdf5
     from iltpu_torch.data.hdf5 import read_datasets
     from iltpu_torch.data.replay import COLUMNS
-    from iltpu_torch.trainer import Trainer
 
     t15 = time.time()
     fixtures = d4rl_fixtures()
@@ -2739,15 +2759,7 @@ def check_latest_hdf5(rates, pre, read_12a_ms, smi):
     counted, rates["hopper_latest_pipeline"], pre["hopper_latest_pipeline"] = run_trainer(
         "hopper_latest_pipeline", (*args, *hdf5), owed(per_update), keep=kept)
     trainer = kept[0]
-    out_dir = os.path.join(REPO, "outputs", "chip_smoke", "hopper_latest_npz")
-    npz_trainer = Trainer(load_config(TRAINER_ARGS + list(args) + [f"output_dir={out_dir}"]),
-                          out_dir=out_dir)
-    npz_trainer.env.close()
-    for col in COLUMNS:
-        a, b = trainer.expert.rows(col), npz_trainer.expert.rows(col)
-        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
-            raise AssertionError(f"15b: the expert ring's {col} differs from the npz run's")
-    rows = int(trainer.expert.rows("states").shape[0])
+    rows = same_expert_ring(trainer, args, "hopper_latest_npz", "15b")
     print(f"hdf5 latest (15b): GAIL on 512 hopper envs from the latest-format file, pipelined: "
           f"expert ring ({rows} rows, {len(COLUMNS)} columns) bit-equal to the npz trainer's, "
           f"launches {counted} for {trainer.updates_done} owed updates; steady "
@@ -2755,6 +2767,71 @@ def check_latest_hdf5(rates, pre, read_12a_ms, smi):
           f"{measured(rates.get('hopper_hdf5_pipeline'))}; 10b pipelined: "
           f"{measured(rates.get('hopper_pipeline'))} and "
           f"{measured(rates.get('hopper_pipeline_again'))}) on {smi}; phase 15 took "
+          f"{time.time() - t15:.1f} s")
+
+
+def check_remainder_hdf5(rates, pre, smi):
+    """Phase 15c: the last of HDF5 that iltpu's loader reads through h5py,
+    on the card's machine. hopper_expert_vds.hdf5 (each key virtual over
+    row blocks of the two large fixtures) and hopper_expert_links.hdf5
+    (each key an external link into one of them) through load_d4rl_hdf5
+    equal to data/hopper_expert.npz; formats_remainder.hdf5 (external raw
+    data, an external link, virtual datasets, a deflated root link heap
+    with a huge link name, floats of other layouts) through read_datasets
+    equal to `fixture.remainder_arrays()`; each read's host ms; h5py never
+    imported. Then 10b's pipelined main path from the virtual file for
+    2,048 steps: its expert ring bit-equal to the npz run's, each kernel
+    launched once an owed update, its steady env-steps/s."""
+    from iltpu_torch.data import load_d4rl_hdf5
+    from iltpu_torch.data.hdf5 import read_datasets
+
+    t15 = time.time()
+    fixtures = d4rl_fixtures()
+    reads = []
+    for name in ("hopper_expert_vds.hdf5", "hopper_expert_links.hdf5"):
+        path = fixtures.unpack(name)
+        t0 = time.perf_counter()
+        data = load_d4rl_hdf5(path)
+        reads.append(f"{name} ({os.path.getsize(path)} bytes) {1e3 * (time.perf_counter() - t0):.2f} ms")
+        data.update(read_datasets(path, ["rewards"]))
+        same_as_npz(data, "15c")
+    formats = fixtures.unpack("formats_remainder.hdf5")
+    want = fixtures.remainder_arrays()
+    before = os.environ.get("HDF5_EXTFILE_PREFIX")
+    os.environ["HDF5_EXTFILE_PREFIX"] = "${ORIGIN}"  # the raw file beside it
+    try:
+        t0 = time.perf_counter()
+        got = read_datasets(formats, list(want))
+        formats_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        if before is None:
+            del os.environ["HDF5_EXTFILE_PREFIX"]
+        else:
+            os.environ["HDF5_EXTFILE_PREFIX"] = before
+    fixtures.same(got, want)
+    if "h5py" in sys.modules:
+        raise AssertionError("15c: h5py was imported")
+    print(f"hdf5 remainder (15c): load_d4rl_hdf5 of {'; '.join(reads)} host wall, each equal to "
+          f"data/hopper_expert.npz (floats bit-equal, flags bool); {formats} "
+          f"({os.path.getsize(formats)} bytes, {len(want)} datasets) read by read_datasets in "
+          f"{formats_ms:.2f} ms host wall, equal to fixture.remainder_arrays() (dtype, shape, "
+          f"bytes); h5py not imported; on {smi}")
+
+    # 10b's main path, pipelined, from the virtual file
+    path = fixtures.unpack("hopper_expert_vds.hdf5")
+    args = (*HOPPER, "training.start=100", "training.pipeline=true", "steps=2048",
+            "training.timing_skip_steps=1024")
+    hdf5 = ("expert_data.source=hdf5", f"expert_data.path={path}")
+    kept = []
+    counted, rates["hopper_vds_pipeline"], pre["hopper_vds_pipeline"] = run_trainer(
+        "hopper_vds_pipeline", (*args, *hdf5), owed(per_update), keep=kept)
+    trainer = kept[0]
+    rows = same_expert_ring(trainer, args, "hopper_vds_npz", "15c")
+    print(f"hdf5 remainder (15c): GAIL on 512 hopper envs from the virtual-dataset file, pipelined, "
+          f"2,048 steps: expert ring ({rows} rows) bit-equal to the npz trainer's, launches "
+          f"{counted} for {trainer.updates_done} owed updates; steady "
+          f"{rates['hopper_vds_pipeline']:.1f} env-steps/s (15b from the latest-format file: "
+          f"{measured(rates.get('hopper_latest_pipeline'))}) on {smi}; phase 15c took "
           f"{time.time() - t15:.1f} s")
 
 
@@ -2871,15 +2948,38 @@ def check_multirun():
     return jobs
 
 
+TRIAL_STEPS = 1280  # 7c: past the search space's training.start=1000 (281 updates an env)
+
+
+def _counted_run_one(packed):
+    """`train_all._run_one` in a forkserver worker, its launch counts
+    written to `<env dir>/launches.json` for 7c (a worker's counters are its
+    own): 7c puts it in `_run_one`'s place in the parent, and the worker
+    unpickles it from this script, where `train_all` is not patched."""
+    from iltpu_torch import train_all
+
+    reset_counts()
+    score = train_all._run_one(packed)
+    env, _, out_dir = packed
+    with open(os.path.join(out_dir, env, "launches.json"), "w") as f:
+        json.dump(counts(), f)
+    return score
+
+
 def check_train_all():
     """7c: `iltpu_torch.train_all.main([... --envs pointmass,pendulum --sweep
     4 --sobol 2])` without --serial: each trial two forkserver workers on
     the card at once, each with its own CUDA context. The GAIL search
     space sets discriminator depths, activations and losses that the GAIL
     kernel refuses (iltpu's ValueError), so the trials run the SAC kernel
-    and the autograd discriminator step. iltpu's optimiser fits its GP only
-    after three told trials: trials 0-2 are Sobol's, 3 GP-EI's. A worker's
-    exception propagates through pool.map and fails the phase."""
+    and the autograd discriminator step. Each trial takes training.start
+    from the search space (1000 or 10000): at 1,280 steps on 64 envs a
+    trial that drew 1000 runs 281 updates an env, one that drew 10000
+    none. Each worker's launches must be its schedule's (the SAC kernel
+    once an update, nothing else), and some trial must train. iltpu's
+    optimiser fits its GP only after three told trials: trials 0-2 are
+    Sobol's, 3 GP-EI's. A worker's exception propagates through pool.map
+    and fails the phase."""
     import contextlib
     import io
     import shutil
@@ -2887,42 +2987,60 @@ def check_train_all():
     import numpy as np
     from iltpu_torch import train_all
     from iltpu_torch.analysis import load_metrics
+    from iltpu_torch.config import load_config
 
     work = os.path.join(REPO, "outputs", "chip_smoke", "train_all")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    args = [a for a in SMALL_ARGS if not a.startswith(("training.", "steps"))] + [
-        "training.sac_pallas=true", "steps=2048",
-        "--envs", "pointmass,pendulum", "--sweep", "4", "--sobol", "2"]
-    here, printed = os.getcwd(), io.StringIO()
+    overrides = [a for a in SMALL_ARGS if not a.startswith(("training.", "steps"))] + [
+        "training.sac_pallas=true", f"steps={TRIAL_STEPS}"]
+    args = overrides + ["--envs", "pointmass,pendulum", "--sweep", "4", "--sobol", "2"]
+    here, printed, run_one = os.getcwd(), io.StringIO(), train_all._run_one
     os.chdir(work)
+    train_all._run_one = _counted_run_one
     try:
         t0 = time.time()
         with contextlib.redirect_stdout(printed):
             best = train_all.main(args)
         wall = time.time() - t0
     finally:
+        train_all._run_one = run_one
         os.chdir(here)
     with open(os.path.join(work, "outputs", "all_GAIL", "sweep.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     methods = [r["method"] for r in rows]
     if methods != ["sobol"] * 3 + ["gp-ei"]:
         raise AssertionError(f"train_all: trials {methods}")
-    trained = []  # a trial's slower worker's seconds in Trainer.run
+    trained, updates = [], []  # a trial's slower worker's seconds in Trainer.run; its updates an env
     for r in rows:
         if (sorted(r["per_env"]) != ["pendulum", "pointmass"] or r["min_score"] != min(r["per_env"].values())
                 or not np.isfinite(list(r["per_env"].values())).all()):
             raise AssertionError(f"train_all: trial {r}")
-        trained.append(max(load_metrics(os.path.join(
-            work, "outputs", "all_GAIL", f"trial_{r['trial']:03d}", env))["training_time"]
-            for env in r["per_env"]))
+        trial_dir = os.path.join(work, "outputs", "all_GAIL", f"trial_{r['trial']:03d}")
+        trained.append(max(load_metrics(os.path.join(trial_dir, env))["training_time"]
+                           for env in r["per_env"]))
+        updates.append([])
+        for env in r["per_env"]:
+            cfg = load_config(overrides + [f"{k}={v}" for k, v in r["params"].items()] + [f"env={env}"])
+            n = sum(schedule(cfg, 1))
+            with open(os.path.join(trial_dir, env, "launches.json")) as f:
+                launched = json.load(f)
+            if launched != launches_of(sac_update=n):
+                raise AssertionError(f"train_all: trial {r['trial']} {env} (training.start "
+                                     f"{cfg.training.start}) launched {launched}, {n} updates owed")
+            updates[-1].append(n)
+    if not any(map(any, updates)):
+        raise AssertionError(f"train_all: no trial trained (training.start "
+                             f"{[r['params']['training.start'] for r in rows]})")
     last = json.loads(printed.getvalue().strip().splitlines()[-1])
     top = max(rows, key=lambda r: r["min_score"])
     if last["best_trial"] != top["trial"] or last["min_score"] != best or best != top["min_score"]:
         raise AssertionError(f"train_all: best-trial line {last} against {rows}")
-    print(f"train_all: a 4-trial sweep, 2 concurrent forkserver workers a trial, in {wall:.2f} s "
-          f"wall ({wall / len(rows):.2f} s a trial; the slower worker's training loop "
-          f"{[round(x, 2) for x in trained]} s): methods {methods}, min scores "
+    print(f"train_all: a 4-trial sweep, {TRIAL_STEPS} steps a trial, 2 concurrent forkserver workers "
+          f"a trial, in {wall:.2f} s wall ({wall / len(rows):.2f} s a trial; the slower worker's "
+          f"training loop {[round(x, 2) for x in trained]} s): training.start "
+          f"{[r['params']['training.start'] for r in rows]}, SAC kernel launches {updates} "
+          f"(each worker's, its env's updates), methods {methods}, min scores "
           f"{[r['min_score'] for r in rows]}; best-trial line {json.dumps(last)[:160]}...")
 
 
@@ -3836,6 +3954,9 @@ def main():
 
     # 15. h5py's newer formats through the port's reader, the main path on a latest-format file
     check_latest_hdf5(rates, pre, read_12a_ms, smi)
+    # 15c. the rest of what h5py reads (virtual datasets, external links and raw data, filtered
+    # heaps, floats of other layouts), the main path on the virtual-dataset file
+    check_remainder_hdf5(rates, pre, smi)
 
     # 16. render=true: the main path, then its greedy rollout cast on the card, the GIF
     check_render(dev, rates, pre, smi)

@@ -1,21 +1,24 @@
 """The HDF5 fixtures' paths, decoded from their committed text forms, and
-the seeded arrays `formats_latest.hdf5` holds.
+the seeded arrays `formats_latest.hdf5` and `formats_remainder.hdf5` hold.
 
     from fixture import unpack, formats_arrays, same   # data/d4rl on sys.path
     path = unpack()                                 # hopper_expert.hdf5
     path = unpack("hopper_expert_latest.hdf5")
     want = formats_arrays()                         # {name: array as h5py reads it}
+    path = unpack("formats_remainder.hdf5")         # and the files it names
+    want = remainder_arrays()
 
 `<name>.b64` (base64 of the file `make_fixture.py` writes) is what the
 repo holds: a checkout made from a text diff drops binary files.
 `unpack(name)` writes `<name>` beside it (gitignored) by an atomic rename
 where it is missing or differs, and raises unless the bytes have the
-sha256 below. `formats_arrays(seed)` rebuilds, with numpy alone, every
-root dataset of `formats_latest.hdf5` as `np.asarray(f[name])` gives it (a
-dataset of an array datatype with the array's dimensions last), in the
-root's order; `same(got, want)` holds two such dicts equal: keys in order,
-dtype, shape and bytes (an object array element by element). Standard
-library and numpy only.
+sha256 below; it unpacks first the files `name` names (`COMPANIONS`).
+`formats_arrays(seed)` rebuilds, with numpy alone, every root dataset of
+`formats_latest.hdf5` as `np.asarray(f[name])` gives it (a dataset of an
+array datatype with the array's dimensions last), in the root's order, and
+`remainder_arrays(seed)` those of `formats_remainder.hdf5`; `same(got,
+want)` holds two such dicts equal: keys in order, dtype, shape and bytes
+(an object array element by element). Standard library and numpy only.
 """
 
 import base64
@@ -29,6 +32,13 @@ SHA256 = {
     "hopper_expert.hdf5": "3fb83e93f06dd632ef560f42bbc26649833f3e290f3ccea77d41528aaf5e30ae",
     "hopper_expert_latest.hdf5": "eab8ff7d4b62ea89ca9b579c569f8af70305e0b330fa85e563a022ca836489d7",
     "formats_latest.hdf5": "7c0389611bbaca191b9717ace25705a6ee8a70949c9f574d81d8ba618d5bb5e5",
+    "hopper_expert_vds.hdf5": "f135a8f53c643e256b064739b6b663368dad2557fc9a2ec6a4507a9cceef15f3",
+    "hopper_expert_links.hdf5": "48e605aaaa28513d9d0151f183786b603e8b027f81236eb583c9d78d275a5f08",
+    "formats_remainder.hdf5": "37950048046d5f80fe627a71b498221d366d39f36e794874f0999f9d89a7e2ba",
+    "formats_remainder_raw.bin": "0853be27795755f6c3d1c7824796ef38f91936e432ea3085d034be299ad82fa4",
+    "formats_remainder_part_0.hdf5": "4ce057656e1acc2722db3a59e3cd6fb14a39eff32fd8c78fb5236a6bf3ab2b07",
+    "formats_remainder_part_1.hdf5": "9608651e2e3080b2ba96b9044656b9b5a36c77fa9fac16de587ff6b6e89faed8",
+    "formats_remainder_part_2.hdf5": "58a6ee14612b96971bc4e160beac1c8aa8eede7c88385e31cba39f7ee2ed6d09",
 }
 
 
@@ -37,8 +47,19 @@ def _sha256(path: str) -> str:
         return hashlib.sha256(f.read()).hexdigest()
 
 
+# the files a fixture names (its virtual sources, link targets, external raw data)
+REMAINDER_PARTS = tuple(f"formats_remainder_part_{b}.hdf5" for b in range(3))
+COMPANIONS = {
+    "hopper_expert_vds.hdf5": ("hopper_expert.hdf5", "hopper_expert_latest.hdf5"),
+    "hopper_expert_links.hdf5": ("hopper_expert.hdf5", "hopper_expert_latest.hdf5"),
+    "formats_remainder.hdf5": ("formats_remainder_raw.bin", *REMAINDER_PARTS),
+}
+
+
 def unpack(name: str = "hopper_expert.hdf5") -> str:
-    """The decoded fixture's path."""
+    """The decoded fixture's path (the files it names decoded beside it)."""
+    for companion in COMPANIONS.get(name, ()):
+        unpack(companion)
     path, want = os.path.join(HERE, name), SHA256[name]
     if os.path.exists(path) and _sha256(path) == want:
         return path
@@ -133,6 +154,54 @@ def formats_arrays(seed: int = 0) -> dict:
     # 40 links at least in the root, tracked in creation order
     for i in range(8):
         out[f"z_small_{7 - i}"] = rng.integers(0, 100, i + 1).astype(">u8")
+    return out
+
+
+# formats_remainder.hdf5: a link name past its root heap's largest managed object
+HUGE = "huge_" + "link_name_" * 420
+ALIASES = 40  # soft links that fill the root's heap past its first direct block
+F24 = (4, 0, 0, 24, 23, 16, 7, 0, 16, 63)  # size, order, offset, precision, sign, exponent, mantissa, bias
+
+
+def remainder_parts(seed: int = 0) -> list:
+    """The `rows` of formats_remainder_part_{0,1,2}.hdf5."""
+    rng = np.random.default_rng(seed + 1)
+    return [rng.standard_normal((10, 6)).astype("<f4") for _ in range(3)]
+
+
+def remainder_arrays(seed: int = 0) -> dict:
+    """Every root dataset of formats_remainder.hdf5, as h5py reads it
+    (HDF5_EXTFILE_PREFIX=${ORIGIN}), in the root's (creation) order."""
+    rng = np.random.default_rng(seed)
+    parts = remainder_parts(seed)
+    out = {}
+    out["plain"] = rng.standard_normal((40, 6)).astype("<f4")
+    out["external_raw"] = rng.integers(-2**31, 2**31, (50, 8)).astype("<i4")  # two slots of a raw file
+    out["external_link"] = parts[1]
+    blocks = np.full((40, 6), -1, "<f4")  # the fill value where no mapping reaches
+    blocks[:10], blocks[10:20] = out["plain"][30:], parts[0]
+    out["virtual_blocks"] = blocks
+    printf = np.full((34, 6), 9, "<f4")  # blocks of 10 rows every 12 from part_%b, 3 parts found
+    for b, part in enumerate(parts):
+        printf[12 * b:12 * b + 10] = part
+    out["virtual_printf"] = printf
+    wide = rng.standard_normal(64) * np.exp2(rng.integers(-160, 140, 64))
+    out["wide"] = wide
+    with np.errstate(over="ignore"):  # HDF5's hard conversion: a C cast, infinity past the range
+        narrow = wide.astype("<f4")
+    narrow[wide > np.finfo(np.float32).max] = np.inf
+    narrow[wide < -np.finfo(np.float32).max] = -np.inf
+    out["virtual_converted"] = narrow
+    out["virtual_missing"] = np.full((8, 3), 2.5, "<f4")
+    # a 24-bit float (7-bit exponent, 16-bit mantissa): values it holds exactly
+    f24 = rng.standard_normal(300).astype("<f4") * np.exp2(rng.integers(-40, 40, 300)).astype("<f4")
+    out["float_f24"] = (f24.view("<u4") & np.uint32(0xFFFFFF80)).view("<f4")
+    # VAX order in a version-1 message: HDF5 writes the words swapped, reads them as big-endian
+    vax = rng.standard_normal(100).astype("<f4")
+    out["float_vax"] = vax.view("u1").reshape(-1, 4)[:, [2, 3, 0, 1]].copy().view(">f4").reshape(-1)
+    for i in range(ALIASES):
+        out[f"alias_{i:02d}"] = out["plain"]
+    out[HUGE] = out["plain"]
     return out
 
 

@@ -27,11 +27,13 @@ import ctypes
 import glob
 import hashlib
 import os
+import sys
 
 import h5py
 import numpy as np
 
-from fixture import DENSE, HERE, NAMED, SOFT, formats_arrays
+from fixture import (ALIASES, DENSE, F24, HERE, HUGE, NAMED, REMAINDER_PARTS, SOFT, formats_arrays,
+                     remainder_arrays, remainder_parts)
 
 SOURCE = os.path.join(HERE, "..", "hopper_expert.npz")
 
@@ -39,7 +41,13 @@ FLOATS = ("observations", "actions", "next_observations", "rewards")
 FLAGS = ("terminals", "timeouts")
 
 
-def latest(path, track_order=False):
+def libhdf5():
+    """The HDF5 library h5py loaded, for the options h5py does not wrap."""
+    return ctypes.CDLL(glob.glob(os.path.join(os.path.dirname(h5py.__file__), os.pardir,
+                                              "h5py.libs", "libhdf5-*"))[0])
+
+
+def latest(path, track_order=False, deflate=False, libver="latest"):
     """A new file under libver='latest' whose headers store no times (the
     same bytes on every run: h5py's own groups store them), where HDF5 may
     write types whose precision is short of their size (what nbit packs:
@@ -49,12 +57,13 @@ def latest(path, track_order=False):
     fcpl.set_obj_track_times(False)
     if track_order:
         fcpl.set_link_creation_order(h5py.h5p.CRT_ORDER_TRACKED | h5py.h5p.CRT_ORDER_INDEXED)
+    if deflate:  # the root group's link heap deflated: filtered fractal heap blocks
+        libhdf5().H5Pset_deflate(ctypes.c_int64(fcpl.id), ctypes.c_uint(6))
     fapl = h5py.h5p.create(h5py.h5p.FILE_ACCESS)
-    fapl.set_libver_bounds(h5py.h5f.LIBVER_LATEST, h5py.h5f.LIBVER_LATEST)
-    libhdf5 = glob.glob(os.path.join(os.path.dirname(h5py.__file__), os.pardir, "h5py.libs",
-                                     "libhdf5-*"))[0]
+    if libver == "latest":
+        fapl.set_libver_bounds(h5py.h5f.LIBVER_LATEST, h5py.h5f.LIBVER_LATEST)
     unused_numeric_bits = 0x1
-    ctypes.CDLL(libhdf5).H5Pset_relax_file_integrity_checks(
+    libhdf5().H5Pset_relax_file_integrity_checks(
         ctypes.c_int64(fapl.id), ctypes.c_uint64(unused_numeric_bits))
     return h5py.File(h5py.h5f.create(path.encode(), h5py.h5f.ACC_TRUNC, fcpl=fcpl, fapl=fapl))
 
@@ -176,12 +185,129 @@ def formats(path):
     return f"{len(a)} root datasets"
 
 
-def main():
+def trajectory_blocks():
+    """Five row blocks of the npz, each ending at the end of every fifth
+    trajectory (a terminal or a timeout), taken from the two large files in
+    turns: [(source file, start, stop)]."""
+    with np.load(SOURCE) as npz:
+        ends = np.flatnonzero((npz["terminals"] > 0) | (npz["timeouts"] > 0)) + 1
+    cuts = [0, *ends[4::5][:4].tolist(), int(ends[-1])]
+    files = ("hopper_expert.hdf5", "hopper_expert_latest.hdf5")
+    return [(files[i % 2], a, b) for i, (a, b) in enumerate(zip(cuts[:-1], cuts[1:]))]
+
+
+def virtual(f, name, dtype, shape, maps, fill=None, maxshape=None):
+    """A virtual dataset by h5py's low-level API, no times stored: `maps`
+    are (virtual selection, source file, source dataset, source
+    selection)."""
+    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+    dcpl.set_obj_track_times(False)
+    if fill is not None:
+        dcpl.set_fill_value(np.array(fill, dtype))
+    for vspace, src_file, src_name, src_space in maps:
+        dcpl.set_virtual(vspace, src_file.encode(), src_name.encode(), src_space)
+    h5py.h5d.create(f.id, name.encode(), h5py.h5t.py_create(np.dtype(dtype)),
+                    h5py.h5s.create_simple(shape, maxshape), dcpl=dcpl)
+
+
+def rows(shape, start, stop, maxshape=None):
+    """A selection of rows [start, stop) of a dataspace of `shape`."""
+    space = h5py.h5s.create_simple(shape, maxshape)
+    space.select_hyperslab((start,) + (0,) * (len(shape) - 1), (1,) * len(shape), None,
+                           (stop - start,) + tuple(shape[1:]))
+    return space
+
+
+def hopper_vds(path):
+    """Each D4RL key virtual: the rows of `trajectory_blocks`, the source
+    files named relative to this one."""
+    blocks = trajectory_blocks()
+    with h5py.File(os.path.join(HERE, "hopper_expert.hdf5"), "r") as src:
+        kinds = {k: (src[k].shape, src[k].dtype) for k in (*FLOATS, *FLAGS)}
+    with latest(path) as f:
+        for k, (shape, dtype) in kinds.items():
+            virtual(f, k, dtype, shape, [(rows(shape, a, b), name, k, rows(shape, a, b))
+                                         for name, a, b in blocks])
+    return f"{len(blocks)} blocks a key: " + ", ".join(f"{n} [{a}, {b})" for n, a, b in blocks)
+
+
+def hopper_links(path):
+    """Each D4RL key an external link into one of the two large files, in
+    turns, under h5py's default libver."""
+    files = ("hopper_expert.hdf5", "hopper_expert_latest.hdf5")
+    with latest(path, libver=None) as f:
+        for i, k in enumerate((*FLOATS, *FLAGS)):
+            f[k] = h5py.ExternalLink(files[i % 2], "/" + k)
+    return "6 external links"
+
+
+def float_type(size, order, offset, precision, sign, epos, esize, mpos, msize, bias):
+    t = h5py.h5t.IEEE_F32LE.copy() if size == 4 else h5py.h5t.IEEE_F64LE.copy()
+    t.set_order(order)
+    t.set_fields(sign - offset, epos - offset, esize, mpos - offset, msize)
+    t.set_precision(precision)
+    t.set_offset(offset)
+    t.set_fields(sign, epos, esize, mpos, msize)
+    t.set_ebias(bias)
+    return t
+
+
+def remainder(path):
+    """formats_remainder.hdf5 and the files it names: its root's link heap
+    deflated (filtered blocks, a filtered huge object), tracking creation
+    order, under libver='latest'."""
+    a, parts = remainder_arrays(), remainder_parts()
+    for b, part in enumerate(parts):
+        with latest(os.path.join(HERE, REMAINDER_PARTS[b])) as g:
+            g.create_dataset("rows", data=part)
+    raw = a["external_raw"].tobytes()
+    with open(os.path.join(HERE, "formats_remainder_raw.bin"), "wb") as g:
+        g.write(b"head" * 4 + raw[:700] + b"gap!" + raw[700:])
+    with latest(path, track_order=True, deflate=True) as f:
+        f.create_dataset("plain", data=a["plain"])
+        f.create_dataset("external_raw", shape=(50, 8), dtype="<i4", external=[
+            ("formats_remainder_raw.bin", 16, 700), ("formats_remainder_raw.bin", 720, len(raw) - 700)])
+        f["external_link"] = h5py.ExternalLink(REMAINDER_PARTS[1], "/rows")
+        virtual(f, "virtual_blocks", "<f4", (40, 6), [
+            (rows((40, 6), 0, 10), ".", "plain", rows((40, 6), 30, 40)),
+            (rows((40, 6), 10, 20), REMAINDER_PARTS[0], "rows", rows((10, 6), 0, 10))], fill=-1)
+        vspace = h5py.h5s.create_simple((34, 6), (h5py.h5s.UNLIMITED, 6))
+        vspace.select_hyperslab((0, 0), (h5py.h5s.UNLIMITED, 1), (12, 1), (10, 6))
+        virtual(f, "virtual_printf", "<f4", (34, 6), [
+            (vspace, "formats_remainder_part_%b.hdf5", "rows", rows((10, 6), 0, 10))],
+            fill=9, maxshape=(h5py.h5s.UNLIMITED, 6))
+        f.create_dataset("wide", data=a["wide"])
+        virtual(f, "virtual_converted", "<f4", (64,), [(rows((64,), 0, 64), ".", "wide", rows((64,), 0, 64))])
+        virtual(f, "virtual_missing", "<f4", (8, 3), [
+            (rows((8, 3), 0, 8), "formats_remainder_nowhere.hdf5", "rows", rows((8, 3), 0, 8))], fill=2.5)
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_obj_track_times(False)
+        vax = h5py.h5t.IEEE_F32LE.copy()
+        vax.set_order(h5py.h5t.ORDER_VAX)
+        # each written from float32 by HDF5's conversion (exact for these values)
+        for name, t, data in (("float_f24", float_type(*F24), a["float_f24"]),
+                              ("float_vax", vax, a["float_vax"].view("u1").reshape(-1, 4)[:, [2, 3, 0, 1]]
+                               .copy().view("<f4").reshape(-1))):
+            ds = h5py.h5d.create(f.id, name.encode(), t, h5py.h5s.create_simple(data.shape), dcpl=dcpl)
+            ds.write(h5py.h5s.ALL, h5py.h5s.ALL, data)
+        for i in range(ALIASES):
+            f[f"alias_{i:02d}"] = h5py.SoftLink("/plain")
+        f[HUGE] = h5py.SoftLink("/plain")
+    return f"{len(a)} root datasets"
+
+
+def main(names):
     for name, write in (("hopper_expert.hdf5", hopper),
                         ("hopper_expert_latest.hdf5", lambda p: hopper(p, libver="latest")),
-                        ("formats_latest.hdf5", formats)):
+                        ("formats_latest.hdf5", formats),
+                        ("hopper_expert_vds.hdf5", hopper_vds),
+                        ("hopper_expert_links.hdf5", hopper_links),
+                        ("formats_remainder.hdf5", remainder),
+                        *((n, None) for n in ("formats_remainder_raw.bin", *REMAINDER_PARTS))):
+        if names and name not in names:
+            continue
         path = os.path.join(HERE, name)
-        what = write(path)
+        what = write(path) if write else "written with formats_remainder.hdf5"
         raw = open(path, "rb").read()
         with open(path + ".b64", "wb") as f:
             f.write(base64.encodebytes(raw))
@@ -190,4 +316,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -28,6 +28,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 
+from iltpu_torch.data import hdf5_convert
 from iltpu_torch.data.hdf5_checksum import refuse
 
 IEEE = {2: (10, 5, 0, 10, 15), 4: (23, 8, 0, 23, 127), 8: (52, 11, 0, 52, 1023)}
@@ -64,10 +65,8 @@ def parse(h5, p: int) -> Tuple[Type, int]:
     order = ">" if bits & 1 else "<"
     if cls == 0 and size in (1, 2, 4, 8):
         return _fixed(h5, p, order, bits & 0x8, size), 12
-    if cls == 1 and size in IEEE and not bits & 0x40:
-        layout = (mm[p + 12], mm[p + 13], mm[p + 14], mm[p + 15], h5.uint(p + 16, 4))
-        if (h5.uint(p + 8, 2), h5.uint(p + 10, 2)) == (0, 8 * size) and layout == IEEE[size]:
-            return Type(f"{order}f{size}"), 20
+    if cls == 1:
+        return _float(h5, p, version, bits, size), 20
     if cls == 3:
         return Type(f"S{size}"), 8
     if cls == 4 and size in (1, 2, 4, 8):
@@ -89,6 +88,40 @@ def parse(h5, p: int) -> Tuple[Type, int]:
         base, n = parse(h5, q)
         return Type((base.storage, dims), (base.dtype, dims), base.convert), q + n - p
     raise refuse(f"datatype class {cls} of {size} bytes")
+
+
+def _float(h5, p: int, version: int, bits: int, size: int) -> Type:
+    """A floating-point type: numpy's own where it is IEEE's layout in
+    either byte order, else the IEEE dtype h5py picks for it, converted as
+    HDF5 converts it (`hdf5_convert.floats`). Bit 6 of the order makes it
+    VAX only in a message of version 3 or later, as HDF5 decodes it: an
+    earlier message (the one HDF5 1.14.6 writes) reads as big-endian, and a
+    later one raises ValueError, as h5py has no dtype for that order."""
+    mm = h5.mm
+    if version >= 3 and bits & 0x40:
+        raise refuse("VAX-ordered float in a datatype message of version 3")
+    order = bits & 1
+    offset, precision = h5.uint(p + 8, 2), h5.uint(p + 10, 2)
+    epos, esize, mpos, msize, bias = mm[p + 12], mm[p + 13], mm[p + 14], mm[p + 15], h5.uint(p + 16, 4)
+    norm, sign = (bits >> 4) & 0x3, (bits >> 8) & 0xFF
+    src = hdf5_convert.Float(size, order, offset, precision, sign, epos, esize, mpos, msize, bias,
+                             norm, (bits >> 1) & 1, (bits >> 2) & 1)
+    char = "<>"[order]
+    if (size in IEEE and (offset, precision) == (0, 8 * size)
+            and (epos, esize, mpos, msize, bias) == IEEE[size] and norm == hdf5_convert.NORM_IMPLIED
+            and sign == 8 * size - 1):
+        return Type(f"{char}f{size}")
+    # h5py's choice (its TypeFloatID.py_dtype): the narrowest IEEE float whose
+    # mantissa and exponent range hold the type's
+    top, bottom = 2 ** esize - 2 - bias, 1 - bias
+    for width, (m, e) in ((2, (10, 15)), (4, (23, 127)), (8, (52, 1023)), (16, (112, 16383))):
+        if msize <= m and top <= e and bottom >= 1 - e:
+            break
+    else:
+        raise refuse(f"float of a {msize}-bit mantissa and {esize}-bit exponent")
+    dtype = np.dtype(f"{char}f{width}")
+    dst = hdf5_convert.ieee(dtype)
+    return Type(f"V{size}", dtype, lambda a: hdf5_convert.floats(a, src, dst).view(dtype))
 
 
 def _fixed(h5, p: int, order: str, signed: int, size: int) -> Type:
@@ -193,12 +226,16 @@ class GlobalHeap:
         self.collections = {}
 
     def __call__(self, addr: int, index: int) -> bytes:
+        start, size = self.locate(addr, index)
+        return self.h5.mm[start:start + size]
+
+    def locate(self, addr: int, index: int) -> Tuple[int, int]:
+        """(file offset, size) of object `index` of the collection at `addr`."""
         if addr not in self.collections:
             self.collections[addr] = self._collection(addr)
         if index not in self.collections[addr]:
             raise ValueError(f"HDF5 global heap {addr} has no object {index}")
-        start, size = self.collections[addr][index]
-        return self.h5.mm[start:start + size]
+        return self.collections[addr][index]
 
     def _collection(self, addr: int):
         h5, p = self.h5, self.h5.at(addr)

@@ -100,7 +100,8 @@ def messages(path, name):
         raw = f.read()
     with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
         h5 = _File(mm)
-        addr = h5.resolve(h5.root, h5.group(h5.root)[name])
+        where, addr = h5.follow(h5.root, h5.group(h5.root)[name])
+        assert where is h5
         return {kind: p for kind, p, _ in h5.messages(addr)}, h5.at(addr), raw
 
 
@@ -117,7 +118,8 @@ def group_order(path, group):
         h5 = _File(mm)
         here = h5.root
         for part in filter(None, group.split("/")):
-            here = h5.resolve(here, h5.group(here)[part])
+            where, here = h5.follow(here, h5.group(here)[part])
+            assert where is h5
         return list(h5.group(here))
 
 
@@ -616,10 +618,11 @@ def checksum_at_header(raw, header):
     *((what, libver) for what in ("external_link", "external_data", "null_dataspace")
       for libver in (None, "latest"))])
 def test_what_stays_refused_names_the_roadmap_item(tmp_path, what, libver):
-    """The virtual layout, external links, raw data in external files and
-    null dataspaces: iltpu's loader reads the file through h5py (an empty
-    dataset is its `Empty`), the port's raises ValueError naming the
-    structure and the ROADMAP item."""
+    """Once refused, now read: the virtual layout, external links and raw
+    data in external files load as iltpu's loader loads them. A null
+    dataspace (h5py's `Empty`) stays refused by both: iltpu's np.asarray
+    raises TypeError, the port ValueError naming the structure and the
+    ROADMAP item."""
     path = str(tmp_path / f"{what}.hdf5")
     a = d4rl_arrays()
     if what == "external_link":
@@ -644,12 +647,14 @@ def test_what_stays_refused_names_the_roadmap_item(tmp_path, what, libver):
                              external=[(raw, 0, a["observations"].nbytes)])
         else:
             f.create_dataset("observations", data=h5py.Empty(np.float32))
-    structure = {"virtual": "virtual dataset layout", "external_link": "external link",
-                 "external_data": "raw data in external files", "null_dataspace": "null dataspace"}[what]
-    if what != "null_dataspace":
-        assert np.array_equal(jax_load(path)["observations"], a["observations"])
-    with pytest.raises(ValueError, match=f"{structure} .*{ROADMAP}"):
-        load_d4rl_hdf5(path)
+    if what == "null_dataspace":
+        with pytest.raises(TypeError, match="Empty datasets"):
+            jax_load(path)
+        with pytest.raises(ValueError, match=f"null dataspace .*{ROADMAP}"):
+            load_d4rl_hdf5(path)
+        return
+    assert np.array_equal(jax_load(path)["observations"], a["observations"])
+    assert_iltpu_equal(path)
 
 
 # --------------------------------------------------------------- fixtures
