@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from iltpu_torch.envs.classic import ENVS
+from iltpu_torch.utils.spans import WAIT_ACTIONS, WAIT_BLOCK
 
 
 class VecEnv:
@@ -108,6 +109,10 @@ class HostEnv:
     Host envs are seeded with an int, as iltpu seeds them: `reset` starts
     every env from `seed` (iltpu's `self.env.reset(cfg.seed)`), and the
     torch generator that `VecEnv.reset` takes is ignored.
+
+    `spans`, the trainer's span recorder when it is on (`utils.spans`),
+    takes each step as an `env_step` span and each wait on an event in it
+    as a `wait` span.
     """
 
     def __init__(self, env, device=None, seed: int = 0):
@@ -123,6 +128,7 @@ class HostEnv:
         self._turn = 0
         self._blocks = [None, None]  # two pinned blocks on the card, each with its copy's event
         self._actions = None  # the pinned actions on the card
+        self.spans = None
 
     @property
     def obs_size(self) -> int:
@@ -165,18 +171,30 @@ class HostEnv:
             self._blocks[self._turn] = [buf, None]
         buf, event = self._blocks[self._turn]
         if event is not None:
+            sp = self.spans
+            if sp is not None:
+                sp.begin("wait", WAIT_BLOCK)
             event.synchronize()
+            if sp is not None:
+                sp.end()
         return buf
 
     def step(self, state: Dict, actions) -> Tuple[Dict, Dict[str, torch.Tensor]]:
         """One step of every env; `actions` on the device, a numpy array, or
         what `fetch` returned."""
+        sp = self.spans
+        if sp is not None:
+            sp.begin("env_step", self.num_envs, sp.acting)
         if isinstance(actions, torch.Tensor):
             actions = self.fetch(actions)
         if isinstance(actions, tuple):
             buf, event = actions
             if event is not None:
+                if sp is not None:
+                    sp.begin("wait", WAIT_ACTIONS)
                 event.synchronize()
+                if sp is not None:
+                    sp.end()
             actions = buf.numpy() if isinstance(buf, torch.Tensor) else buf
         actions = np.asarray(actions, np.float32)
         next_obs, rewards, terminals, timeouts, obs_after = self.env.step(actions)
@@ -196,6 +214,8 @@ class HostEnv:
         state["obs"].copy_(dev[:, c["obs_after"]])
         out["host"] = {"reward": rewards, "done": (terminals + timeouts) > 0, "obs": obs_after}
         self.obs = obs_after
+        if sp is not None:
+            sp.end()
         return state, out
 
     def close(self):

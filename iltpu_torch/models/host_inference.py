@@ -15,7 +15,9 @@
 - `HostReads`: the trainer's device -> host reads of an iteration's
   outputs: non-blocking copies into two sets of pinned buffers, used in
   turn, and an event, so that the host waits for those outputs and not for
-  the work queued after them. On the CPU, plain copies.
+  the work queued after them. On the CPU, plain copies. `spans`, the
+  trainer's span recorder when it is on (`utils.spans`), takes each wait
+  on an event as a `wait` span.
 
 The parameters are the actor MLP's leaves [W1, b1, W2, b2, ...] (W as
 (in, out)); the actor has no spectral norm and no dropout when acting.
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from iltpu_torch.models.distributions import LOG_STD_MAX, LOG_STD_MIN
+from iltpu_torch.utils.spans import WAIT_READS
 
 _ACTIVATIONS = {
     "relu": lambda x: np.maximum(x, 0.0),
@@ -71,6 +74,7 @@ class HostReads:
         self.device = device
         self.buffers = {}  # (turn, shapes) -> pinned tensors
         self.turn = 0
+        self.spans = None
 
     def _pinned(self, key, like: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         if key not in self.buffers:
@@ -91,13 +95,17 @@ class HostReads:
         event.record()
         return bufs, event
 
-    @staticmethod
-    def wait(pending) -> List[np.ndarray]:
+    def wait(self, pending) -> List[np.ndarray]:
         """The copies as numpy arrays (views of the buffers: read them
         before the next-but-one `start`)."""
         bufs, event = pending
         if event is not None:
+            sp = self.spans
+            if sp is not None:
+                sp.begin("wait", WAIT_READS)
             event.synchronize()
+            if sp is not None:
+                sp.end()
         return [b.numpy() for b in bufs]
 
     def to_device(self, array: np.ndarray) -> torch.Tensor:

@@ -9,11 +9,12 @@ pointmass, 512 envs, 4,096 steps, 1,024 of them before training.start, so
 training.update_block=16, in the plain, pipelined (`training.pipeline`)
 and host-acting (`training.host_acting`) host loops, alternating the modes
 for ROUNDS rounds (default 2). For each run it prints the steady
-env-steps/s and the host's ms an iteration in each part of the loop: act +
-env step (`act_env`), `front_of`, issuing the updates (`run_updates`) and
-waiting for the host reads (`HostReads.wait`); a mode's iteration time less
-those parts is the rest of the loop (bookkeeping, the host actor). Then one
-iteration's updates of the per-update path, plain and pipelined, under
+env-steps/s and the host's ms an iteration in each part of the loop, from
+the trainer's own spans (`utils.spans.Recorder`): the `front` (ring
+append, draws, bulk sample), issuing the `updates`, the `wait` for the
+host reads, and the rest of the `iteration` (the act and the env step,
+bookkeeping, the host actor); the array env has no `env_step` span. Then
+one iteration's updates of the per-update path, plain and pipelined, under
 torch.profiler: the host's self time of the top operators, per call. Ends
 with the card's name and power limit.
 """
@@ -21,14 +22,13 @@ with the card's name and power limit.
 import os
 import subprocess
 import sys
-import time
 
 import torch
 
 from iltpu_torch.config import load_config
-from iltpu_torch.models import host_inference
 from iltpu_torch.ops import build
 from iltpu_torch.trainer import Trainer
+from iltpu_torch.utils.spans import Recorder
 
 ARGS = [
     "algorithm=GAIL", "env=pointmass", "env_backend=jax", "num_envs=512", "steps=4096",
@@ -43,25 +43,28 @@ MODES = {
     "plain K=16": ["training.update_block=16"],
     "pipelined K=16": ["training.update_block=16", "training.pipeline=true"],
 }
-PARTS = ("act_env", "front_of", "run_updates", "wait")
+PARTS = ("front", "updates", "wait")
 
 
-def _timed(acc, name, fn):
-    def wrapper(*args, **kwargs):
-        t0 = time.perf_counter()
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
-    return wrapper
+def parts(spans):
+    """Host ms in each part, summed over the iterations, from the spans
+    directly inside each `iteration`; the iterations' count."""
+    ms = dict.fromkeys(PARTS + ("rest",), 0.0)
+    iters = {i for i, s in enumerate(spans) if s[0] == "iteration"}
+    for name, start, end, parent, _, _ in spans:
+        if name == "iteration":
+            ms["rest"] += 1e-6 * (end - start)
+        elif name in PARTS and parent in iters:
+            ms[name] += 1e-6 * (end - start)
+    ms["rest"] -= sum(ms[k] for k in PARTS)
+    return ms, len(iters)
 
 
-def run(mode, out_dir, acc, profile_at=None):
-    """One run of `mode`; returns (steady env-steps/s, iterations); with
+def run(mode, out_dir, profile_at=None):
+    """One run of `mode`; returns (steady env-steps/s, the spans); with
     `profile_at`, prints the profiler table of that update iteration."""
     t = Trainer(load_config(ARGS + MODES[mode] + [f"output_dir={out_dir}"]), out_dir=out_dir)
-    for name in PARTS[:3]:
-        setattr(t, name, _timed(acc, name, getattr(t, name)))
+    t.spans = Recorder()
     if profile_at is not None:
         calls, inner = [0], t.run_updates
 
@@ -78,10 +81,9 @@ def run(mode, out_dir, acc, profile_at=None):
             return out
 
         t.run_updates = run_updates
-    acc.clear()
     t.run()
     m = t.metrics
-    return m["steady_env_steps"] / m["steady_time"], t.step_done // t.cfg.num_envs
+    return m["steady_env_steps"] / m["steady_time"], t.spans.spans
 
 
 def main():
@@ -90,18 +92,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     rounds = int(sys.argv[1]) if len(sys.argv) > 1 else 2
     build.build_all()
-    acc = {}
-    host_inference.HostReads.wait = staticmethod(
-        _timed(acc, "wait", host_inference.HostReads.wait))
     out = os.path.join("outputs", "profile_acting")
     for r in range(rounds):
         for mode in MODES:
-            rate, iters = run(mode, os.path.join(out, mode.replace(" ", "_")), acc)
+            rate, spans = run(mode, os.path.join(out, mode.replace(" ", "_")))
+            ms, iters = parts(spans)
             print(f"round {r} {mode}: steady {rate:.1f} env-steps/s; host ms an iteration: "
-                  + ", ".join(f"{k} {1e3 * acc.get(k, 0.0) / iters:.2f}" for k in PARTS)
+                  + ", ".join(f"{k} {v / iters:.2f}" for k, v in ms.items())
                   + f" (over {iters} iterations, 6 with updates)", flush=True)
     for mode in ("plain", "pipelined"):  # the steady window's first iteration
-        run(mode, os.path.join(out, "profiled"), acc, profile_at=5)
+        run(mode, os.path.join(out, "profiled"), profile_at=5)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
 

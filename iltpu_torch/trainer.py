@@ -71,7 +71,11 @@ back into the tensors the trainer built. The run writes `agent/`,
 `discriminator/` and the best evaluation's `agent_best/` as
 `utils.checkpoint` directories, and `metrics.pkl`. `profiling.trace_dir`
 opens iltpu's profiler window over the host loop (`ProfilerWindow`:
-torch.profiler, a Chrome trace). After every evaluation (and at BC's
+torch.profiler, a Chrome trace, with the host loop's spans in it). The
+span recorder (`utils.spans.Recorder`, off by default; on through
+`trainer.spans = Recorder()` before `run()`) keeps in memory where the
+host loop is, iteration by iteration: its front, its updates one unit at
+a time, the env step and each wait on the card. After every evaluation (and at BC's
 early exit) rank 0 writes iltpu's six metric plots (`utils.plotting`, PNG
 without matplotlib). `expert_data.source=hdf5` reads D4RL's HDF5 file
 through the port's own reader (`data.hdf5`). `render=true` on a MuJoCo env
@@ -158,6 +162,7 @@ from iltpu_torch.updates import (
 )
 from iltpu_torch.utils.checkpoint import load_aux, load_checkpoint, save_checkpoint
 from iltpu_torch.utils.plotting import lineplot
+from iltpu_torch.utils.spans import Recorder
 
 TRAINABLE_DISCRIMINATORS = ("DRIL", "GAIL", "RED")
 
@@ -238,7 +243,9 @@ class ProfilerWindow:
     it opens at the top of the first iteration at or past `start_step`,
     closes at the top of the first one at or past `start_step + steps` or
     at the loop's end, once a run, and writes a Chrome trace into
-    `trace_dir` (`path`). CPU activities, and CUDA ones on the card."""
+    `trace_dir` (`path`). CPU activities, and CUDA ones on the card. While
+    it is open, the span recorder `spans` (set by the host loop) enters each
+    span as a `record_function` too."""
 
     def __init__(self, prof: Optional[Dict], device: torch.device, prefix: str = ""):
         prof = prof or {}
@@ -246,7 +253,7 @@ class ProfilerWindow:
         self.start_step = int(prof.get("start_step", 2000))
         self.stop_step = self.start_step + int(prof.get("steps", 200))
         self.device, self.prefix = device, prefix
-        self.prof = self.path = None
+        self.prof = self.path = self.spans = None
 
     def at(self, step: int):
         """The top of the iteration that starts at env step `step`."""
@@ -256,6 +263,8 @@ class ProfilerWindow:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.start()
+            if self.spans is not None:
+                self.spans.profiling = True
         if self.prof is not None and step >= self.stop_step:
             self.close()
 
@@ -263,6 +272,8 @@ class ProfilerWindow:
         """Stop the window, if open, and write its trace."""
         if self.prof is None:
             return
+        if self.spans is not None:
+            self.spans.profiling = False
         self.prof.stop()
         os.makedirs(self.dir, exist_ok=True)
         self.path = os.path.join(self.dir, f"{self.prefix}host_loop.{os.getpid()}."
@@ -287,6 +298,7 @@ class Trainer:
         self.writer = self.mesh is None or self.mesh.rank == 0  # only rank 0 writes
         self.out_dir = out_dir
         self.prefix = file_prefix
+        self.spans: Optional[Recorder] = None  # the host loop's span recorder, off
         if self.writer:
             os.makedirs(out_dir, exist_ok=True)
         self.gen = torch.Generator(device=dev).manual_seed(cfg.seed)
@@ -529,9 +541,18 @@ class Trainer:
         """The iteration's n_updates in units, in order; the last one's aux."""
         aux = {}
         u = self.unit(n_updates)
+        sp = self.spans
+        if sp is not None:
+            sp.begin("updates", n_updates)
         for c in range(0, n_updates, u):
+            if sp is not None:
+                sp.begin("update", u)
             aux = self.update_unit(step, *({k: v[c:c + u] for k, v in d.items()}
                                            for d in (batches, expert_batches, draws)))
+            if sp is not None:
+                sp.end()
+        if sp is not None:
+            sp.end()
         return aux
 
     @torch.no_grad()
@@ -653,8 +674,14 @@ class Trainer:
     def front_of(self, step, acted, n_updates: int):
         """`front` on what `act_env` returned."""
         obs, actions, out = acted
-        return self.front(step, obs, actions, out["reward"], out["next_obs"], out["terminal"],
-                          out["timeout"], n_updates)
+        sp = self.spans
+        if sp is not None:
+            sp.begin("front", n_updates * self.cfg.training.batch_size)
+        front = self.front(step, obs, actions, out["reward"], out["next_obs"], out["terminal"],
+                           out["timeout"], n_updates)
+        if sp is not None:
+            sp.end()
+        return front
 
     @torch.no_grad()
     def act_and_step(self, env_state: Dict, step, n_updates: int):
@@ -1034,6 +1061,11 @@ class Trainer:
         acted = pending = None
         self.profiler = window = ProfilerWindow(
             cfg.get("profiling") if self.writer else None, self.device, self.prefix)
+        if self.spans is None and window.dir:  # the window's trace shows the spans
+            self.spans = Recorder(keep=False)
+        sp = window.spans = reads.spans = self.spans
+        if self.host_env:
+            self.env.spans = sp
         if host_act:
             with self._work(*ACTOR, write=False):
                 host_actor = HostActor(self.actor, self.sac["a"])
@@ -1046,6 +1078,8 @@ class Trainer:
             new_step = step + N
             n_updates = self._updates_owed(new_step) - updates_done
             updates_done += n_updates
+            if sp is not None:
+                sp.top(step, n_updates)
             if host_act:
                 acted = self.act_env(env_state, actions if self.host_env else reads.to_device(actions))
                 pending = self._reads(reads, acted[2], env_state)
@@ -1061,6 +1095,8 @@ class Trainer:
                     pending = self._reads(reads, acted[2])
                 front = self.front_of(step, acted, n_updates)
                 mine, fetched = pending, None
+                if sp is not None:  # the env step below produces the next iteration's
+                    sp.acting = new_step
                 if new_step < cfg.steps:  # the next act, from the params before these updates
                     if self.host_env:  # its host step runs once the updates are issued
                         fetched = self.env.fetch(self.sample_actions(env_state))
@@ -1104,6 +1140,8 @@ class Trainer:
                 self._record_eval(step)
             if cfg.checkpointing.interval > 0 and step % cfg.checkpointing.interval < N:
                 self._checkpoint(step, updates_done)
+            if sp is not None:
+                sp.end()
 
         window.close()
         if steady_t0 is not None:

@@ -395,8 +395,9 @@ def test_profiler_window_steps_equal_iltpus(tmp_path, monkeypatch, N):
 
 @pytest.mark.parametrize("mode", ["plain", "training.pipeline=true", "training.host_acting=true"])
 def test_profiler_window_writes_a_trace_and_leaves_metrics(tmp_path, mode):
-    """On the CPU the window writes a Chrome trace that parses; the run's
-    metrics.pkl and agent equal those of the same run without one."""
+    """On the CPU the window writes a Chrome trace that parses, with the
+    host loop's spans in it beside the operators; the run's metrics.pkl and
+    agent equal those of the same run without one."""
     args = TINY + ["platform=cpu", "evaluation.interval=100", "logging.interval=40"]
     args += [] if mode == "plain" else [mode]
     runs = {}
@@ -414,6 +415,8 @@ def test_profiler_window_writes_a_trace_and_leaves_metrics(tmp_path, mode):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"iteration", "front", "updates", "update"} <= spans, spans
 
 
 def test_device_loop_has_no_window(tmp_path):
