@@ -242,63 +242,111 @@ def check_hyper(h: GAILHyper, mix: Optional[torch.Tensor]) -> None:
         raise ValueError("mix must be given exactly for the Mixup loss")
 
 
+def batch_shapes(B: int, S: int, A: int, mixup: bool) -> List[tuple]:
+    return [(B, S), (B, A), (B,), (B, S), (B, A), (B,), (B,)] + ([(B,)] if mixup else [])
+
+
+TABLE = operands.Table()  # the kernel's launch table, bound to the last state it launched on
+POINTERS = 27  # the C entry's: 17 of the state, 7 of the batch and draw, mix, loss, rewards
+
+
+def _tail(e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix) -> List[torch.Tensor]:
+    """The step's own operands: the batches, the draw and the Mixup draw."""
+    return [e_s, e_a, e_w, p_s, p_a, p_w, eps_gp] + ([mix] if mix is not None else [])
+
+
+def _bind_state(table: operands.Table, st: Dict, state, tail, shapes, S: int, A: int) -> None:
+    """Check every operand as an unbound call would (`shapes` the tail's),
+    then pack the state's pointers into `table`; counted in
+    `gail_update.binds`."""
+    D, Hd = st["p"][0].shape
+    if D != S + A:
+        raise ValueError(f"discriminator input {D} != state {S} + action {A}")
+    operands.check("gail_update", state + tail, state_shapes(D, Hd, bool(st["sn"])) + shapes)
+    table.bind(state, state_pointers(st), (S, A), POINTERS)
+    gail_update.binds += 1
+
+
+def pack(table: operands.Table, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix, outs):
+    """The C entries' pointer array for these operands and outputs (loss,
+    rewards), in `table`: the state's part checked and packed only when the
+    state's leaves are not those `table` last bound, the rest written on
+    every call. Raises the ValueError of an unbound call for an operand
+    that does not fit. `gail_update` does the same on its own `TABLE`,
+    placing the operands first."""
+    state, tail = state_tensors(st), _tail(e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix)
+    B, S = p_s.shape
+    A = p_a.shape[1]
+    shapes = batch_shapes(B, S, A, mix is not None)
+    if not table.holds(state, (S, A), tail, shapes):
+        _bind_state(table, st, state, tail, shapes, S, A)
+    return table.fill(tail[:7] + [mix, *outs])
+
+
 def gail_update(
     h: GAILHyper, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One discriminator step + reward head in place: the kernel on CUDA
     tensors, the plain version on CPU tensors. `mix` is the Mixup draw
     (Beta(alpha, alpha), (B,)) and must be given exactly when the loss is
-    Mixup. Returns (loss (1,), rewards (B,))."""
+    Mixup. Returns (loss (1,), rewards (B,)).
+
+    On the card the state's operands are checked and their pointers packed
+    once (`TABLE`, `gail_update.binds`): a later call on the same leaves
+    checks and packs only the batches and draws."""
     check_hyper(h, mix)
-    batch = [e_s, e_a, e_w, p_s, p_a, p_w, eps_gp] + ([mix] if mix is not None else [])
-    ops = state_tensors(st) + batch
-    if operands.placement("gail_update", ops) == "cpu":
-        return gail_update_plain(h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix)
+    state, tail = state_tensors(st), _tail(e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix)
     B, S = p_s.shape
     A = p_a.shape[1]
+    shapes = batch_shapes(B, S, A, mix is not None)
+    if not TABLE.holds(state, (S, A), tail, shapes):
+        if operands.placement("gail_update", state + tail) == "cpu":
+            return gail_update_plain(h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix)
+        _bind_state(TABLE, st, state, tail, shapes, S, A)
     D, Hd = st["p"][0].shape
-    if D != S + A:
-        raise ValueError(f"discriminator input {D} != state {S} + action {A}")
-    operands.check("gail_update", ops, state_shapes(D, Hd, bool(st["sn"])) + [
-        (B, S), (B, A), (B,), (B, S), (B, A), (B,), (B,)] + ([(B,)] if mix is not None else []))
     smem_bytes(B, D, Hd)
-    out = launch(_bind(build.load("gail_update")), h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp,
-                 mix, torch.cuda.current_stream(p_s.device).cuda_stream)
+    dev = TABLE.device
+    loss, rewards = torch.empty(1, device=dev), torch.empty(B, device=dev)
+    args = _args(h, TABLE.fill(tail[:7] + [mix, loss, rewards]), B, S, A, Hd,
+                 bool(st["sn"]), mix is None)
+    launch(_bind(build.load("gail_update")), args, (B, D, Hd), operands.stream(dev))
     gail_update.launches += 1
-    return out
+    return loss, rewards
+
+
+def _args(h: GAILHyper, ptrs, B: int, S: int, A: int, Hd: int, sn: bool, bce: bool):
+    """The C entries' arguments before the stream: the pointer array, the
+    shape, the options."""
+    return (ptrs, B, S, A, Hd, int(sn), int(bce), REWARD_FUNCTIONS.index(h.reward_function),
+            h.grad_penalty, h.lr, h.weight_decay, h.entropy_bonus)
 
 
 def c_args(h: GAILHyper, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix):
     """The C entries' arguments before the stream (the pointer array, the
     shape, the options), with the outputs they write: (args, loss (1,),
-    rewards (B,)), the outputs from torch.empty."""
+    rewards (B,)), the outputs from torch.empty, the array packed afresh."""
     B, S = p_s.shape
     A = p_a.shape[1]
     Hd = st["p"][0].shape[1]
     dev = p_s.device
     loss = torch.empty(1, device=dev)
     rewards = torch.empty(B, device=dev)
-    ptrs = state_pointers(st) + [t.data_ptr() for t in (e_s, e_a, e_w, p_s, p_a, p_w, eps_gp)]
-    ptrs += [0 if mix is None else mix.data_ptr(), loss.data_ptr(), rewards.data_ptr()]
-    args = ((ctypes.c_void_p * len(ptrs))(*ptrs), B, S, A, Hd, int(bool(st["sn"])),
-            int(mix is None), REWARD_FUNCTIONS.index(h.reward_function),
-            h.grad_penalty, h.lr, h.weight_decay, h.entropy_bonus)
-    return args, loss, rewards
+    ptrs = pack(operands.Table(), st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix, (loss, rewards))
+    return _args(h, ptrs, B, S, A, Hd, bool(st["sn"]), mix is None), loss, rewards
 
 
-def launch(lib, h: GAILHyper, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix, stream: int):
-    """Pack the operands and call the library's C entry on `stream`;
+def launch(lib, args, shape, stream: int) -> None:
+    """Call the library's C entry with `args` (`_args`) on `stream`;
     raises if the launch failed. The step needs no scratch (its working set
     is in shared memory)."""
-    args, loss, rewards = c_args(h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix)
     rc = lib.iltpu_gail_update(*args, stream)
     if rc == ERR_CLUSTER:
-        B, D, Hd = p_s.shape[0], st["p"][0].shape[0], st["p"][0].shape[1]
+        B, D, Hd = shape
         raise RuntimeError(f"gail_update: the card cannot hold a cluster of {blocks(B, D, Hd)} "
                            f"blocks with {smem_bytes(B, D, Hd)} bytes of shared memory each")
     if rc != 0:
         raise RuntimeError(f"gail_update kernel launch failed with CUDA error {rc}")
-    return loss, rewards
 
 
 gail_update.launches = 0
+gail_update.binds = 0

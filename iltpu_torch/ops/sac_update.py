@@ -239,8 +239,13 @@ def state_tensors(st: Dict) -> List[torch.Tensor]:
     return ops + [st[k] for k in SCALAR_KEYS]
 
 
+def _tail(batch, eps2, eps_new) -> List[torch.Tensor]:
+    """The update's own operands: the batch, then the noise."""
+    return [batch[k] for k in BATCH_KEYS] + [eps2, eps_new]
+
+
 def _operands(st, batch, eps2, eps_new) -> List[torch.Tensor]:
-    return state_tensors(st) + [batch[k] for k in BATCH_KEYS] + [eps2, eps_new]
+    return state_tensors(st) + _tail(batch, eps2, eps_new)
 
 
 def state_shapes(S: int, A: int, H: int) -> List[tuple]:
@@ -250,24 +255,60 @@ def state_shapes(S: int, A: int, H: int) -> List[tuple]:
     return actor * 3 + critic * 4 + [(1,)] * 6
 
 
-def expected_shapes(S: int, A: int, H: int, B: int) -> List[tuple]:
-    return state_shapes(S, A, H) + [(B, S), (B, A), (B,), (B, S), (B,), (B,), (B,), (B, A), (B, A)]
+def batch_shapes(S: int, A: int, B: int) -> List[tuple]:
+    return [(B, S), (B, A), (B,), (B, S), (B,), (B,), (B,), (B, A), (B, A)]
+
+
+TABLE = operands.Table()  # the kernel's launch table, bound to the last state it launched on
+OUTPUTS = 3  # log_probs, min Q, alpha: the table's last pointers
+
+
+def _bind_state(table: operands.Table, state, tail, shapes, S: int, A: int, H: int) -> None:
+    """Check every operand as an unbound call would (`shapes` the tail's),
+    then pack the state's pointers into `table`; counted in
+    `sac_update.binds`."""
+    operands.check("sac_update", state + tail, state_shapes(S, A, H) + shapes)
+    table.bind(state, [t.data_ptr() for t in state], (S, A), len(state) + len(tail) + OUTPUTS)
+    sac_update.binds += 1
+
+
+def pack(table: operands.Table, st: Dict, batch: Dict[str, torch.Tensor], eps2, eps_new,
+         outs: List[torch.Tensor]):
+    """The C entry's pointer array for these operands and outputs, in
+    `table`: the state's part checked and packed only when the state's
+    leaves are not those `table` last bound, the rest written on every
+    call. Raises operands.check's ValueError for an operand that does not
+    fit. `sac_update` does the same on its own `TABLE`, placing the
+    operands on first."""
+    state, tail = state_tensors(st), _tail(batch, eps2, eps_new)
+    B, S = tail[0].shape
+    A = eps2.shape[1]
+    shapes = batch_shapes(S, A, B)
+    if not table.holds(state, (S, A), tail, shapes):
+        _bind_state(table, state, tail, shapes, S, A, st["a"][0].shape[1])
+    return table.fill(tail + outs)
 
 
 def sac_update(
     h: SACHyper, st: Dict, batch: Dict[str, torch.Tensor], eps2, eps_new
 ) -> Dict[str, torch.Tensor]:
     """One SAC update in place: the kernel on CUDA tensors, the plain
-    version on CPU tensors. Returns (log_probs, Q_values, alpha)."""
-    ops = _operands(st, batch, eps2, eps_new)
-    if operands.placement("sac_update", ops) == "cpu":
-        return sac_update_plain(h, st, batch, eps2, eps_new)
-    B, S = batch["states"].shape
+    version on CPU tensors. Returns (log_probs, Q_values, alpha).
+
+    On the card the state's operands are checked and their pointers packed
+    once (`TABLE`, `sac_update.binds`): a later call on the same leaves
+    checks and packs only the batch and the noise."""
+    state, tail = state_tensors(st), _tail(batch, eps2, eps_new)
+    B, S = tail[0].shape
     A = eps2.shape[1]
     H = st["a"][0].shape[1]
-    operands.check("sac_update", ops, expected_shapes(S, A, H, B))
-    aux = launch(_bind(build.load("sac_update")), h, st, batch, eps2, eps_new,
-                 torch.cuda.current_stream(ops[0].device).cuda_stream)
+    shapes = batch_shapes(S, A, B)
+    if not TABLE.holds(state, (S, A), tail, shapes):
+        if operands.placement("sac_update", state + tail) == "cpu":
+            return sac_update_plain(h, st, batch, eps2, eps_new)
+        _bind_state(TABLE, state, tail, shapes, S, A, H)
+    aux = launch(_bind(build.load("sac_update")), h, TABLE, tail, (B, S, A, H),
+                 operands.stream(TABLE.device))
     sac_update.launches += 1
     return aux
 
@@ -287,30 +328,25 @@ def _error(lib, rc: int) -> str:
     return f"CUDA error {rc} ({lib.iltpu_sac_error(rc).decode()})"
 
 
-def launch(lib, h: SACHyper, st: Dict, batch: Dict[str, torch.Tensor], eps2, eps_new, stream: int):
-    """Pack the operands and call the library's C entry on `stream`: one
-    cooperative launch; raises if it failed or was refused. Outputs and
-    scratch come from torch.empty."""
-    ops = _operands(st, batch, eps2, eps_new)
-    B, S = batch["states"].shape
-    A = eps2.shape[1]
-    H = st["a"][0].shape[1]
-    dev = ops[0].device
-    lp = torch.empty(B, device=dev)
-    min_q = torch.empty(B, device=dev)
-    alpha = torch.empty(1, device=dev)
+def launch(lib, h: SACHyper, table: operands.Table, tail: List[torch.Tensor], shape, stream: int):
+    """Call the library's C entry on `stream` with `table`, bound to the
+    state, and the update's own operands `tail`: one cooperative launch;
+    raises if it failed or was refused. Outputs and scratch come from
+    torch.empty."""
+    B, S, A, H = shape
+    dev = table.device
+    outs = [torch.empty(B, device=dev), torch.empty(B, device=dev), torch.empty(1, device=dev)]
     scratch = torch.empty(lib.iltpu_sac_scratch_floats(B, S, A, H), device=dev)
-    ptrs = (ctypes.c_void_p * (len(ops) + 3))(
-        *[t.data_ptr() for t in ops], lp.data_ptr(), min_q.data_ptr(), alpha.data_ptr()
-    )
     rc = lib.iltpu_sac_update(
-        ptrs, B, S, A, H,
+        table.fill(tail + outs), B, S, A, H,
         h.lr, h.weight_decay, h.alpha_lr, h.discount, h.entropy_target, h.polyak,
         1.0 - h.polyak, h.min_alpha, scratch.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(f"sac_update kernel launch failed: {_error(lib, rc)}")
+    lp, min_q, alpha = outs
     return {"log_probs": lp, "Q_values": min_q, "alpha": alpha[0]}
 
 
 sac_update.launches = 0
+sac_update.binds = 0

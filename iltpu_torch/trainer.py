@@ -114,7 +114,7 @@ import contextlib
 import os
 import pickle
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -170,6 +170,20 @@ TRAINABLE_DISCRIMINATORS = ("DRIL", "GAIL", "RED")
 ACTOR = ("sac.a[",)
 UPDATE = ("sac.", "disc.p[", "disc.target[")
 POOLS = ("disc.expert_weights[",)
+
+
+VIEW_CHUNK = 64  # updates whose views one unbind a key takes (`per_update`)
+
+
+def per_update(d: Dict[str, torch.Tensor]) -> Iterator[Dict[str, torch.Tensor]]:
+    """The dicts of `d`'s views along its leading axis, one an update, in
+    order: each key's views from one `unbind` a chunk of VIEW_CHUNK updates,
+    equal to `v[c]` in shape, strides and storage. Taken chunk by chunk as
+    they are asked for, so the card never waits for a whole iteration's."""
+    keys, vals = list(d), list(d.values())
+    for c in range(0, vals[0].shape[0], VIEW_CHUNK):
+        yield from (dict(zip(keys, row))
+                    for row in zip(*(v[c:c + VIEW_CHUNK].unbind(0) for v in vals)))
 
 
 def resolve_device(platform: Optional[str], rank: Optional[int] = None) -> torch.device:
@@ -537,18 +551,28 @@ class Trainer:
                         "Q_values": out["Q_values"]}
             return self.update(step, *({k: v[0] for k, v in d.items()} for d in (tb, eb, nz)))
 
+    @torch.no_grad()
     def run_updates(self, step, batches, expert_batches, draws, n_updates: int):
-        """The iteration's n_updates in units, in order; the last one's aux."""
+        """The iteration's n_updates in units, in order; the last one's aux.
+        A unit of one update calls `self.update` on that update's (B, ...)
+        views (`per_update`), through the instance: an instance-level
+        override sees every update."""
         aux = {}
         u = self.unit(n_updates)
         sp = self.spans
         if sp is not None:
             sp.begin("updates", n_updates)
+        views = zip(*(per_update(d) for d in (batches, expert_batches, draws))) if u == 1 else None
         for c in range(0, n_updates, u):
             if sp is not None:
                 sp.begin("update", u)
-            aux = self.update_unit(step, *({k: v[c:c + u] for k, v in d.items()}
-                                           for d in (batches, expert_batches, draws)))
+            if u == 1:
+                tb, eb, nz = next(views)
+                with self._work(*UPDATE):
+                    aux = self.update(step, tb, eb, nz)
+            else:
+                aux = self.update_unit(step, *({k: v[c:c + u] for k, v in d.items()}
+                                               for d in (batches, expert_batches, draws)))
             if sp is not None:
                 sp.end()
         if sp is not None:

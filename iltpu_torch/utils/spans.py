@@ -20,7 +20,7 @@ belongs to. The spans, with their attribute:
 | `iteration` | `Trainer._host_loop`, top to top | the iteration's update count |
 | `front` | `Trainer.front_of`: ring append, draws, one bulk sample | policy rows sampled |
 | `updates` | `Trainer.run_updates`, all of an iteration's units | the iteration's update count |
-| `update` | one `update_unit` in `run_updates`' loop, slicing included | updates in the unit (1, or K when K-blocked) |
+| `update` | one unit of `run_updates`' loop: the update's views (`per_update`) and `update`, or one K-blocked `update_unit` with its slicing | updates in the unit (1, or K when K-blocked) |
 | `env_step` | `HostEnv.step`, whole | envs |
 | `wait` | the host blocking on the card: `HostReads.wait`, the actions' event in `HostEnv.step`, a pinned block's event in `HostEnv._block` | `WAIT_READS`, `WAIT_ACTIONS`, `WAIT_BLOCK` |
 

@@ -1,7 +1,8 @@
 """The port's tests that need a CUDA card (marked `cuda`; each skips without
 one): PWIL's transport kernel and the GAIL step's wide variant against
 their plain versions, the K-blocked kernel with the wide GAIL step against
-per-update calls bit for bit, SAC's later chunks on ant's rows against a
+per-update calls bit for bit, the wrappers' bound launch tables against
+fresh ones bit for bit, SAC's later chunks on ant's rows against a
 float64 run, and a chunk of the on-device loop replayed
 from CUDA graphs against the same chunk run eagerly. This file imports neither JAX nor iltpu, so it also runs where
 JAX is absent:
@@ -141,6 +142,48 @@ def test_kblock_wide_gail_equals_per_update_calls(cuda, loss):
     want = cs.per_update_calls(sh, gh, r_sac, r_disc, batches, expert, noise)
     for (name, a), (_, b) in zip([*cs.leaves(k_sac), *cs.leaves(k_disc), *got.items()],
                                  [*cs.leaves(r_sac), *cs.leaves(r_disc), *want.items()]):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["BCE", "Mixup"])
+def test_bound_tables_give_the_bits_of_fresh_binds(cuda, loss, monkeypatch):
+    """Eight GAIL -> SAC per-update calls at hopper's widths on one pair of
+    states bind each wrapper's launch table once; the same calls on a copy,
+    with fresh tables before every call (each call then checks and packs
+    every operand), give the same bits. A leaf swapped for a copy binds
+    again, and the launch reads the new leaf."""
+    import chip_smoke as cs
+    from iltpu_torch.ops import operands
+    from iltpu_torch.ops import sac_update as su
+
+    sh, gh, sac_st, disc_st, batches, expert, noise = cs.kblock_case(12, 3, 8, loss == "BCE", 0.0,
+                                                                      cuda)
+    a_sac, a_disc, b_sac, b_disc = (cs.clone(x) for x in (sac_st, disc_st, sac_st, disc_st))
+    binds = su.sac_update.binds, gu.gail_update.binds
+    got = cs.per_update_calls(sh, gh, a_sac, a_disc, batches, expert, noise)
+    assert (su.sac_update.binds, gu.gail_update.binds) == (binds[0] + 1, binds[1] + 1)
+    bound = su.TABLE, gu.TABLE
+    for k in range(8):
+        monkeypatch.setattr(su, "TABLE", operands.Table())
+        monkeypatch.setattr(gu, "TABLE", operands.Table())
+        want = cs.per_update_calls(sh, gh, b_sac, b_disc, *(
+            {key: v[k:k + 1] for key, v in d.items()} for d in (batches, expert, noise)))
+    for (name, a), (_, b) in zip([*cs.leaves(a_sac), *cs.leaves(a_disc), *got.items()],
+                                 [*cs.leaves(b_sac), *cs.leaves(b_disc), *want.items()]):
+        assert torch.equal(a, b), name
+    monkeypatch.setattr(su, "TABLE", bound[0])
+    monkeypatch.setattr(gu, "TABLE", bound[1])
+    a_sac["c"][2], a_disc["p"][0] = a_sac["c"][2].clone(), a_disc["p"][0].clone()
+    binds = su.sac_update.binds, gu.gail_update.binds
+    last = lambda d: {key: v[7:] for key, v in d.items()}
+    got = cs.per_update_calls(sh, gh, a_sac, a_disc, last(batches), last(expert), last(noise))
+    assert (su.sac_update.binds, gu.gail_update.binds) == (binds[0] + 1, binds[1] + 1)
+    monkeypatch.setattr(su, "TABLE", operands.Table())
+    monkeypatch.setattr(gu, "TABLE", operands.Table())
+    want = cs.per_update_calls(sh, gh, b_sac, b_disc, last(batches), last(expert), last(noise))
+    for (name, a), (_, b) in zip([*cs.leaves(a_sac), *cs.leaves(a_disc), *got.items()],
+                                 [*cs.leaves(b_sac), *cs.leaves(b_disc), *want.items()]):
         assert torch.equal(a, b), name
 
 

@@ -20,7 +20,10 @@ from iltpu.ops.pallas_gail import gail_update_pallas
 from iltpu.rewards.gail import GAILDiscriminator
 from iltpu.updates.adversarial import AdversarialConfig, adversarial_imitation_update
 from iltpu_torch import convert
+from iltpu_torch.ops import gail_update as gu
+from iltpu_torch.ops import operands
 from iltpu_torch.ops.gail_update import GAILHyper, gail_update
+from iltpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from test_torch_convert import assert_trees_close, jax_disc_tree, port_disc_state
 
 torch.set_num_threads(1)
@@ -188,3 +191,110 @@ def test_wrapper_refuses_mixed_devices_and_a_wrong_mix():
     args[3] = args[3].to("meta")
     with pytest.raises(ValueError, match="one device"):
         gail_update(bce, st, *args)
+
+
+# ------------------------------------------------ the bound launch table
+
+
+def _bound_operands(spectral_norm=True, mixup=False):
+    """A port discriminator state, the step's operands (Mixup draw last,
+    or None) and its two outputs, on the CPU."""
+    disc = GAILDiscriminator(S, A, hidden_size=16, depth=1, spectral_norm=spectral_norm)
+    params = disc.init(jax.random.key(0))
+    opt = optax.flatten(optax.adamw(LR, weight_decay=WD)).init(params)
+    td, st = port_disc_state(disc, params, opt)
+    b = {k: torch.from_numpy(v) for k, v in _batch(8).items()}
+    e = {k: torch.from_numpy(v) for k, v in _batch(9).items()}
+    args = [e["states"], e["actions"], e["weights"], b["states"], b["actions"], b["weights"],
+            torch.rand(B), torch.rand(B) if mixup else None]
+    return td, st, args, [torch.empty(1), torch.empty(B)]
+
+
+def _launch_pointers(st, args, outs):
+    """The array the C entry took before the table: the 17 state pointers
+    (nulls without spectral norm), the batches' and draws', the Mixup
+    draw's (null for BCE), the outputs'."""
+    mix = args[7]
+    return (gu.state_pointers(st) + [t.data_ptr() for t in args[:7]]
+            + [0 if mix is None else mix.data_ptr()] + [t.data_ptr() for t in outs])
+
+
+def _as_ints(table):
+    return [p or 0 for p in table]  # ctypes reads a null c_void_p as None
+
+
+@pytest.mark.parametrize("spectral_norm,mixup", [(True, False), (False, True)])
+def test_pack_binds_the_state_once_and_fills_the_rest_on_each_call(spectral_norm, mixup):
+    """The packed table is the pointer array the C entry took afresh on
+    every call, nulls included; a second call on the same leaves with new
+    batches rewrites only the tail, and binds nothing."""
+    _, st, args, outs = _bound_operands(spectral_norm, mixup)
+    table, before = operands.Table(), gail_update.binds
+    got = gu.pack(table, st, *args, outs)
+    assert gail_update.binds == before + 1
+    assert _as_ints(got) == _launch_pointers(st, args, outs)
+    args2 = [None if t is None else t.clone() for t in args]
+    outs2 = [t.clone() for t in outs]
+    again = gu.pack(table, st, *args2, outs2)
+    assert gail_update.binds == before + 1 and again is got
+    assert _as_ints(again) == _launch_pointers(st, args2, outs2)
+
+
+def test_pack_binds_again_for_a_swapped_leaf_and_a_loaded_checkpoint(tmp_path):
+    """A leaf swapped for another tensor, or a checkpoint loaded into a
+    state of new tensors, changes the key and binds again; a checkpoint
+    copied into the bound tensors binds nothing."""
+    td, st, args, outs = _bound_operands()
+    table = operands.Table()
+    gu.pack(table, st, *args, outs)
+    before = gail_update.binds
+    st["sn"][1] = st["sn"][1].clone()
+    assert _as_ints(gu.pack(table, st, *args, outs)) == _launch_pointers(st, args, outs)
+    assert gail_update.binds == before + 1
+    save_checkpoint(str(tmp_path), convert.disc_tree(st))
+    tree, _ = load_checkpoint(str(tmp_path), like=convert.disc_tree(st))
+    convert.load_disc_tree_(st, tree)  # in place
+    gu.pack(table, st, *args, outs)
+    assert gail_update.binds == before + 1
+    loaded = td.init(torch.Generator().manual_seed(1))
+    convert.load_disc_tree_(loaded, tree)
+    assert _as_ints(gu.pack(table, loaded, *args, outs)) == _launch_pointers(loaded, args, outs)
+    assert gail_update.binds == before + 2
+
+
+BAD_OPERANDS = {
+    "shape": lambda t: t[:-1],
+    "dtype": lambda t: t.double(),
+    "contiguity": lambda t: torch.stack([t, t], -1)[..., 0],
+}
+
+
+@pytest.mark.parametrize("fault", sorted(BAD_OPERANDS))
+@pytest.mark.parametrize("operand", [1, 6])  # the expert actions, the penalty's draw
+def test_pack_refuses_a_bad_batch_operand_as_the_unbound_check_does(fault, operand):
+    """On a bound table a wrong-shaped, wrong-dtype or non-contiguous batch
+    operand or draw raises the unbound call's ValueError, word for word."""
+    _, st, args, outs = _bound_operands()
+    table = operands.Table()
+    gu.pack(table, st, *args, outs)
+    args[operand] = BAD_OPERANDS[fault](args[operand])
+    with pytest.raises(ValueError) as want:
+        gu.pack(operands.Table(), st, *args, outs)
+    with pytest.raises(ValueError) as got:
+        gu.pack(table, st, *args, outs)
+    assert str(got.value) == str(want.value) and "operand" in str(got.value)
+
+
+@pytest.mark.parametrize("mixup", [False, True])
+def test_wrapper_on_cpu_runs_the_plain_version_and_binds_nothing(mixup):
+    """CPU operands take the plain version with its bits, no launch and no
+    bind, and leave the wrapper's table as it was."""
+    _, st, args, _ = _bound_operands(mixup=mixup)
+    h = GAILHyper(GP, LR, WD, "AIRL", "Mixup" if mixup else "BCE", 0.0)
+    plain = {k: [t.clone() for t in v] if isinstance(v, list) else v.clone() for k, v in st.items()}
+    launches, binds, key = gail_update.launches, gail_update.binds, gu.TABLE.key
+    loss, rewards = gail_update(h, st, *args)
+    want_loss, want_rewards = gu.gail_update_plain(h, plain, *args)
+    assert (gail_update.launches, gail_update.binds, gu.TABLE.key) == (launches, binds, key)
+    assert torch.equal(loss, want_loss) and torch.equal(rewards, want_rewards)
+    assert all(torch.equal(a, b) for a, b in zip(gu.state_tensors(st), gu.state_tensors(plain)))

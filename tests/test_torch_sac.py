@@ -15,7 +15,10 @@ from iltpu.models.critic import TwinCritic
 from iltpu.ops.pallas_sac import sac_update_pallas
 from iltpu.updates.sac import SACLearner
 from iltpu_torch import convert
+from iltpu_torch.ops import operands
+from iltpu_torch.ops import sac_update as su
 from iltpu_torch.ops.sac_update import sac_update
+from iltpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from test_torch_convert import assert_trees_close, jax_sac_tree, port_sac_state
 
 torch.set_num_threads(1)
@@ -116,3 +119,105 @@ def test_wrapper_takes_plain_only_on_cpu_and_refuses_mixed_devices():
     tb["rewards"] = tb["rewards"].to("meta")
     with pytest.raises(ValueError, match="one device"):
         sac_update(tl.hyper, st, tb, eps2, eps_new)
+
+
+# ------------------------------------------------ the bound launch table
+
+
+def _bound_operands():
+    """A port state, a batch, its noise and the three outputs, on the CPU."""
+    learner = _learner()
+    tl, st = port_sac_state(learner, learner.init(jax.random.key(0)))
+    tb = {k: torch.from_numpy(v) for k, v in _batch(6).items()}
+    eps2, eps_new = _noise(jax.random.key(7))
+    return tl, st, tb, eps2, eps_new, [torch.empty(B), torch.empty(B), torch.empty(1)]
+
+
+def _launch_pointers(st, tb, eps2, eps_new, outs):
+    """The array `launch` packed on every call before the table: every
+    operand's pointer in order, then the outputs'."""
+    return [t.data_ptr() for t in su._operands(st, tb, eps2, eps_new) + outs]
+
+
+def test_pack_binds_the_state_once_and_fills_the_rest_on_each_call():
+    """The packed table is the pointer array `launch` built afresh on
+    every call; a second call on the same leaves with a new batch rewrites
+    only the batch's, the noise's and the outputs' pointers, and binds
+    nothing."""
+    _, st, tb, eps2, eps_new, outs = _bound_operands()
+    table, before = operands.Table(), sac_update.binds
+    got = su.pack(table, st, tb, eps2, eps_new, outs)
+    assert sac_update.binds == before + 1
+    assert list(got) == _launch_pointers(st, tb, eps2, eps_new, outs)
+    tb2 = {k: v.clone() for k, v in tb.items()}
+    eps2b, eps_newb = eps2.clone(), eps_new.clone()
+    outs2 = [t.clone() for t in outs]
+    again = su.pack(table, st, tb2, eps2b, eps_newb, outs2)
+    assert sac_update.binds == before + 1 and again is got
+    assert list(again) == _launch_pointers(st, tb2, eps2b, eps_newb, outs2)
+
+
+def test_pack_binds_again_for_a_swapped_leaf_and_a_loaded_checkpoint(tmp_path):
+    """A leaf swapped for another tensor, or a checkpoint loaded into a
+    state of new tensors, changes the key: the table is checked and packed
+    again. A checkpoint copied into the bound tensors, as the trainer's
+    resume does, keeps them and binds nothing."""
+    tl, st, tb, eps2, eps_new, outs = _bound_operands()
+    table = operands.Table()
+    su.pack(table, st, tb, eps2, eps_new, outs)
+    before = sac_update.binds
+    st["c"][2] = st["c"][2].clone()
+    assert list(su.pack(table, st, tb, eps2, eps_new, outs)) == _launch_pointers(
+        st, tb, eps2, eps_new, outs)
+    assert sac_update.binds == before + 1
+    save_checkpoint(str(tmp_path), convert.sac_tree(st))
+    tree, _ = load_checkpoint(str(tmp_path), like=convert.sac_tree(st))
+    convert.load_sac_tree_(st, tree)  # in place
+    su.pack(table, st, tb, eps2, eps_new, outs)
+    assert sac_update.binds == before + 1
+    loaded = tl.init(torch.Generator().manual_seed(1))
+    convert.load_sac_tree_(loaded, tree)
+    assert list(su.pack(table, loaded, tb, eps2, eps_new, outs)) == _launch_pointers(
+        loaded, tb, eps2, eps_new, outs)
+    assert sac_update.binds == before + 2
+
+
+BAD_OPERANDS = {
+    "shape": lambda t: t[:, :-1],
+    "dtype": lambda t: t.double(),
+    "contiguity": lambda t: torch.stack([t, t], -1)[..., 0],
+}
+
+
+@pytest.mark.parametrize("fault", sorted(BAD_OPERANDS))
+@pytest.mark.parametrize("operand", ["actions", "eps_new"])
+def test_pack_refuses_a_bad_batch_operand_as_the_unbound_check_does(fault, operand):
+    """On a bound table a wrong-shaped, wrong-dtype or non-contiguous batch
+    operand or draw raises operands.check's ValueError, word for word."""
+    _, st, tb, eps2, eps_new, outs = _bound_operands()
+    table = operands.Table()
+    su.pack(table, st, tb, eps2, eps_new, outs)
+    if operand == "eps_new":
+        eps_new = BAD_OPERANDS[fault](eps_new)
+    else:
+        tb[operand] = BAD_OPERANDS[fault](tb[operand])
+    with pytest.raises(ValueError) as want:
+        operands.check("sac_update", su._operands(st, tb, eps2, eps_new),
+                       su.state_shapes(S, A, 32) + su.batch_shapes(S, A, B))
+    with pytest.raises(ValueError) as got:
+        su.pack(table, st, tb, eps2, eps_new, outs)
+    assert str(got.value) == str(want.value) and "operand" in str(got.value)
+
+
+def test_wrapper_on_cpu_runs_the_plain_version_and_binds_nothing():
+    """CPU operands take the plain version with its bits, no launch and no
+    bind, and leave the wrapper's table as it was."""
+    tl, st, tb, eps2, eps_new, _ = _bound_operands()
+    plain = {k: [t.clone() for t in v] if isinstance(v, list) else v.clone() for k, v in st.items()}
+    launches, binds, key = sac_update.launches, sac_update.binds, su.TABLE.key
+    got = sac_update(tl.hyper, st, tb, eps2, eps_new)
+    want = su.sac_update_plain(tl.hyper, plain, tb, eps2, eps_new)
+    assert (sac_update.launches, sac_update.binds, su.TABLE.key) == (launches, binds, key)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(su.state_tensors(st), su.state_tensors(plain)))

@@ -185,6 +185,63 @@ def test_transition_core_matches_iltpu(tmp_path, extra, block):
             np.testing.assert_allclose(taux[k].numpy(), np.asarray(v), err_msg=f"{what} aux {k}", **tol)
 
 
+def _same_view(got, want):
+    return (got.shape == want.shape and got.stride() == want.stride()
+            and got.data_ptr() == want.data_ptr() and torch.equal(got, want))
+
+
+@pytest.mark.parametrize("extra", [(), TUNEDLIKE], ids=["bce_sn", "mixup_airl"])
+def test_run_updates_hands_each_update_its_views_through_the_instance(tmp_path, extra,
+                                                                    monkeypatch):
+    """What the benchmark's harness rests on: `run_updates` calls
+    `trainer.update` through the instance, once an update and in order, so
+    an instance-level override sees every update until it deletes itself;
+    each call gets dicts of `v[c]` of the iteration's batches, expert
+    batches and draws (same values, shapes, strides and storage); and the
+    state after the iteration is bit-identical to per-update `v[c]` calls
+    of the class's `update` on a twin trainer. Chunks of 4 views, so the
+    iteration's 6 updates take two."""
+    import iltpu_torch.trainer as trainer_mod
+    from iltpu_torch.utils.spans import Recorder
+
+    monkeypatch.setattr(trainer_mod, "VIEW_CHUNK", 4)
+    args = BASE + list(extra) + ["platform=cpu"]
+    tt = Trainer(load_config(args), out_dir=str(tmp_path / "a"))
+    twin = Trainer(load_config(args), out_dir=str(tmp_path / "b"))
+    convert.load_sac_tree_(twin.sac, convert.sac_tree(tt.sac))
+    convert.load_disc_tree_(twin.disc_state, convert.disc_tree(tt.disc_state))
+    data = _step_data(jax.random.key(5), 4, tt.env.obs_size, tt.action_size)
+    t = {k: torch.from_numpy(np.array(v)) for k, v in data.items()}
+    n = 6
+    _, batches, expert_batches, draws = tt.front(
+        0, t["obs"], t["actions"], t["rewards"], t["next_obs"], t["terminals"], t["timeouts"], n)
+    seen = []
+
+    def hook(step, tb, eb, nz):
+        seen.append((tb, eb, nz))
+        if len(seen) == 3:
+            del tt.update  # as the harness does: the class's own method from here on
+        return Trainer.update(tt, step, tb, eb, nz)
+
+    tt.update = hook
+    tt.spans = Recorder()
+    tt.run_updates(0, batches, expert_batches, draws, n)
+    assert len(seen) == 3 and "update" not in vars(tt)
+    for c, got in enumerate(seen):
+        for d, want in zip(got, (batches, expert_batches, draws)):
+            assert list(d) == list(want) and type(d) is dict
+            assert all(_same_view(d[k], v[c]) for k, v in want.items()), (c, list(want))
+    assert [a for name, _, _, _, _, a in tt.spans.spans if name == "update"] == [1] * n
+    with torch.no_grad():
+        for c in range(n):
+            Trainer.update(twin, 0, *({k: v[c].clone() for k, v in d.items()}
+                                      for d in (batches, expert_batches, draws)))
+    got, want = tt.state_tensors(), twin.state_tensors()
+    for k in ("sac.", "disc."):
+        keys = [name for name in want if name.startswith(k)]
+        assert keys and all(torch.equal(got[name], want[name]) for name in keys), k
+
+
 COMMON = [a for a in BASE if not a.startswith(("algorithm", "training.sac", "training.disc",
                                                "training.fused"))]
 
