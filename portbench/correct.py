@@ -1,20 +1,28 @@
 """How `correct` is decided for a training cell.
 
 Set-up drives the trainer it hands to the window through its first updates
-(the host loop's own call and feed); the plain reference follows the first
-three from the benchmark's weights, on the batches and draws the program
-sampled for them. Compared, each against its limit:
+(the host loop's own call and feed); the plain reference follows them from
+the benchmark's weights, on the batches and draws the program sampled for
+them, micro-update by micro-update: every unit up to the third of the size
+the window runs (one update, or K on the K-blocked path), the lead before
+those three included (`harness.Run`). Compared over those three checked
+units, each against its limit:
 
-- `loss_gap`: the discriminator's loss at each of the three steps, each
-  step's gap relative to the reference's loss, the median of the three;
-- `grad_gap`: each leaf's first gradient as its optimiser got it (the
-  program's worked out from its AdamW moment after one step, m / (1 - b1)),
-  the widest gap between the program's norm and the reference's, over the
-  reference's norm of that leaf or of the median leaf, the larger;
-- `change_gap`: the same gap of each leaf's change over the three steps
-  (critic, target critic, actor, log alpha, discriminator), the median
-  leaf's, leaving out leaves whose reference gradient is under a
-  thousandth of the median leaf's (they move by round-off alone).
+- `loss_gap`: the loss the algorithm's adapter names (its reward model's,
+  or SAC's own number) as each unit returned it (its last micro-update's), its
+  gap relative to the reference's, the median of the three;
+- `grad_gap`: each leaf's first gradient as its optimiser got it, worked
+  out from its AdamW first moment after the first checked unit, m / (1 -
+  b1), against the reference's gradient where that unit is the run's
+  first update alone, else against the reference's moment after the same
+  micro-updates: the widest gap between the program's norm and the
+  reference's, over the reference's norm of that leaf or of the median
+  leaf, the larger;
+- `change_gap`: the same gap of each leaf's change over the three units
+  (critic, target critic, actor, log alpha, the adapter's trained leaves),
+  the median leaf's, leaving out leaves whose reference gradient (as
+  above) is under a thousandth of the median leaf's (they move by
+  round-off alone).
 
 and exactly (limit 0) what the reference skips by following the program's
 batches: `start_state_gap` (the state before the first update is the
@@ -25,13 +33,15 @@ trajectories of the expert file), and `ring_rows_wrong`: the ring's rows
 from the window's first iteration on, against the rows the stepper's
 outputs give with the absorbing wrap, and where its write index ended.
 
-The loss and the change are taken at the median step and leaf, not the
+The loss and the change are taken at the median unit and leaf, not the
 widest: a relu unit or a penalty row whose pre-activation lies within
 rounding of zero switches the other way in one of the two, which moves one
 step's loss or one leaf's later change by ~1e-5 (the gradient penalty and
 relu derivatives are not continuous there, and Adam carries a near-zero
 gradient's sign into a whole step of the learning rate), on some seeds
 (PERF.md gives the readings). The widest of each stays in `detail`.
+A cell's limits are `limits/<config>.<traffic>.json` where that file is,
+else `limits/<config>.json`.
 """
 
 import json
@@ -41,7 +51,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from portbench.reference import gail as ref_gail
+from portbench import algorithms
 from portbench.reference import rows as ref_rows
 from portbench.reference import sac as ref_sac
 
@@ -51,24 +61,24 @@ GRADED = ("loss_gap", "grad_gap", "change_gap")
 FLOOR = 1e-3  # leaves under this share of the median leaf's gradient move by round-off
 
 
-def limits_of(config_name: str) -> Dict[str, float]:
-    with open(os.path.join(HERE, "limits", f"{config_name}.json")) as f:
+def limits_of(config_name: str, traffic_name: str) -> Dict[str, float]:
+    path = os.path.join(HERE, "limits", f"{config_name}.{traffic_name}.json")
+    if not os.path.exists(path):
+        path = os.path.join(HERE, "limits", f"{config_name}.json")
+    with open(path) as f:
         lim = json.load(f)["limits"]
     return {**{k: 0 for k in EXACT}, **{k: lim[k] for k in GRADED}}
 
 
 def hyper_of(cfg) -> Dict:
     """The reference's hyperparameters, read from the configuration."""
-    r, t, i = cfg.reinforcement, cfg.training, cfg.imitation
+    r, t = cfg.reinforcement, cfg.training
     return {
         "sac": dict(lr=float(t.learning_rate), weight_decay=float(t.weight_decay),
                     alpha_lr=float(t.learning_rate), discount=float(r.discount),
                     target_temperature=float(r.target_temperature), polyak=float(r.polyak_factor),
                     min_alpha=float(r.get("min_alpha", 0.0) or 0.0)),
-        "gail": dict(grad_penalty=float(i.grad_penalty), lr=float(i.learning_rate),
-                     weight_decay=float(i.weight_decay),
-                     reward_function=i.discriminator.reward_function,
-                     loss_function=i.loss_function, entropy_bonus=float(i.entropy_bonus)),
+        "model": algorithms.adapter(cfg.algorithm).hyper(cfg),
     }
 
 
@@ -124,88 +134,119 @@ def norm_gap(prog: List[torch.Tensor], ref: List[torch.Tensor], keep=None) -> Di
             "leaves": gaps.tolist()}
 
 
-def reference_steps(captured: List[Dict], w: Dict, facts: Dict, device) -> Dict:
-    """The reference's three steps from the benchmark's weights on the
-    program's batches and draws: losses, first gradients, state after
-    three."""
+def _ref_leaves(model, sac: Dict, st, moment: bool = False) -> Dict:
+    """The reference's leaves by the keys the check reads: the parameters
+    (a, c, t, la and the adapter's `PARAMS`), or their first moments (a, c,
+    la and the adapter's, under the same keys)."""
+    if moment:
+        out = {"a": sac["am"], "c": sac["cm"], "la": [sac["lam"]]}
+    else:
+        out = {"a": sac["a"], "c": sac["c"], "t": sac["t"], "la": [sac["la"]]}
+    if model.PARAMS:
+        out[model.PARAMS] = st[model.MOMENT if moment else model.PARAMS]
+    return out
+
+
+def reference_steps(run, w: Dict, facts: Dict, device) -> Dict:
+    """The reference's micro-updates from the benchmark's weights on the
+    program's batches and draws, every captured unit in order: the loss of
+    each checked unit, the first gradients, the state before the first
+    checked unit and after the third."""
     h = facts["hyper"]
+    model = algorithms.adapter(facts["algorithm"])
     sh = ref_sac.SACHyper(lr=h["sac"]["lr"], weight_decay=h["sac"]["weight_decay"],
                           alpha_lr=h["sac"]["alpha_lr"], discount=h["sac"]["discount"],
                           entropy_target=h["sac"]["target_temperature"] * facts["A"],
                           polyak=h["sac"]["polyak"], min_alpha=h["sac"]["min_alpha"])
-    gh = ref_gail.GAILHyper(**h["gail"])
     sac = ref_sac.init_state(w["actor"], w["critic"])
-    disc = ref_gail.init_state(w["disc"], w["sn"])
-    losses, grads = [], None
-    for k, rec in enumerate(captured):
+    st = model.init(w)
+    losses, grads, before = [], None, None
+    for i, rec in enumerate(run.captured):
+        if i == run.lead:
+            before = {k: [x.clone() for x in v] for k, v in _ref_leaves(model, sac, st).items()}
         tb, eb, nz = rec["tb"], rec["eb"], rec["nz"]
-        g = ref_gail.gail_step(gh, disc, eb["states"], eb["actions"], eb["weights"],
-                               tb["states"], tb["actions"], tb["weights"], nz["eps_gp"],
-                               nz.get("mix"))
-        batch = dict(tb)
-        batch["rewards"] = g["rewards"]
-        s = ref_sac.sac_step(sh, sac, batch, nz["eps2"], nz["eps_new"])
-        losses.append(float(g["loss"][0]))
-        if k == 0:
-            grads = {"a": s["grads"]["a"], "c": s["grads"]["c"], "la": s["grads"]["la"],
-                     "p": g["grads"]}
-    return {"losses": losses, "grads": grads,
-            "state": {"a": sac["a"], "c": sac["c"], "t": sac["t"], "la": [sac["la"]],
-                      "p": disc["p"]}}
+        K = tb["states"].shape[0]
+        for k in range(K):
+            pick = lambda d: {key: v[k] for key, v in d.items()}
+            out = model.step(h["model"], st, pick(tb), pick(eb), pick(nz))
+            batch = pick(tb)
+            if out["rewards"] is not None:
+                batch["rewards"] = out["rewards"]
+            s = ref_sac.sac_step(sh, sac, batch, nz["eps2"][k], nz["eps_new"][k])
+        if i >= run.lead:
+            losses.append(model.ref_loss(out, s))
+        if i == run.lead == 0 and K == 1:  # the run's first update: its gradients
+            grads = {"a": s["grads"]["a"], "c": s["grads"]["c"], "la": s["grads"]["la"]}
+            if model.PARAMS:
+                grads[model.PARAMS] = out["grads"]
+        elif i == run.lead:  # else the moments after the unit, as gradients
+            grads = {k: [x / (1.0 - ref_sac.ADAM_B1) for x in v]
+                     for k, v in _ref_leaves(model, sac, st, moment=True).items()}
+    return {"losses": losses, "grads": grads, "before": before,
+            "state": _ref_leaves(model, sac, st)}
 
 
-def graded(run, w: Dict, facts: Dict, device, ref: Dict) -> Dict:
+def graded(run, facts: Dict, ref: Dict) -> Dict:
     """The three graded numbers, with each leaf's reading."""
     b1 = ref_sac.ADAM_B1
-    prog_loss = [float(r["loss"]) for r in run.captured]
+    model = algorithms.adapter(facts["algorithm"])
+    P, M = model.PARAMS, model.MOMENT
+    prog_loss = [float(r["loss"]) for r in run.captured[run.lead:]]
     step_gaps = [abs(p - r) / max(abs(r), 1e-30) for p, r in zip(prog_loss, ref["losses"])]
     a1 = run.state_after1
-    prog_grads = [x / (1.0 - b1) for x in _split({"am": a1["am"], "cm": a1["cm"],
-                                                  "lam": a1["lam"], "m": a1["m"]},
-                                                 ("am", "cm", "lam", "m"))]
-    ref_grads = _split(ref["grads"], ("a", "c", "la", "p"))
+    moments = ("am", "cm", "lam") + ((M,) if M else ())
+    prog_grads = [x / (1.0 - b1) for x in _split({k: a1[k] for k in moments}, moments)]
+    ref_grads = _split(ref["grads"], ("a", "c", "la") + ((P,) if P else ()))
     grad = norm_gap(prog_grads, ref_grads)
 
     g_norm = _norms(ref_grads)
     moves = g_norm >= FLOOR * np.median(g_norm)
     n_a, n_c = len(ref["grads"]["a"]), 2 * len(ref["grads"]["c"])
-    # change leaves: a, c (split), t (split, as its critic leaf), la, p
+    # change leaves: a, c (split), t (split, as its critic leaf), la, the adapter's
     keep = np.concatenate([moves[:n_a], moves[n_a:n_a + n_c], moves[n_a:n_a + n_c],
                            moves[n_a + n_c:]])
-    b, e = run.state_before, run.state_after3
-    keys = ("a", "c", "t", "la", "p")
+    b, e = run.state_at_check, run.state_after3
+    keys = ("a", "c", "t", "la") + ((P,) if P else ())
     prog_change = [y - x for x, y in zip(_split(b, keys), _split(e, keys))]
-    init = {"a": w["actor"], "c": w["critic"], "t": w["critic"],
-            "la": [torch.zeros(1, device=device)], "p": w["disc"]}
-    ref_change = [y - x for x, y in zip(_split(init, keys), _split(ref["state"], keys))]
+    ref_change = [y - x for x, y in zip(_split(ref["before"], keys), _split(ref["state"], keys))]
     change = norm_gap(prog_change, ref_change, keep)
     return {"loss_gap": float(np.median(step_gaps)), "grad_gap": grad["widest"],
             "change_gap": change["median"],
             "detail": {"losses": prog_loss, "ref_losses": ref["losses"],
                        "loss_widest_step": max(step_gaps), "grad_median_leaf": grad["median"],
                        "change_widest_leaf": change["widest"], "grad_leaves": grad["leaves"],
-                       "change_leaves": change["leaves"], "left_out": int((~keep).sum())}}
+                       "change_leaves": change["leaves"], "left_out": int((~keep).sum()),
+                       "lead_units": run.lead, "unit": facts["unit"]}}
+
+
+def installed(st: Dict, w: Dict, model) -> list:
+    """(leaves, weights) pairs of a state keyed as `harness.Run._state` keys
+    it, or of the trainer's own: actor, critic and its target, then the
+    adapter's."""
+    return [(st["a"], w["actor"]), (st["c"], w["critic"]), (st["t"], w["critic"])] + \
+        model.installed(st, w)
 
 
 def exact(run, ring: Dict, w: Dict, facts: Dict, config: Dict) -> Dict:
     """The four exact numbers."""
+    model = algorithms.adapter(facts["algorithm"])
     b = run.state_before
     start = 0.0
-    for got, want in ((b["a"], w["actor"]), (b["c"], w["critic"]), (b["t"], w["critic"]),
-                      (b["p"], w["disc"]), (b["sn"], w["sn"])):
+    for got, want in installed(b, w, model):
         start = max([start] + [float((x - y).abs().max()) for x, y in zip(got, want)])
-    for k in ("am", "cm", "la", "lam", "m"):
+    for k in ("am", "cm", "la", "lam") + ((model.MOMENT,) if model.MOMENT else ()):
         start = max([start] + [float(x.abs().max()) for x in b[k]])
 
-    tb_rows = np.concatenate([ring_matrix({k: r["tb"][k] for k in ref_rows.COLUMNS})
+    rows = lambda v: v.reshape((-1,) + v.shape[2:])  # a unit's updates, one after another
+    tb_rows = np.concatenate([ring_matrix({k: rows(r["tb"][k]) for k in ref_rows.COLUMNS})
                               for r in run.captured])
     batch_unknown = ref_rows.unknown_rows(tb_rows, run.ring_at_capture)
 
     with np.load(os.path.join(HERE, os.pardir, config["expert_file"])) as f:
         data = {k: f[k] for k in f.files}
     known = ref_rows.expert_rows(data, facts["trajectories"], facts["absorbing"])
-    eb_rows = np.concatenate([torch.cat([r["eb"]["states"], r["eb"]["actions"],
-                                         r["eb"]["weights"][:, None]], 1).cpu().numpy()
+    eb_rows = np.concatenate([torch.cat([rows(r["eb"]["states"]), rows(r["eb"]["actions"]),
+                                         rows(r["eb"]["weights"])[:, None]], 1).cpu().numpy()
                               for r in run.captured])
     expert_unknown = ref_rows.unknown_rows(eb_rows, known)
 
@@ -221,16 +262,16 @@ def readings(run, ring: Dict, w: Dict, facts: Dict, config: Dict, device) -> Dic
     old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        ref = reference_steps(run.captured, w, facts, device)
+        ref = reference_steps(run, w, facts, device)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
-    return {**exact(run, ring, w, facts, config), **graded(run, w, facts, device, ref)}
+    return {**exact(run, ring, w, facts, config), **graded(run, facts, ref)}
 
 
-def check(run, ring: Dict, w: Dict, facts: Dict, config: Dict, device) -> Dict:
+def check(run, ring: Dict, w: Dict, facts: Dict, config: Dict, traffic: Dict, device) -> Dict:
     """{name: (value, limit)} of every number compared, and `correct`."""
     r = readings(run, ring, w, facts, config, device)
-    lim = limits_of(config["name"])
+    lim = limits_of(config["name"], traffic["name"])
     numbers = {k: (r[k], lim[k]) for k in EXACT + GRADED}
     return {"numbers": numbers, "detail": r["detail"],
             "correct": all(v <= l for v, l in numbers.values())}

@@ -2,19 +2,22 @@
 faults, each put under a run's trainer by replacing a name the trainer's
 module calls (`iltpu_torch.trainer.<name>`), and undone after.
 
+The shared ones, of the SAC update and the ring, which every algorithm
+has:
+
 - `control`: the plain reference in the kernels' place, its products in
   TF32 (the nearest precision below the configuration's float32 with TF32
-  off);
-- `sac_unchanged`, `gail_unchanged`: a step that returns its state
-  unchanged (the kernel runs, its writes are taken back);
-- `sac_half`, `gail_half`: half of the batch left out, the mean taken over
-  the rest;
+  off); each algorithm's adapter adds its own kernels' part;
+- `sac_unchanged`: a step that returns its state unchanged (the kernel
+  runs, its writes are taken back);
+- `sac_half`: half of the batch left out, the mean taken over the rest;
 - `ring_altered`: an answer altered where it is produced: one reward of
   every env step changed as the ring appends it;
-- `reward_altered`: one reward of every update's batch changed between the
-  GAIL step and the SAC step.
+- `reward_altered`: one reward of every update's batch changed on its way
+  into the SAC step.
 
-The exchange between chips has no fault here: every cell runs on one card.
+Each adapter of `algorithms/` adds its own (`FAULTS`, `patches`). The
+exchange between chips has no fault here: every cell runs on one card.
 """
 
 import contextlib
@@ -22,8 +25,10 @@ from typing import Callable, Dict
 
 import torch
 
-from portbench.reference import gail as ref_gail
+from portbench import algorithms
 from portbench.reference import sac as ref_sac
+
+SHARED = ("control", "sac_unchanged", "sac_half", "ring_altered", "reward_altered")
 
 
 @contextlib.contextmanager
@@ -46,32 +51,28 @@ def _leaves(st: Dict):
     return out
 
 
-def _taken_back(fn):
-    def step(h, st, *args):
-        keep = [x.clone() for x in _leaves(st)]
-        out = fn(h, st, *args)
-        for x, k in zip(_leaves(st), keep):
+def taken_back(fn, states: int = 1):
+    """`fn(h..., st..., *args)` with its `states` state dicts (after as many
+    hyperparameter arguments) put back as they were after it ran."""
+    def step(*args):
+        held = [x for st in args[states:2 * states] for x in _leaves(st)]
+        keep = [x.clone() for x in held]
+        out = fn(*args)
+        for x, k in zip(held, keep):
             x.copy_(k)
         return out
     return step
 
 
-def _patches(name: str, mod) -> Dict[str, Callable]:
-    sac, gail = mod.sac_update, mod.gail_update
+def _shared(name: str, mod) -> Dict[str, Callable]:
+    sac = mod.sac_update
     if name == "control":
         def sac_ref(h, st, batch, eps2, eps_new):
             with tf32():
                 return ref_sac.sac_step(h, st, batch, eps2, eps_new)["aux"]
-
-        def gail_ref(h, st, *args):
-            with tf32():
-                out = ref_gail.gail_step(h, st, *args)
-            return out["loss"], out["rewards"]
-        return {"sac_update": sac_ref, "gail_update": gail_ref}
+        return {"sac_update": sac_ref}
     if name == "sac_unchanged":
-        return {"sac_update": _taken_back(sac)}
-    if name == "gail_unchanged":
-        return {"gail_update": _taken_back(gail)}
+        return {"sac_update": taken_back(sac)}
     if name == "sac_half":
         def half(h, st, batch, eps2, eps_new):
             n = batch["states"].shape[0] // 2
@@ -79,13 +80,6 @@ def _patches(name: str, mod) -> Dict[str, Callable]:
                       eps2[:n].contiguous(), eps_new[:n].contiguous())
             return {k: (torch.cat([v, v]) if v.dim() else v) for k, v in aux.items()}
         return {"sac_update": half}
-    if name == "gail_half":
-        def half(h, st, *args):
-            n = args[0].shape[0] // 2
-            cut = [a if a is None else a[:n].contiguous() for a in args]
-            loss, rewards = gail(h, st, *cut)
-            return loss, torch.cat([rewards, rewards])
-        return {"gail_update": half}
     if name == "ring_altered":
         append = mod.replay_append_batch
 
@@ -101,11 +95,19 @@ def _patches(name: str, mod) -> Dict[str, Callable]:
             batch["rewards"][0] += 1.0
             return sac(h, st, batch, eps2, eps_new)
         return {"sac_update": altered}
-    raise ValueError(f"no fault {name!r}")
+    return {}
 
 
-NAMES = ("control", "sac_unchanged", "gail_unchanged", "sac_half", "gail_half", "ring_altered",
-         "reward_altered")
+def _patches(name: str, mod) -> Dict[str, Callable]:
+    out = _shared(name, mod)
+    for alg in algorithms.names():
+        out.update(algorithms.adapter(alg).patches(name, mod))
+    if not out:
+        raise ValueError(f"no fault {name!r}")
+    return out
+
+
+NAMES = SHARED + tuple(f for alg in algorithms.names() for f in algorithms.adapter(alg).FAULTS)
 
 
 @contextlib.contextmanager

@@ -14,8 +14,17 @@ trainer instance it builds:
   of a traced run opens and closes at tops too.
 - the stepper's `step` (the C call that steps every env and copies its
   outputs): its host time, and the outputs the replay ring must hold.
-- `update`, the per-update body, for the first three updates only: their
-  inputs, the state around them and their losses, for the reference.
+- `update`, the per-update body, and `update_unit`, the K-blocked path's
+  unit of K updates in one launch (`Trainer.unit` > 1): every unit from
+  the run's first update until three units of the size the window runs
+  (`Run.K`: K on the K-blocked path, else 1) are done: their inputs, the
+  state around them and their losses, for the reference. The units before
+  those three (on the K-blocked path, the first iteration's updates that K
+  does not divide, one at a time) are the check's lead.
+
+Whatever belongs to one algorithm's reward model comes from its adapter
+(`portbench/algorithms/<algorithm>.py`), picked by the trainer's
+`cfg.algorithm`.
 
 Everything else runs as the program runs it.
 """
@@ -31,7 +40,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from portbench import correct
+from portbench import algorithms, correct
 from portbench import trace as trace_mod
 from portbench import weights as weights_mod
 from portbench.reference.rows import COLUMNS
@@ -39,7 +48,7 @@ from portbench.reference.rows import COLUMNS
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 RUN_STEPS = 10**9  # the loop's step budget: the window, not this, ends a run
-CHECKED_UPDATES = 3
+CHECKED_UNITS = 3
 
 
 def load_named(kind: str, name: str) -> Dict:
@@ -78,10 +87,13 @@ class Run:
         self.calls: List[Dict] = []  # the stepper's outputs, call by call
         self.env_spans: List[tuple] = []  # (host start, host end) of each C call
         self.profiler = trace_mod.SubWindow(traffic, seconds) if trace else None
-        self.captured: List[Dict] = []
-        self.state_before = self.state_after1 = self.state_after3 = None
+        self.model = algorithms.adapter(cfg.algorithm)
+        self.K = trainer.unit(trainer.update_block)  # updates in each of the window's units
+        self.captured: List[Dict] = []  # every unit up to the third checked one, in order
+        self.lead = self.checked = 0  # units before the first checked one; checked so far
+        self.state_before = self.state_at_check = self.state_after1 = self.state_after3 = None
         self.ring_at_capture = None
-        self.gail_probe = None
+        self.probe = None
         self._install()
 
     # --------------------------------------------------------------- hooks
@@ -111,34 +123,47 @@ class Run:
                                "terminals": terminals, "timeouts": timeouts})
             return out
 
-        def update_hook(step, tb, eb, nz):
-            k = len(self.captured)
-            if k == 0:
-                self.state_before = self._state()
-            if k + 1 == CHECKED_UPDATES:  # every row the three samples drew from is written
-                self.ring_at_capture = self._ring_head()
-            rec = {"tb": _clone(tb), "eb": _clone(eb), "nz": _clone(nz)}
-            aux = update(step, tb, eb, nz)
-            rec["loss"] = aux["discriminator_loss"].detach().clone()
-            self.captured.append(rec)
-            if k == 0:
-                self.state_after1 = self._state()
-            if k + 1 == CHECKED_UPDATES:
-                self.state_after3 = self._state()
-                del t.update  # the class's own method again, for the window
-            return aux
+        def capturing(fn, stacked: bool):
+            def hook(step, tb, eb, nz):
+                size = tb["states"].shape[0] if stacked else 1
+                if stacked and size == 1:  # its one update goes through `update`, which keeps it
+                    return fn(step, tb, eb, nz)
+                checked = size == self.K
+                if not self.captured:
+                    self.state_before = self._state()
+                if checked and self.checked == 0:
+                    self.lead = len(self.captured)
+                    self.state_at_check = self._state() if self.lead else self.state_before
+                if checked and self.checked + 1 == CHECKED_UNITS:
+                    # every row the samples so far drew from is written
+                    self.ring_at_capture = self._ring_head()
+                rec = {k: _clone(d, stacked) for k, d in (("tb", tb), ("eb", eb), ("nz", nz))}
+                aux = fn(step, tb, eb, nz)
+                rec["loss"] = self.model.loss(aux).detach().clone()
+                self.captured.append(rec)
+                if checked:
+                    self.checked += 1
+                    if self.checked == 1:
+                        self.state_after1 = self._state()
+                    if self.checked == CHECKED_UNITS:
+                        self.state_after3 = self._state()
+                        for name in ("update", "update_unit"):  # the class's own, for the window
+                            t.__dict__.pop(name, None)
+                return aux
+            return hook
 
         t.front_of = front_hook
-        t.update = update_hook
+        t.update = capturing(update, False)
+        t.update_unit = capturing(t.update_unit, True)
         env.step = env_hook
 
     def _state(self) -> Dict[str, List[torch.Tensor]]:
         t = self.trainer
-        sac, d = t.sac, t.disc_state
+        sac = t.sac
         return {k: [x.detach().clone() for x in v] for k, v in (
             ("a", sac["a"]), ("am", sac["am"]), ("c", sac["c"]), ("cm", sac["cm"]),
             ("t", sac["t"]), ("la", [sac["la"]]), ("lam", [sac["lam"]]),
-            ("p", d["p"]), ("m", d["m"]), ("sn", d["sn"]))}
+            *self.model.state(t).items())}
 
     def _ring_head(self) -> np.ndarray:
         """The ring's rows written so far, as one (rows, columns) matrix."""
@@ -168,25 +193,16 @@ class Run:
             self.t1, self.step1 = time.perf_counter(), step
             self.trainer.cfg.steps = step  # the loop ends after this iteration
 
-    def probe_gail(self):
-        """Keep the penalty's rows and the first layer of the next update's
-        discriminator step, for the count of its active units."""
-        t = self.trainer
-        update = t.update
-
-        def once(step, tb, eb, nz):
-            p = t.disc_state["p"]
-            gx = (nz["eps_gp"][:, None] * torch.cat([eb["states"], eb["actions"]], 1)
-                  + (1 - nz["eps_gp"][:, None]) * torch.cat([tb["states"], tb["actions"]], 1))
-            self.gail_probe = (gx.clone(), p[0].detach().clone(), p[1].detach().clone())
-            del t.update
-            return update(step, tb, eb, nz)
-
-        t.update = once
+    def probe_model(self):
+        """In a traced run, at the profiled sub-window's opening: what the
+        adapter's per-layer metrics need from the next update."""
+        self.model.probe(self)
 
 
-def _clone(d: Dict) -> Dict:
-    return {k: v.detach().clone() for k, v in d.items()}
+def _clone(d: Dict, stacked: bool) -> Dict:
+    """A copy of an update's (or a unit's) inputs, each with a leading unit
+    axis."""
+    return {k: v.detach().clone() if stacked else v.detach().clone()[None] for k, v in d.items()}
 
 
 def build(config: Dict, traffic: Dict, seed: int, out_dir: str, extra: Optional[List[str]] = None):
@@ -199,22 +215,24 @@ def build(config: Dict, traffic: Dict, seed: int, out_dir: str, extra: Optional[
     return Trainer(cfg, out_dir=out_dir)
 
 
-def shapes_of(trainer) -> Dict:
-    """The leaf shapes the benchmark's weights take, from the configuration
-    as the trainer holds it."""
+def nets_of(trainer):
+    """The networks the benchmark's weights fill, each by its leaf shapes
+    from the configuration as the trainer holds it (the actor, the twin
+    critic, then the adapter's), and the names of those with spectral-norm
+    vectors."""
+    extra, spectral = algorithms.adapter(trainer.cfg.algorithm).nets(trainer)
     return {"actor": [tuple(x.shape) for x in trainer.sac["a"]],
-            "critic": [tuple(x.shape) for x in trainer.sac["c"]],
-            "disc": [tuple(x.shape) for x in trainer.disc_state["p"]]}
+            "critic": [tuple(x.shape) for x in trainer.sac["c"]], **extra}, spectral
 
 
 @torch.no_grad()
 def install_weights(trainer, w: Dict) -> None:
     """Copy the benchmark's weights into the trainer's own tensors, in
-    place (the modules share them): actor, critic and its target, the
-    discriminator and its spectral-norm vectors."""
-    for dst, src in ((trainer.sac["a"], w["actor"]), (trainer.sac["c"], w["critic"]),
-                     (trainer.sac["t"], w["critic"]), (trainer.disc_state["p"], w["disc"]),
-                     (trainer.disc_state["sn"], w["sn"])):
+    place (the modules share them)."""
+    model = algorithms.adapter(trainer.cfg.algorithm)
+    live = {"a": trainer.sac["a"], "c": trainer.sac["c"], "t": trainer.sac["t"],
+            **model.state(trainer)}
+    for dst, src in correct.installed(live, w, model):
         if len(dst) != len(src):
             raise ValueError(f"{len(src)} leaves for {len(dst)}")
         for d, s in zip(dst, src):
@@ -231,8 +249,7 @@ def run_cell(config: Dict, traffic: Dict, seed: int, seconds: float, trace: bool
     try:
         trainer = build(config, traffic, seed, out_dir, extra)
         dev = trainer.device
-        sn = bool(trainer.disc_state["sn"])
-        w = weights_mod.make(seed, **shapes_of(trainer), spectral_norm=sn, device=dev)
+        w = weights_mod.make(seed, *nets_of(trainer), device=dev)
         install_weights(trainer, w)
         run = Run(trainer, traffic, seconds, trace, t_start)
         if trace:
@@ -243,24 +260,23 @@ def run_cell(config: Dict, traffic: Dict, seed: int, seconds: float, trace: bool
         memory_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
         cfg = trainer.cfg
         facts = {
+            "algorithm": cfg.algorithm, "unit": run.K,
             "S": trainer.state_size, "A": trainer.action_size, "B": cfg.training.batch_size,
             "H": cfg.reinforcement.actor.hidden_size,
-            "Hd": cfg.imitation.discriminator.hidden_size,
-            "mixup": cfg.imitation.loss_function == "Mixup", "sn": sn,
             "absorbing": bool(cfg.imitation.absorbing),
             "trajectories": int(cfg.imitation.trajectories),
-            "hyper": correct.hyper_of(cfg),
+            "hyper": correct.hyper_of(cfg), **run.model.facts(trainer),
         }
         window = window_facts(run)
         ring = correct.window_ring(run, trainer.replay)
-        for hook in ("front_of", "update"):
+        for hook in ("front_of", "update", "update_unit"):
             trainer.__dict__.pop(hook, None)
         del trainer
         run.trainer = None
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        checks = correct.check(run, ring, w, facts, config, dev)
+        checks = correct.check(run, ring, w, facts, config, traffic, dev)
         return {"run": run, "window": window, "facts": facts, "checks": checks,
                 "memory_peak": memory_peak, "device": dev, "weights": w}
     finally:

@@ -73,7 +73,7 @@ def measure(bench: dict, workload: dict, seed: int, seconds: float, trace: bool,
     traffic = harness.load_named("traffic", workload["traffic"])
     out = harness.run_cell(config, traffic, seed, seconds, trace, T_START, extra)
     run, dev = out["run"], out["device"]
-    ctx = {"window": out["window"], "facts": out["facts"], "trace": None, "gail_active": None}
+    ctx = {"window": out["window"], "facts": out["facts"], "trace": None}
     device = {"platform": "gpu" if dev.type == "cuda" else dev.type,
               "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type,
               "count": int(workload["chips"]), "memory_peak_bytes": int(out["memory_peak"])}
@@ -82,13 +82,10 @@ def measure(bench: dict, workload: dict, seed: int, seconds: float, trace: bool,
     if trace:
         tr = run.profiler.read(run)
         ctx["trace"] = tr
-        if run.gail_probe is not None:
-            from portbench.work import gail_update
-
-            ctx["gail_active"] = gail_update.active_share(*run.gail_probe)
         w0, w1 = tr["window_us"]
         device["busy_s"], device["window_s"] = tr["busy_us"] * 1e-6, (w1 - w0) * 1e-6
         result["breakdown"] = {"device_ops": trace_mod.device_ops(tr), "idle_gaps": tr["gaps"]}
+    ctx.update(run.model.context(run))
     for m in cell_metrics(bench, workload["name"], trace):
         v = reader(m["name"])(ctx)
         if v is not None:

@@ -24,6 +24,7 @@ def test_a_run_loads_no_jax():
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import portbench.run as r, portbench.harness, portbench.correct, portbench.calibrate\n"
             "import portbench.faults, iltpu_torch.trainer, iltpu_torch.config\n"
+            "import portbench.algorithms.gail, portbench.algorithms.sac\n"
             "print(r.forbidden_modules())" % harness.ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]", out.stdout
@@ -41,3 +42,24 @@ def test_reference_imports_nothing_of_the_program():
             for m in mods:
                 assert m.split(".")[0] in ("torch", "numpy", "math", "typing", "portbench"), (name, m)
                 assert not m.startswith("portbench.") or m.startswith("portbench.reference"), (name, m)
+
+
+def test_harness_imports_no_jax_and_names_no_algorithm():
+    """No file of the harness imports JAX, flax or iltpu; outside the GAIL
+    adapter, its reference and its kernels' work counts, no file the
+    harness and the check run names GAIL."""
+    files = [os.path.join(d, n) for d in (HERE, os.path.join(HERE, "algorithms"),
+                                          os.path.join(HERE, "reference"), os.path.join(HERE, "work"),
+                                          os.path.join(HERE, "metrics"))
+             for n in os.listdir(d) if n.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        for node in ast.walk(ast.parse(text)):
+            mods = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                    [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+            assert not {m.split(".")[0] for m in mods} & set(run.FORBIDDEN), (path, mods)
+    for name in ("harness.py", "correct.py", "weights.py", "faults.py", "run.py", "calibrate.py",
+                 "algorithms/__init__.py", "algorithms/sac.py"):
+        with open(os.path.join(HERE, name)) as f:
+            assert "gail" not in f.read().lower(), name

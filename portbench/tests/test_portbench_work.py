@@ -34,3 +34,18 @@ def test_active_share():
     gx = torch.tensor([[1.0, 0.0], [0.0, 1.0]])
     W1 = torch.tensor([[1.0, -1.0], [1.0, 1.0]])
     assert gail_update.active_share(gx, W1, torch.zeros(2)) == 0.75
+
+
+def test_kblock_bound():
+    from portbench.work import kblock_update
+
+    # hopper, K = 16: the SAC bound sixteen times (PERF.md's table: 0.0084 ms an
+    # update) and the GAIL steps' at the float32 rate; operations bound it
+    f = kblock_update.flops(16, 12, 3, 256, 256, 64, 0.5, False)
+    b = kblock_update.nbytes(16, 12, 3, 256, 256, 64, True, False)
+    assert f == 16 * (sac_update.flops(12, 3, 256, 256) + gail_update.flops(256, 15, 64, 0.5, False))
+    assert 1e3 * peaks.bound_s(f, b) == pytest.approx(0.1355, rel=1e-3)
+    assert f / peaks.FP32_FLOPS > b / peaks.HBM_BYTES
+    # the states once a launch, the batches once a micro-update
+    assert kblock_update.nbytes(2, 12, 3, 256, 256, 64, True, False) - \
+        kblock_update.nbytes(1, 12, 3, 256, 256, 64, True, False) == 4 * 256 * (2 * 12 + 3 + 3 + 16 + 7)

@@ -62,7 +62,7 @@ class SubWindow:
             torch.cuda._sleep(MARKER_CYCLES)
             self.h_marker = time.perf_counter()
             self.first = i
-            run.probe_gail()
+            run.probe_model()
         elif self.prof is not None and time.perf_counter() - self.h_marker >= self.seconds:
             self.stop(i, run)
 

@@ -29,34 +29,33 @@ def _unit(x: torch.Tensor) -> torch.Tensor:
     return x / (torch.linalg.vector_norm(x) + 1e-12)
 
 
-def make(seed: int, actor: Sequence[Tuple], critic: Sequence[Tuple], disc: Sequence[Tuple],
-         spectral_norm: bool, device) -> Dict[str, List[torch.Tensor]]:
-    """Weights for leaf shapes [W1, b1, W2, b2, ...]: `actor` (in, out)
-    matrices, `critic` (2, in, out) twin matrices, `disc` (in, out)
-    matrices. Returns {"actor", "critic", "disc", "sn"} leaf lists ("sn":
-    [u1, v1, u2, v2, ...] when `spectral_norm`)."""
+def make(seed: int, nets: Dict[str, Sequence[Tuple]], spectral: Sequence[str],
+         device) -> Dict[str, List[torch.Tensor]]:
+    """Weights for each network of `nets` (in order; leaf shapes [W1, b1,
+    W2, b2, ...], (in, out) matrices, or (2, in, out) for a twin such as
+    the critic). Returns {name: leaves} and "sn": the vectors [u1, v1, u2,
+    v2, ...] of the matrices of the networks named in `spectral`."""
     g = torch.Generator(device=device).manual_seed(seed)
-    mats = [(s, k) for k, shapes in (("actor", actor), ("critic", critic), ("disc", disc))
-            for s in shapes[0::2]]
+    mats = [(s, k) for k, shapes in nets.items() for s in shapes[0::2]]
     sizes = []
     for s, k in mats:
-        n = 2 if k == "critic" else 1
+        n = 2 if len(s) == 3 else 1
         rows, cols = s[-2:]
         sizes.append(n * max(rows, cols) * min(rows, cols))
-    sn_sizes = [s[-1] for s in disc[0::2]] if spectral_norm else []
+    sn_sizes = [s[-1] for k in spectral for s in nets[k][0::2]]
     draws = torch.randn(sum(sizes) + sum(sn_sizes), generator=g, device=device)
     chunks = list(torch.split(draws, sizes + sn_sizes))
-    out = {"actor": [], "critic": [], "disc": [], "sn": []}
+    out = {k: [] for k in nets}
+    out["sn"] = []
     # relu's gain on every layer but the last, 1 on the last
-    gains = {k: [RELU_GAIN] * (len(v) // 2 - 1) + [1.0]
-             for k, v in (("actor", actor), ("critic", critic), ("disc", disc))}
-    index = {"actor": 0, "critic": 0, "disc": 0}
+    gains = {k: [RELU_GAIN] * (len(v) // 2 - 1) + [1.0] for k, v in nets.items()}
+    index = {k: 0 for k in nets}
     for (s, k), a in zip(mats, chunks):
         rows, cols = s[-2:]
         gain = gains[k][index[k]]
         index[k] += 1
         shape = (max(rows, cols), min(rows, cols))
-        if k == "critic":
+        if len(s) == 3:
             a = a.reshape((2,) + shape)
             w = torch.stack([_orthogonal(a[i], rows, cols, gain) for i in range(2)])
             b = torch.zeros((2, cols), device=device)
@@ -64,7 +63,8 @@ def make(seed: int, actor: Sequence[Tuple], critic: Sequence[Tuple], disc: Seque
             w = _orthogonal(a.reshape(shape), rows, cols, gain)
             b = torch.zeros(cols, device=device)
         out[k] += [w, b]
-    for w, u0 in zip(out["disc"][0::2], chunks[len(mats):]):
+    spectral_mats = [w for k in spectral for w in out[k][0::2]]
+    for w, u0 in zip(spectral_mats, chunks[len(mats):]):
         u = _unit(u0)
         v = _unit(w @ u)
         out["sn"] += [_unit(w.T @ v), v]
