@@ -42,6 +42,18 @@ def installed(st: Dict, w: Dict) -> list:
     return [(st["p"], w["disc"]), (st["sn"], w["sn"])]
 
 
+def setup(run) -> None:
+    pass
+
+
+def closed(run) -> None:
+    pass
+
+
+def start(run, w: Dict) -> list:
+    return installed(run.state_before, w)
+
+
 def facts(trainer) -> Dict:
     cfg = trainer.cfg
     return {"Hd": cfg.imitation.discriminator.hidden_size,
@@ -56,7 +68,7 @@ def hyper(cfg) -> Dict:
                 loss_function=i.loss_function, entropy_bonus=float(i.entropy_bonus))
 
 
-def init(w: Dict) -> Dict:
+def init(w: Dict, run) -> Dict:
     return ref_gail.init_state(w["disc"], w["sn"])
 
 
@@ -72,6 +84,10 @@ def loss(aux: Dict) -> torch.Tensor:
 
 def ref_loss(out: Dict, sac_out: Dict) -> float:
     return float(out["loss"][0])
+
+
+def numbers(run, w: Dict, facts: Dict, config: Dict, ref: Dict) -> Dict:
+    return {}
 
 
 # ------------------------------------------------------------------ faults

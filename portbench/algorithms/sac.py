@@ -29,6 +29,18 @@ def installed(st: Dict, w: Dict) -> list:
     return []
 
 
+def setup(run) -> None:
+    pass
+
+
+def closed(run) -> None:
+    pass
+
+
+def start(run, w: Dict) -> list:
+    return []
+
+
 def facts(trainer) -> Dict:
     return {}
 
@@ -37,7 +49,7 @@ def hyper(cfg) -> Dict:
     return {}
 
 
-def init(w: Dict):
+def init(w: Dict, run):
     return None
 
 
@@ -51,6 +63,10 @@ def loss(aux: Dict) -> torch.Tensor:
 
 def ref_loss(out: Dict, sac_out: Dict) -> float:
     return float(sac_out["aux"]["Q_values"].mean())
+
+
+def numbers(run, w: Dict, facts: Dict, config: Dict, ref: Dict) -> Dict:
+    return {}
 
 
 def patches(name: str, mod) -> Dict:

@@ -8,7 +8,9 @@ and of each planted fault (`portbench/faults.py`) over a few.
 Each (mode, seed) is a whole run through the harness (set-up, a short
 window, the check), so the numbers come from the trainer the window ran.
 Prints one JSON line a run; `--out` appends them to a file too. Needs the
-card, as a run does; the benchmark's own runs never run this.
+card, as a run does; the benchmark's own runs never run this. A cell that
+BENCHMARK.json does not list (a queued one) is named `<config>.<traffic>`
+and runs on one card, from its files alone.
 """
 
 import argparse
@@ -43,6 +45,16 @@ def reading(workload: dict, mode: str, seed: int, seconds: float, extra=None) ->
             "run_s": time.perf_counter() - t}
 
 
+def workload_of(name: str) -> dict:
+    """The cell `name` of BENCHMARK.json, else the one its files make."""
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        listed = {w["name"]: w for w in json.load(f)["workloads"]}
+    if name in listed:
+        return listed[name]
+    config, traffic = name.split(".", 1)
+    return {"name": name, "config": config, "traffic": traffic, "chips": 1}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--workload", required=True)
@@ -52,8 +64,7 @@ def main(argv=None) -> int:
     p.add_argument("--seconds", type=float, default=2.0)
     p.add_argument("--out")
     args = p.parse_args(argv)
-    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
-        workload = {w["name"]: w for w in json.load(f)["workloads"]}[args.workload]
+    workload = workload_of(args.workload)
     for mode in args.modes.split(","):
         for seed in (int(s) for s in args.seeds.split(",")):
             line = json.dumps(reading(workload, mode, seed, args.seconds))

@@ -14,10 +14,11 @@ units, each against its limit:
 - `grad_gap`: each leaf's first gradient as its optimiser got it, worked
   out from its AdamW first moment after the first checked unit, m / (1 -
   b1), against the reference's gradient where that unit is the run's
-  first update alone, else against the reference's moment after the same
-  micro-updates: the widest gap between the program's norm and the
-  reference's, over the reference's norm of that leaf or of the median
-  leaf, the larger;
+  first update alone and no BC auxiliary step comes before its SAC step,
+  else against the reference's moment after the same micro-updates (with
+  the BC step the actor's moment holds b1 g_bc + g_sac on both sides):
+  the widest gap between the program's norm and the reference's, over the
+  reference's norm of that leaf or of the median leaf, the larger;
 - `change_gap`: the same gap of each leaf's change over the three units
   (critic, target critic, actor, log alpha, the adapter's trained leaves),
   the median leaf's, leaving out leaves whose reference gradient (as
@@ -26,7 +27,9 @@ units, each against its limit:
 
 and exactly (limit 0) what the reference skips by following the program's
 batches: `start_state_gap` (the state before the first update is the
-benchmark's weights, zero moments and log alpha 0), `batch_rows_unknown`
+benchmark's weights, zero moments and log alpha 0; a leaf that set-up
+trains is compared where its training starts, as the adapter's `start`
+gives it), `batch_rows_unknown`
 (policy rows that are no row of the ring as it stood),
 `expert_rows_unknown` (expert rows that are no row of the first
 trajectories of the expert file), and `ring_rows_wrong`: the ring's rows
@@ -40,6 +43,18 @@ step's loss or one leaf's later change by ~1e-5 (the gradient penalty and
 relu derivatives are not continuous there, and Adam carries a near-zero
 gradient's sign into a whole step of the learning rate), on some seeds
 (PERF.md gives the readings). The widest of each stays in `detail`.
+
+The configuration's `imitation.bc_aux_loss` (any algorithm) puts the
+BC auxiliary step on the SAC actor's own AdamW state (a, am, av and its
+clock ta) before each SAC step, on the update's expert batch, with SAC's
+learning rate and weight decay, in the program and in the reference
+(`reference/bc.py`). Where set-up trains the adapter's state (a reward
+model pretrained there), the reference starts from that state as the
+program held it before its first update (the adapter's `init`), and the
+adapter's `numbers` check set-up's work apart: each number under its own
+name, with its limit in the cell's limits file beside the three graded
+ones.
+
 A cell's limits are `limits/<config>.<traffic>.json` where that file is,
 else `limits/<config>.json`.
 """
@@ -52,6 +67,7 @@ import numpy as np
 import torch
 
 from portbench import algorithms
+from portbench.reference import bc as ref_bc
 from portbench.reference import rows as ref_rows
 from portbench.reference import sac as ref_sac
 
@@ -67,13 +83,14 @@ def limits_of(config_name: str, traffic_name: str) -> Dict[str, float]:
         path = os.path.join(HERE, "limits", f"{config_name}.json")
     with open(path) as f:
         lim = json.load(f)["limits"]
-    return {**{k: 0 for k in EXACT}, **{k: lim[k] for k in GRADED}}
+    return {**lim, **{k: 0 for k in EXACT}}
 
 
 def hyper_of(cfg) -> Dict:
     """The reference's hyperparameters, read from the configuration."""
     r, t = cfg.reinforcement, cfg.training
     return {
+        "bc_aux": bool(cfg.imitation.get("bc_aux_loss")),
         "sac": dict(lr=float(t.learning_rate), weight_decay=float(t.weight_decay),
                     alpha_lr=float(t.learning_rate), discount=float(r.discount),
                     target_temperature=float(r.target_temperature), polyak=float(r.polyak_factor),
@@ -148,10 +165,11 @@ def _ref_leaves(model, sac: Dict, st, moment: bool = False) -> Dict:
 
 
 def reference_steps(run, w: Dict, facts: Dict, device) -> Dict:
-    """The reference's micro-updates from the benchmark's weights on the
-    program's batches and draws, every captured unit in order: the loss of
-    each checked unit, the first gradients, the state before the first
-    checked unit and after the third."""
+    """The reference's micro-updates from the benchmark's weights (and the
+    adapter's start) on the program's batches and draws, every captured
+    unit in order: the loss and the adapter's step output of each checked
+    unit, the first gradients, the state before the first checked unit and
+    after the third."""
     h = facts["hyper"]
     model = algorithms.adapter(facts["algorithm"])
     sh = ref_sac.SACHyper(lr=h["sac"]["lr"], weight_decay=h["sac"]["weight_decay"],
@@ -159,8 +177,9 @@ def reference_steps(run, w: Dict, facts: Dict, device) -> Dict:
                           entropy_target=h["sac"]["target_temperature"] * facts["A"],
                           polyak=h["sac"]["polyak"], min_alpha=h["sac"]["min_alpha"])
     sac = ref_sac.init_state(w["actor"], w["critic"])
-    st = model.init(w)
-    losses, grads, before = [], None, None
+    st = model.init(w, run)
+    bc = {"p": sac["a"], "m": sac["am"], "v": sac["av"], "t": sac["ta"]} if h["bc_aux"] else None
+    losses, outs, grads, before = [], [], None, None
     for i, rec in enumerate(run.captured):
         if i == run.lead:
             before = {k: [x.clone() for x in v] for k, v in _ref_leaves(model, sac, st).items()}
@@ -172,17 +191,22 @@ def reference_steps(run, w: Dict, facts: Dict, device) -> Dict:
             batch = pick(tb)
             if out["rewards"] is not None:
                 batch["rewards"] = out["rewards"]
+            if bc is not None:
+                e = pick(eb)
+                ref_bc.bc_step(bc, e["states"], e["actions"], e["weights"], h["sac"]["lr"],
+                               h["sac"]["weight_decay"])
             s = ref_sac.sac_step(sh, sac, batch, nz["eps2"][k], nz["eps_new"][k])
         if i >= run.lead:
             losses.append(model.ref_loss(out, s))
-        if i == run.lead == 0 and K == 1:  # the run's first update: its gradients
+            outs.append(out)
+        if i == run.lead == 0 and K == 1 and bc is None:  # the run's first update: its gradients
             grads = {"a": s["grads"]["a"], "c": s["grads"]["c"], "la": s["grads"]["la"]}
             if model.PARAMS:
                 grads[model.PARAMS] = out["grads"]
         elif i == run.lead:  # else the moments after the unit, as gradients
             grads = {k: [x / (1.0 - ref_sac.ADAM_B1) for x in v]
                      for k, v in _ref_leaves(model, sac, st, moment=True).items()}
-    return {"losses": losses, "grads": grads, "before": before,
+    return {"losses": losses, "outs": outs, "grads": grads, "before": before,
             "state": _ref_leaves(model, sac, st)}
 
 
@@ -219,12 +243,15 @@ def graded(run, facts: Dict, ref: Dict) -> Dict:
                        "lead_units": run.lead, "unit": facts["unit"]}}
 
 
+def _sac_pairs(st: Dict, w: Dict) -> list:
+    return [(st["a"], w["actor"]), (st["c"], w["critic"]), (st["t"], w["critic"])]
+
+
 def installed(st: Dict, w: Dict, model) -> list:
     """(leaves, weights) pairs of a state keyed as `harness.Run._state` keys
     it, or of the trainer's own: actor, critic and its target, then the
     adapter's."""
-    return [(st["a"], w["actor"]), (st["c"], w["critic"]), (st["t"], w["critic"])] + \
-        model.installed(st, w)
+    return _sac_pairs(st, w) + model.installed(st, w)
 
 
 def exact(run, ring: Dict, w: Dict, facts: Dict, config: Dict) -> Dict:
@@ -232,7 +259,7 @@ def exact(run, ring: Dict, w: Dict, facts: Dict, config: Dict) -> Dict:
     model = algorithms.adapter(facts["algorithm"])
     b = run.state_before
     start = 0.0
-    for got, want in installed(b, w, model):
+    for got, want in _sac_pairs(b, w) + model.start(run, w):
         start = max([start] + [float((x - y).abs().max()) for x, y in zip(got, want)])
     for k in ("am", "cm", "la", "lam") + ((model.MOMENT,) if model.MOMENT else ()):
         start = max([start] + [float(x.abs().max()) for x in b[k]])
@@ -258,14 +285,16 @@ def exact(run, ring: Dict, w: Dict, facts: Dict, config: Dict) -> Dict:
 
 def readings(run, ring: Dict, w: Dict, facts: Dict, config: Dict, device) -> Dict:
     """Every number compared, with the graded ones' detail, the reference
-    in float32 with TF32 off."""
+    in float32 with TF32 off; the adapter's own numbers under "model"."""
+    model = algorithms.adapter(facts["algorithm"])
     old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         ref = reference_steps(run, w, facts, device)
+        own = model.numbers(run, w, facts, config, ref)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
-    return {**exact(run, ring, w, facts, config), **graded(run, facts, ref)}
+    return {**exact(run, ring, w, facts, config), **graded(run, facts, ref), "model": own}
 
 
 def check(run, ring: Dict, w: Dict, facts: Dict, config: Dict, traffic: Dict, device) -> Dict:
@@ -273,5 +302,6 @@ def check(run, ring: Dict, w: Dict, facts: Dict, config: Dict, traffic: Dict, de
     r = readings(run, ring, w, facts, config, device)
     lim = limits_of(config["name"], traffic["name"])
     numbers = {k: (r[k], lim[k]) for k in EXACT + GRADED}
+    numbers.update({k: (v, lim[k]) for k, v in r["model"].items()})
     return {"numbers": numbers, "detail": r["detail"],
             "correct": all(v <= l for v, l in numbers.values())}

@@ -10,7 +10,8 @@ trainer instance it builds:
   iteration's top. The window opens at the first top past the traffic's
   warm-up and closes at the first top `seconds` later, each with a device
   synchronise; closing lowers `cfg.steps` to the current step, which the
-  loop checks, so it ends after that iteration. The profiled sub-window
+  loop checks, so it ends after that iteration, untimed (the adapter's
+  `closed` may keep what that iteration computes). The profiled sub-window
   of a traced run opens and closes at tops too.
 - the stepper's `step` (the C call that steps every env and copies its
   outputs): its host time, and the outputs the replay ring must hold.
@@ -18,13 +19,15 @@ trainer instance it builds:
   unit of K updates in one launch (`Trainer.unit` > 1): every unit from
   the run's first update until three units of the size the window runs
   (`Run.K`: K on the K-blocked path, else 1) are done: their inputs, the
-  state around them and their losses, for the reference. The units before
-  those three (on the K-blocked path, the first iteration's updates that K
-  does not divide, one at a time) are the check's lead.
+  state around them, their losses and rewards, for the reference. The
+  units before those three (on the K-blocked path, the first iteration's
+  updates that K does not divide, one at a time) are the check's lead.
 
 Whatever belongs to one algorithm's reward model comes from its adapter
 (`portbench/algorithms/<algorithm>.py`), picked by the trainer's
-`cfg.algorithm`.
+`cfg.algorithm`, and so do the wrappers on what set-up trains (the
+adapter's `setup`, such as a reward model's pretraining), which keep what
+they see in `Run.setup`.
 
 Everything else runs as the program runs it.
 """
@@ -94,6 +97,7 @@ class Run:
         self.state_before = self.state_at_check = self.state_after1 = self.state_after3 = None
         self.ring_at_capture = None
         self.probe = None
+        self.setup: Dict = {}  # what the adapter's set-up wrappers keep
         self._install()
 
     # --------------------------------------------------------------- hooks
@@ -140,6 +144,7 @@ class Run:
                 rec = {k: _clone(d, stacked) for k, d in (("tb", tb), ("eb", eb), ("nz", nz))}
                 aux = fn(step, tb, eb, nz)
                 rec["loss"] = self.model.loss(aux).detach().clone()
+                rec["rewards"] = aux["predicted_rewards"].detach().clone()
                 self.captured.append(rec)
                 if checked:
                     self.checked += 1
@@ -156,6 +161,7 @@ class Run:
         t.update = capturing(update, False)
         t.update_unit = capturing(t.update_unit, True)
         env.step = env_hook
+        self.model.setup(self)
 
     def _state(self) -> Dict[str, List[torch.Tensor]]:
         t = self.trainer
@@ -192,6 +198,7 @@ class Run:
             self.sync()
             self.t1, self.step1 = time.perf_counter(), step
             self.trainer.cfg.steps = step  # the loop ends after this iteration
+            self.model.closed(self)
 
     def probe_model(self):
         """In a traced run, at the profiled sub-window's opening: what the

@@ -6,7 +6,11 @@
   configuration and limits written where the harness finds them by name,
   through `run.py`, `harness.py` and `correct.py` as they are;
 - the K-blocked traffic at K = 4, `correct` true, and false under the
-  K-blocked kernel's faults and an altered ring.
+  K-blocked kernel's faults and an altered ring;
+- the BC auxiliary step (`imitation.bc_aux_loss`) on the SAC configuration,
+  and DRIL with a reward model trained in set-up (20 pretraining steps
+  here): `correct` true, and false under each of their faults and the
+  shared ones.
 """
 
 import contextlib
@@ -15,7 +19,7 @@ import os
 
 import pytest
 
-from portbench import algorithms, faults, harness, run
+from portbench import algorithms, calibrate, faults, harness, run
 from portbench.tests.conftest import SMALL
 
 BENCH = run.load_benchmark()
@@ -55,8 +59,6 @@ def _run(workload, seed=7, extra=(), fault=None, bench=BENCH):
 
 @pytest.mark.parametrize("cell, extra, seed", list(PINNED), ids=lambda x: str(x))
 def test_existing_cells_read_as_before(cell, extra, seed):
-    from portbench import calibrate
-
     r = calibrate.reading(CELLS[cell], "program", seed, 0.5, SMALL + list(extra))
     numbers, losses = PINNED[(cell, extra, seed)]
     assert {k: repr(v) for k, v in r["numbers"].items()} == numbers
@@ -160,8 +162,59 @@ def test_limits_by_cell_then_by_config():
 
 @pytest.mark.cuda
 def test_kblock_control_fails_on_the_card(card):
-    from portbench import calibrate
-
     for seed in (101, 102, 103):
         r = calibrate.reading(CELLS[KBLOCK], "control", seed, 1.0)
+        assert r["correct"] is False, r["numbers"]
+
+
+# ----------------------------------------------------- the BC auxiliary step
+
+BC_AUX = ["imitation.bc_aux_loss=true"]
+
+
+def test_sac_config_with_bc_aux_is_correct(sac_cell):
+    result, lines, _ = _run(sac_cell, extra=BC_AUX)
+    assert result["correct"] is True, lines
+
+
+@pytest.mark.parametrize("fault", ["bc_aux_skipped", "bc_aux_half"])
+def test_sac_config_with_bc_aux_faults_fail(sac_cell, fault):
+    result, lines, _ = _run(sac_cell, extra=BC_AUX, fault=fault)
+    assert result["correct"] is False, lines
+
+
+# ------------------------------------------------------------------ DRIL
+
+DRIL = "dril_ant_tuned5.pipelined-64"  # queued: its files, not yet a cell of BENCHMARK.json
+DRIL_SMALL = ["imitation.pretraining.iterations=20"]
+DRIL_NUMBERS = ("pretrain_steps_wrong", "pretrain_gap", "threshold_gap", "reward_rows_wrong")
+
+
+def test_dril_cell_is_correct():
+    config = harness.load_named("configs", "dril_ant_tuned5")
+    traffic = harness.load_named("traffic", "pipelined-64")
+    out = harness.run_cell(config, traffic, 7, 0.5, False, 0.0, SMALL + DRIL_SMALL)
+    checks, setup = out["checks"], out["run"].setup
+    assert checks["correct"] is True, checks["numbers"]
+    assert set(DRIL_NUMBERS) <= set(checks["numbers"])
+    assert checks["numbers"]["pretrain_steps_wrong"][0] == 0
+    # the first three pretraining steps and the threshold's masks, over every expert row
+    assert len(setup["batches"]) == len(setup["masks"]) == 3
+    assert setup["thr_masks"][0].shape[:2] == (5, 5000)
+    assert int(setup["end"]["t"].item()) == 20 and float(setup["threshold"]) > 0
+    # the reward calls of the loop's last iteration, after the window's close: 8 envs, 8 updates
+    assert len(setup["closing"]) == 8 and setup["closing"][0]["rewards"].shape == (32,)
+
+
+@pytest.mark.parametrize("fault", [f for f in faults.SHARED + algorithms.adapter("DRIL").FAULTS
+                                   if f != "control"])
+def test_dril_faults_fail(fault):
+    result, lines, _ = _run(calibrate.workload_of(DRIL), extra=DRIL_SMALL, fault=fault)
+    assert result["correct"] is False, lines
+
+
+@pytest.mark.cuda
+def test_dril_control_fails_on_the_card(card):
+    for seed in (101, 102, 103):
+        r = calibrate.reading(calibrate.workload_of(DRIL), "control", seed, 1.0)
         assert r["correct"] is False, r["numbers"]

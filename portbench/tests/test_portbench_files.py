@@ -50,3 +50,20 @@ def test_contract_shape():
         assert w["chips"] == 1 and len(w["why"]) <= 200
         assert any(w["name"] in p.get("workloads", [w["name"]]) for p in BENCH["per_layer"])
     assert 1 <= BENCH["run_seconds"] <= 51
+
+
+def test_queued_cell_files_load():
+    """The queued DRIL cell (`PERF.md` §7): its configuration, traffic and
+    limits load by name, as a later entry in BENCHMARK.json would find them."""
+    from portbench import calibrate, correct
+
+    w = calibrate.workload_of("dril_ant_tuned5.pipelined-64")
+    assert w["name"] not in {c["name"] for c in BENCH["workloads"]}
+    config = harness.load_named("configs", w["config"])
+    assert config["name"] == w["config"] and config["reduced"] == []
+    assert "algorithm=DRIL" in config["overrides"] and config["use_tuned"] is True
+    assert os.path.exists(os.path.join(ROOT, config["expert_file"]))
+    lim = correct.limits_of(w["config"], w["traffic"])
+    own = {"pretrain_steps_wrong", "pretrain_gap", "threshold_gap", "reward_rows_wrong"}
+    assert own <= set(lim)
+    assert lim["pretrain_steps_wrong"] == 0

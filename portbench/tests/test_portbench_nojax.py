@@ -25,6 +25,8 @@ def test_a_run_loads_no_jax():
             "import portbench.run as r, portbench.harness, portbench.correct, portbench.calibrate\n"
             "import portbench.faults, iltpu_torch.trainer, iltpu_torch.config\n"
             "import portbench.algorithms.gail, portbench.algorithms.sac\n"
+            "import portbench.algorithms.dril\n"
+            "import portbench.reference.bc, portbench.reference.dril, portbench.work.dril\n"
             "print(r.forbidden_modules())" % harness.ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]", out.stdout
@@ -45,9 +47,10 @@ def test_reference_imports_nothing_of_the_program():
 
 
 def test_harness_imports_no_jax_and_names_no_algorithm():
-    """No file of the harness imports JAX, flax or iltpu; outside the GAIL
-    adapter, its reference and its kernels' work counts, no file the
-    harness and the check run names GAIL."""
+    """No file of the harness imports JAX, flax or iltpu (the adapters, the
+    references and the work counts of every algorithm among them); outside
+    an algorithm's adapter, its reference and its work counts, no file the
+    harness and the check run names GAIL or DRIL."""
     files = [os.path.join(d, n) for d in (HERE, os.path.join(HERE, "algorithms"),
                                           os.path.join(HERE, "reference"), os.path.join(HERE, "work"),
                                           os.path.join(HERE, "metrics"))
@@ -59,7 +62,10 @@ def test_harness_imports_no_jax_and_names_no_algorithm():
             mods = ([a.name for a in node.names] if isinstance(node, ast.Import) else
                     [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
             assert not {m.split(".")[0] for m in mods} & set(run.FORBIDDEN), (path, mods)
+    scanned = {os.path.relpath(p, HERE) for p in files}
+    assert {"algorithms/dril.py", "reference/bc.py", "reference/dril.py", "work/dril.py"} <= scanned
     for name in ("harness.py", "correct.py", "weights.py", "faults.py", "run.py", "calibrate.py",
                  "algorithms/__init__.py", "algorithms/sac.py"):
         with open(os.path.join(HERE, name)) as f:
-            assert "gail" not in f.read().lower(), name
+            text = f.read().lower()
+        assert "gail" not in text and "dril" not in text, name

@@ -146,3 +146,80 @@ def test_expert_rows_match_the_port():
     np.testing.assert_array_equal(mine, theirs)
     assert ref_rows.unknown_rows(theirs, mine) == 0
     assert ref_rows.unknown_rows(theirs + 1.0, mine) == len(theirs)
+
+
+def _mlp(g, sizes, scale=0.3):
+    p = []
+    for i, o in zip(sizes[:-1], sizes[1:]):
+        p += [scale * torch.randn(i, o, generator=g), 0.1 * torch.randn(o, generator=g)]
+    return p
+
+
+def _expert(g, rows):
+    return {"states": torch.randn(rows, S, generator=g),
+            "actions": torch.rand(rows, A, generator=g) * 2.2 - 1.1,  # some past the clamp
+            "weights": torch.rand(rows, generator=g) + 0.5}
+
+
+@pytest.mark.parametrize("activation, depth, dropout", [("relu", 2, 0.0), ("tanh", 1, 0.2)])
+def test_bc_matches_the_port(activation, depth, dropout):
+    """The reference's BC step against `behavioural_cloning_update`: the
+    SAC actor's auxiliary step (relu, no dropout) and DRIL's pretraining
+    (tanh, dropout with the same masks), three steps each."""
+    from iltpu_torch.models.actor import SoftActor
+    from iltpu_torch.updates.bc import behavioural_cloning_update
+
+    from portbench.reference import bc as ref_bc
+
+    g = torch.Generator().manual_seed(11)
+    actor = SoftActor(S, A, H, depth, activation, input_dropout=dropout, dropout=dropout)
+    p = _mlp(g, [S] + [H] * depth + [2 * A])
+    p[-2] = p[-2] * 3  # log_std past the clamp on some rows
+    mine, theirs = ref_bc.opt_state(p), ref_bc.opt_state(p)
+    rates = [dropout] * (depth + 1)
+    for _ in range(3):
+        batch = _expert(g, B)
+        masks = actor.net.draw_masks(B, g) if dropout else None
+        out = ref_bc.bc_step(mine, batch["states"], batch["actions"], batch["weights"], 3e-4,
+                             0.5, activation, masks, rates)
+        loss = behavioural_cloning_update(actor, theirs, batch, lr=3e-4, weight_decay=0.5,
+                                          masks=masks, train_dropout=bool(dropout))
+        torch.testing.assert_close(out["loss"], loss, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(mine["t"], theirs["t"], rtol=0, atol=0)
+    for k in ("m", "v"):
+        for x, y in zip(mine[k], theirs[k]):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6 * float(y.abs().max()))
+    # an element whose gradients stay within rounding of zero, not at zero,
+    # takes Adam's step (the learning rate) with either sign: compare the others
+    for x, y, v in zip(mine["p"], theirs["p"], theirs["v"]):
+        keep = (v == 0) | (v.sqrt() > 1e-5 * v.sqrt().max())
+        assert keep.any()
+        torch.testing.assert_close(x[keep], y[keep], rtol=1e-5, atol=1e-7)
+
+
+def test_dril_matches_the_port():
+    """The reference's uncertainty, threshold and +-1 reward against the
+    port's ensemble, on seeded weights and fixed masks."""
+    from iltpu_torch.models.actor import SoftActor
+
+    from portbench.reference import dril as ref_dril
+
+    g = torch.Generator().manual_seed(13)
+    ens = SoftActor(S, A, 16, 1, "tanh", input_dropout=0.21, dropout=0.2)
+    p = _mlp(g, [S, 16, 2 * A], 0.5)
+    with torch.no_grad():
+        for dst, src in zip(ens.net.leaves(), p):
+            dst.copy_(src)
+    rows = 200
+    e = _expert(g, rows)
+    masks = ens.ensemble_masks(rows, g)
+    u = ref_dril.uncertainty(p, e["states"], e["actions"], masks, [0.21, 0.2], "tanh")
+    torch.testing.assert_close(u, ens.action_uncertainty(e["states"], e["actions"], masks),
+                               rtol=1e-5, atol=0.0)
+    for q in (0.0, 0.5, 0.8595, 1.0):
+        theirs = ens.uncertainty_threshold(e["states"], e["actions"], q, masks)
+        torch.testing.assert_close(ref_dril.quantile(u, q), theirs, rtol=1e-5, atol=0.0)
+    thr = torch.quantile(u, 0.6)
+    torch.testing.assert_close(ref_dril.reward(u, thr),
+                               ens.dril_reward(e["states"], e["actions"], thr, masks))
+    assert 0 < int((ref_dril.reward(u, thr) > 0).sum()) < rows

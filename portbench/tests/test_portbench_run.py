@@ -1,13 +1,14 @@
 """A whole run of each cell at a small size on the CPU, past the harness's
 look for a card: the result's last line, and `correct` false under every
-planted fault. The control (TF32) runs only on the card."""
+planted fault of its algorithm (the other adapters' faults touch what
+this cell does not run). The control (TF32) runs only on the card."""
 
 import contextlib
 import json
 
 import pytest
 
-from portbench import faults, run
+from portbench import algorithms, faults, run
 from portbench.tests.conftest import SMALL
 
 BENCH = run.load_benchmark()
@@ -40,7 +41,7 @@ def test_ant_cell_runs():
     assert result["correct"] is True
 
 
-@pytest.mark.parametrize("fault", [f for f in faults.NAMES
+@pytest.mark.parametrize("fault", [f for f in faults.SHARED + algorithms.adapter("GAIL").FAULTS
                                    if f != "control" and not f.startswith("kblock")])
 def test_fault_fails(fault):
     result, lines, _ = _measure(HOPPER, fault=fault)

@@ -49,3 +49,18 @@ def test_kblock_bound():
     # the states once a launch, the batches once a micro-update
     assert kblock_update.nbytes(2, 12, 3, 256, 256, 64, True, False) - \
         kblock_update.nbytes(1, 12, 3, 256, 256, 64, True, False) == 4 * 256 * (2 * 12 + 3 + 3 + 16 + 7)
+
+
+def test_dril_update_count():
+    from portbench.work import dril
+
+    # ant, batch 1024, the ensemble 112 -> 64 -> 16: the reward's 5 forwards,
+    # the BC step's forward and backward of the 2 x 256 actor, the SAC update
+    ens = [(112, 64), (64, 16)]
+    assert dril.reward_flops(1024, ens) == 2 * 5 * 1024 * (112 * 64 + 64 * 16)
+    fwd = 2 * 1024 * (112 * 256 + 256 * 256 + 256 * 16)
+    assert dril.bc_flops(112, 8, 1024, 256) == fwd + 2 * fwd - 2 * 1024 * 112 * 256
+    assert dril.flops(112, 8, 1024, 256, ens) == (dril.reward_flops(1024, ens) + dril.bc_flops(
+        112, 8, 1024, 256) + sac_update.flops(112, 8, 1024, 256))
+    # the SAC update is most of it
+    assert 0.7 < sac_update.flops(112, 8, 1024, 256) / dril.flops(112, 8, 1024, 256, ens) < 0.9
