@@ -302,7 +302,9 @@ Then the steady rates and the pretraining times with the nvidia-smi line, one `k
 line (the per-update and K-blocked kernels at hopper's shapes with their
 launches on phase 10b's main path, the row sums and PWIL's transport on
 their pointmass paths; then each kernel at the wide shapes of 10d with the
-launches of the phase 11 run that takes that shape), the nvidia-smi line,
+launches of the phase 11 run that takes that shape; the SAC and K-blocked
+rows with the SAC step's plan at their shape, `sac_update.plan`'s barriers
+and row-owned items), the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failure raises and exits non-zero, and without CUDA or without
 the package beside it the script exits 1 at once.
 """
@@ -319,6 +321,9 @@ MEM_RATE = 3.35e12  # bytes/s, H100 SXM HBM3
 FP32_RATE = 67e12  # FLOP/s, H100 SXM fp32 without tensor cores
 TF32_RATE = 495e12  # FLOP/s, H100 SXM dense TF32 on the tensor cores
 TOL_STEP = (2e-5, 2e-6)
+# (batch, state, action) of the SAC step behind each kernels-line shape of
+# the SAC and K-blocked kernels (width 256)
+SAC_PLAN_SHAPES = {"hopper": (256, 12, 3), "ant": (256, 112, 8), "ant B=1024": (1024, 112, 8)}
 TOL_CHAIN = (1e-4, 1e-5)
 TOL_PWIL = (1e-5, 1e-6)  # the transport's rewards: the distances' rounding
 
@@ -4007,6 +4012,8 @@ def main():
             "max_abs_err": err, "ms": ms, "host_paced_ms": paced_ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
         })
+        if name in ("sac_update", "kblock_update"):  # the SAC step's plan (a micro-update's)
+            rows[-1]["sac_plan"] = su.plan(build.load("sac_update"), *SAC_PLAN_SHAPES[key[1]], 256)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

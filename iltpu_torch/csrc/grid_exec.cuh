@@ -13,8 +13,12 @@
 // (an ld.acquire poll and a __threadfence after it) at gpu scope, as
 // cooperative groups' grid barrier does: weak loads after the barrier see
 // what other blocks wrote before it, and no L1 line read earlier survives
-// it. A GEMM job runs as one non-inlined call (inlined at each of the
-// update's 28 call sites, the kernel would grow sixfold), and thread 0
+// it. An update crosses 21 of them (sac_core.cuh's 21 phases). A row-owned
+// item (`row_items`) takes R consecutive batch rows whole, the block
+// running the item's functor on them, so a narrow product and the row step
+// after it share one phase. A GEMM job runs as one non-inlined call
+// (inlined at each of the update's 19 call sites, the kernel would grow
+// several-fold), and thread 0
 // hands it the job's descriptor through one slot of shared memory (passed
 // as an argument, it would go through every thread's local memory: 150
 // bytes x 512 threads a call). A one-word flag
@@ -138,6 +142,18 @@ struct GridExec {
     items(1, [&](int) { f(); });
   }
 
+  // Row-owned items: item t owns rows [t R, t R + R) of n, the whole block
+  // running f.run<NT>(first row, rows) on them. Inlined: out of line, with
+  // the functor handed over in shared memory as a GEMM job's descriptor,
+  // the update ran 2% (hopper) to 3% (ant) slower on the H100.
+  template <class F>
+  __device__ __forceinline__ void row_items(int n, int R, const F& f) {
+    items(sac::cdiv(n, R), [&](int t) {
+      __syncthreads();  // the last item's readers of shared memory are done
+      f.template run<NT>(t * R, n - t * R < R ? n - t * R : R);
+    });
+  }
+
   __device__ void sync() {
     barrier(words, count);
     next = 0;
@@ -146,6 +162,24 @@ struct GridExec {
   __device__ void await_rewards() {
     if (flag) wait_for(flag, want);
   }
+};
+
+// sac::sac_step run on the host with no data: it counts the phases (the
+// barriers an update crosses, the last one the kernel's end or the next
+// micro-update's barrier) and the row-owned items.
+struct PlanExec {
+  int phases = 1, row_items_run = 0;
+  void gemm(const sac::Gemm&, int) {}
+  template <class F>
+  void rows(int, const F&) {}
+  template <class F>
+  void cols(int, const F&) {}
+  template <class F>
+  void block(const F&) {}
+  template <class F>
+  void row_items(int n, int R, const F&) { row_items_run += sac::cdiv(n, R); }
+  void sync() { ++phases; }
+  void await_rewards() {}
 };
 
 }  // namespace gx

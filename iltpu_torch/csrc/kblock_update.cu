@@ -12,7 +12,8 @@
 // a few MFLOP, against about 6 MB of state read and written once plus the
 // K-stacked batch slabs (2 us at 3.35 TB/s): it is bound by operations.
 // Neither sets its time. A micro-update is one GAIL step (gail_core.cuh)
-// and 29 dependent SAC phases of one wave of small tiles each. The design
+// and 21 dependent SAC phases of one wave of small work items each (the
+// narrow heads row-owned, with their row steps: sac_core.cuh). The design
 // against that:
 //  - GAIL beside SAC, not before it: blocks 0..C-1 run the GAIL steps of
 //    micro-updates 0..K-1 back to back, and blocks C..G-1 run the SAC steps
@@ -31,14 +32,14 @@
 //    waits for SAC and no cycle of waits can form. A GAIL step is several
 //    times shorter than a SAC step, so SAC sets the pace: a launch takes
 //    about one GAIL step plus K SAC steps;
-//  - a SAC phase is one panel copy, one fmaf chain and one barrier: the
-//    GEMM tile holds its whole-depth panels in dynamic shared memory
-//    (sac_core.cuh);
+//  - a SAC phase is one copy into shared memory, one fmaf chain and one
+//    barrier: the GEMM tile holds its whole-depth panels in dynamic shared
+//    memory, a row-owned item its rows and narrow weights (sac_core.cuh);
 //  - one launch with cudaLaunchCooperativeKernel, so every block is
 //    resident while others spin; a grid of every block that can be
 //    co-resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SMs),
 //    and a refusal returned. The dynamic shared memory is the larger of the
-//    GAIL step's working set and the GEMM panels'; the block's registers
+//    GAIL step's working set and the SAC step's; the block's registers
 //    already hold it to one block an SM, so GAIL's share costs SAC nothing;
 //  - ONE block size for every phase: 512 threads, the GAIL step's own
 //    (gail::THREADS), because the order of its block-wide sums follows the
@@ -183,12 +184,13 @@ __global__ void __launch_bounds__(THREADS) kblock_kernel(const __grid_constant__
 // per shared-memory size and cached: a launch then makes no call that a CUDA
 // graph capture refuses (the opt-in and the occupancy query are not stream
 // work).
-cudaError_t config(int B, int D, int Hd, int kmax, size_t* smem, int* per_sm, int* sms) {
+cudaError_t config(int B, int S, int A, int H, int Hd, size_t* smem, int* per_sm, int* sms) {
   static size_t cached_smem = 0;
   static int cached_per_sm = 0, cached_sms = 0;
+  const int D = S + A;
   if (!gail::fits(B, D, Hd)) return cudaErrorInvalidValue;
-  const size_t gail_bytes = gail::smem_bytes(B, D, Hd), gemm_bytes = sac::gemm_smem_bytes(kmax);
-  *smem = gail_bytes > gemm_bytes ? gail_bytes : gemm_bytes;
+  const size_t gail_bytes = gail::smem_bytes(B, D, Hd), sac_bytes = sac::step_smem_bytes(B, S, A, H);
+  *smem = gail_bytes > sac_bytes ? gail_bytes : sac_bytes;
   if (*smem != cached_smem) {
     cudaError_t e = cudaFuncSetAttribute(kblock_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)*smem);
@@ -244,7 +246,7 @@ extern "C" const char* iltpu_kblock_error(int e) { return cudaGetErrorString((cu
 extern "C" int iltpu_kblock_grid(int B, int S, int A, int H, int Hd, int* per_sm, int* sms,
                                  long long* smem, int* gail) {
   size_t bytes = 0;
-  const cudaError_t e = config(B, S + A, Hd, sac::gemm_depth(B, S, A, H), &bytes, per_sm, sms);
+  const cudaError_t e = config(B, S, A, H, Hd, &bytes, per_sm, sms);
   *smem = (long long)bytes;
   *gail = e == cudaSuccess && *per_sm * *sms > 1 ? gail_blocks_of(B, S + A, H, Hd, *per_sm * *sms) : 0;
   return (int)e;
@@ -274,7 +276,7 @@ extern "C" int iltpu_kblock_update(void* const* sac_ptr, void* const* gail_ptr, 
 
   size_t smem = 0;
   int per_sm = 0, sms = 0;
-  cudaError_t e = config(B, S + A, Hd, kmax, &smem, &per_sm, &sms);
+  cudaError_t e = config(B, S, A, H, Hd, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   if (per_sm * sms < 2) return (int)cudaErrorCooperativeLaunchTooLarge;
   k.C = gail_blocks_of(B, S + A, H, Hd, per_sm * sms);

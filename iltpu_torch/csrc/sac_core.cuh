@@ -5,13 +5,17 @@
 //
 // What bounds an update on the H100: at the main path's shapes (batch 256,
 // width 256) it is ~0.55 GFLOP of fp32 products, under 10 us at 67 TFLOP/s,
-// spread over 29 dependent phases of 64 to 128 output tiles each: one wave
-// on 132 SMs, so a phase costs the latency of its slowest tile plus a grid
-// barrier, and a tile must not make a dependent trip to L2 per step of k.
-// So a tile copies its whole-depth panels into shared memory at once (one
-// trip, cp.async), then runs the 256-long fmaf chains from shared memory
-// with 4x2 outputs on each of 128 threads, so that shared-memory reads and
-// fmaf issue balance.
+// spread over 21 dependent phases of up to a few hundred work items each:
+// one wave on 132 SMs, so a phase costs the latency of its slowest item
+// plus a grid barrier, and an item must not make a dependent trip to L2 per
+// step of k. So a tile copies its whole-depth panels into shared memory at
+// once (one trip, cp.async), then runs the 256-long fmaf chains from shared
+// memory with 4x2 outputs on each of 128 threads, so that shared-memory
+// reads and fmaf issue balance. The five products whose output is only 1 to
+// 2A columns wide (the heads, the action columns of an input gradient) run
+// as row-owned items instead, each with the elementwise row step after it
+// and the rank-1 input gradient from that step's output fused in: 8 fewer
+// phases, and barriers, than running them as tiles.
 //
 // What lives here:
 //  - `gemm_tile<NT>`: one 32x32 output tile of a strided fp32 product, run
@@ -20,12 +24,18 @@
 //  - elementwise functors, each `operator()(int i)` for one item (a batch
 //    row, a column, a parameter element), and the single-block temperature
 //    step, whose reduction has a fixed logical width RED whatever the block;
+//  - row-owned functors, each `run<NT>(r0, nr)` for the rows [r0, r0 + nr)
+//    of one item: a narrow product as one fmaf chain an output, the same
+//    chains as the tile's, then the row step's functor on those rows;
 //  - `sac_step<Exec>`: the update as a sequence of phases. `Exec` runs a
-//    phase's jobs (`gemm`, `rows`, `block`) as grid-stride loops over a
-//    range of blocks, `sync()` is a barrier over that range between phases
-//    that depend on each other, and `await_rewards()` waits, just before the
-//    TD target, for the rewards of another block's GAIL step where there is
-//    one (grid_exec.cuh). Jobs within a phase are independent of each other.
+//    phase's jobs (`gemm`, `rows`, `cols`, `block`, `row_items`) as
+//    grid-stride loops over a range of blocks, `sync()` is a barrier over
+//    that range between phases that depend on each other, and
+//    `await_rewards()` waits, just before the first phase that reads the
+//    rewards, for those of another block's GAIL step where there is one
+//    (grid_exec.cuh). Jobs within a phase are independent of each other.
+//    `gx::PlanExec` runs it on the host with no data, counting the phases
+//    and the row-owned items.
 //
 // Nothing reads a tensor through __ldg or `const __restrict__`: another
 // block wrote it in an earlier phase. Panels are copied with .cg (L2) loads.
@@ -350,18 +360,40 @@ __device__ inline float head_log_prob(const float* o, const float* eps, int A) {
   return lp;
 }
 
+// Rows [0, n) x columns [0, k) of src (row stride ss) into dst (row stride
+// ds), the block's threads along the rows. A plain loop: with a few
+// elements a thread, for_batched's L2 loads made a phase 3 us longer on the
+// H100.
+template <int NT>
+__device__ void copy_rows(float* dst, ll ds, const float* src, ll ss, int n, int k) {
+  for (int e = threadIdx.x; e < n * k; e += NT) {
+    const int r = e / k, c = e % k;
+    dst[r * ds + c] = src[r * ss + c];
+  }
+}
+
+// A row step of a row-owned phase is `operator()(b)`, a thread a row, run
+// after the narrow product's chains, and `stage<NT>(r0, nr)`, run by the
+// block over the item's rows while their inputs are copied in: the copies
+// into the next product's input rows that need no output of this one
+// (done a thread a row inside the step, they were its longest part).
+
 // Sample from the actor head o (B, 2A): log-probs, and the critic input
-// rows x = [s, keep * tanh(z)] with keep = 1 - absorbing (or 1). Row b.
+// rows x = [s, keep * tanh(z)] with keep = 1 - absorbing (or 1). Row b;
+// `stage` copies the rows' s.
 struct HeadSample {
   const float *o, *eps, *s, *ab;
   int S, A;
   float *lp, *x;
+  template <int NT>
+  __device__ void stage(int r0, int nr) const {
+    copy_rows<NT>(x + (ll)r0 * (S + A), S + A, s + (ll)r0 * S, S, nr, S);
+  }
   __device__ void operator()(int b) const {
     const float* ob = o + (ll)b * 2 * A;
     const float* eb = eps + (ll)b * A;
     lp[b] = head_log_prob(ob, eb, A);
     const int X = S + A;
-    for (int d = 0; d < S; ++d) x[(ll)b * X + d] = s[(ll)b * S + d];
     const float keep = ab ? 1.f - ab[b] : 1.f;
     for (int j = 0; j < A; ++j) {
       const float ls = fminf(fmaxf(ob[A + j], -20.f), 2.f);
@@ -371,20 +403,24 @@ struct HeadSample {
   }
 };
 
-// TD target from the target twin's q (2, B); also the critic input [s, a].
+// TD target from the target twin's q (2, B); `stage` writes the critic
+// input [s, a].
 struct Td {
   const float *tq, *r, *term, *ab, *lp2, *la;
   float min_alpha, discount;
   const float *s, *a;
   int B, S, A;
   float *td, *x;
+  template <int NT>
+  __device__ void stage(int r0, int nr) const {
+    const int X = S + A;
+    copy_rows<NT>(x + (ll)r0 * X, X, s + (ll)r0 * S, S, nr, S);
+    copy_rows<NT>(x + (ll)r0 * X + S, X, a + (ll)r0 * A, A, nr, A);
+  }
   __device__ void operator()(int b) const {
     const float alpha = alpha_of(la, min_alpha);
     const float target_v = fminf(tq[b], tq[B + b]) - (1.f - ab[b]) * alpha * lp2[b];
     td[b] = r[b] + (1.f - term[b]) * discount * target_v;
-    const int X = S + A;
-    for (int d = 0; d < S; ++d) x[(ll)b * X + d] = s[(ll)b * S + d];
-    for (int j = 0; j < A; ++j) x[(ll)b * X + S + j] = a[(ll)b * A + j];
   }
 };
 
@@ -393,6 +429,8 @@ struct CriticDq {
   const float *q, *td, *w;
   int B;
   float *dq, *min_q;
+  template <int NT>
+  __device__ void stage(int, int) const {}
   __device__ void operator()(int b) const {
     const float c = 2.f / (float)B;
     dq[b] = c * w[b] * (q[b] - td[b]);
@@ -406,6 +444,8 @@ struct SelectDq {
   const float* q;
   int B;
   float* dq;
+  template <int NT>
+  __device__ void stage(int, int) const {}
   __device__ void operator()(int b) const {
     const float sel1 = q[b] <= q[B + b] ? 1.f : 0.f;
     const float c = -1.f / (float)B;
@@ -525,6 +565,197 @@ struct Temperature {
   }
 };
 
+// ---- row-owned phases: a narrow product and the row step after it --------
+//
+// An item owns R consecutive batch rows. It copies their inputs and the
+// narrow weights into shared memory (cp.async where 16-byte aligned), runs
+// each output's fmaf chain over k in ascending order from +0 on one thread,
+// then, as the tile's epilogue, adds the bias (and masks); it stores the
+// outputs (the buffers keep what the tiles left in them) and runs the row
+// step's functor on its own rows. Each output is the padded tile's bit for
+// bit: the tile's padding only adds fmaf(0, 0, acc) == acc. Shared memory
+// is the block's dynamic array, as for the tile.
+
+constexpr int ROW_WAVE = 128;  // items a row-owned phase aims at: one round
+                               // on the K-blocked kernel's 128 SAC blocks
+
+// Row stride of staged rows of k floats: 16-byte rows that put the rows of
+// neighbouring threads' chains in distinct banks.
+__host__ __device__ inline int row_ld(int k) { return round_up(k, 4) + 4; }
+
+// Floats an item of R rows stages, at most: the action rows' dz1 (2R rows),
+// the critic's W1 action rows (2A), the actor's h2 (R) and its W3 (H x 2A).
+__host__ __device__ inline int row_floats(int R, int A, int H) {
+  return (3 * R + 2 * A) * row_ld(H) + round_up(2 * A * H, 4);
+}
+
+// R: the batch over ROW_WAVE items, fewer rows where they would outgrow the
+// GEMM's shared memory (at least 1: the kernel's shared memory then grows).
+__host__ __device__ inline int head_rows(int B, int S, int A, int H) {
+  const int have = (int)(gemm_smem_bytes(gemm_depth(B, S, A, H)) / sizeof(float));
+  int R = cdiv(B, ROW_WAVE);
+  while (R > 1 && row_floats(R, A, H) > have) --R;
+  return R;
+}
+
+// Dynamic shared memory of an update: the GEMM's or a row-owned item's.
+__host__ __device__ inline size_t step_smem_bytes(int B, int S, int A, int H) {
+  const size_t g = gemm_smem_bytes(gemm_depth(B, S, A, H));
+  const size_t r = sizeof(float) * (size_t)row_floats(head_rows(B, S, A, H), A, H);
+  return g > r ? g : r;
+}
+
+// Rows [0, n) of k floats at src (row stride so) into dst (row stride ld, a
+// multiple of 4), committed as one cp.async group; see `staged`.
+template <int NT>
+__device__ void stage_rows(float* dst, int ld, const float* src, ll so, int n, int k) {
+  if (((unsigned long long)src & 15) == 0 && k % 4 == 0 && so % 4 == 0) {
+    const int q = k / 4;
+    for (int e = threadIdx.x; e < n * q; e += NT) {
+      const int r = e / q, c = 4 * (e % q);
+      cp_async16(dst + r * ld + c, src + r * so + c);
+    }
+  } else {
+    for_batched<NT>(n * k, [&](int e, bool load, float v) {
+      const int r = e / k, c = e % k;
+      if (load) return __ldcg(src + r * so + c);
+      dst[r * ld + c] = v;
+      return 0.f;
+    });
+  }
+}
+
+// Every staged copy landed and is seen by the whole block.
+__device__ __forceinline__ void staged() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
+
+// sum_k x[k] w[k wk], one fmaf chain in ascending k from +0.
+__device__ __forceinline__ float row_chain(const float* x, const float* w, int wk, int k) {
+  float acc = 0.f;
+#pragma unroll 8
+  for (int i = 0; i < k; ++i) acc = fmaf(x[i], w[i * wk], acc);
+  return acc;
+}
+
+// The actor's head on s' and on s, o (B, 2A) = h2 (B, H) @ W3 (H, 2A) + b3,
+// then HeadSample on each: the tiles' phase and the head samples' phase.
+struct ActorHeads {
+  const float *h2a, *h2b, *W, *bias;  // ah2, bh2; the actor's W3, b3
+  int H, O;
+  float *oa, *ob;                     // ao, bo
+  HeadSample sa, sb;
+  template <int NT>
+  __device__ void run(int r0, int nr) const {
+    extern __shared__ __align__(16) float smem[];
+    const int ld = row_ld(H);
+    float* xs = smem;  // product p's row r at (p nr + r) ld
+    float* ws = smem + 2 * nr * ld;
+    stage_rows<NT>(xs, ld, h2a + (ll)r0 * H, H, nr, H);
+    stage_rows<NT>(xs + nr * ld, ld, h2b + (ll)r0 * H, H, nr, H);
+    stage_rows<NT>(ws, 0, W, 0, 1, H * O);
+    sa.template stage<NT>(r0, nr);
+    sb.template stage<NT>(r0, nr);
+    staged();
+    for (int e = threadIdx.x; e < 2 * nr * O; e += NT) {
+      const int pr = e / O, n = e % O;
+      const float v = row_chain(xs + pr * ld, ws + n, O, H) + bias[n];
+      (pr < nr ? oa : ob)[(ll)(r0 + pr % nr) * O + n] = v;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < 2 * nr; e += NT) {
+      if (e < nr) sa(r0 + e);
+      else sb(r0 + e - nr);
+    }
+  }
+};
+
+// Both twins' Q head, q[z](b) = h2[z] (B, H) @ W3[z] (H, 1) + b3[z], then
+// the row step F on the rows; where dz2 is given, also dz2[z] (B, H) =
+// (dq[z] W3[z]^T) * (h2[z] > 0), the rank-1 input gradient of the step's
+// dq, as the tile's k = 1 product: fmaf(dq, W3, +0), masked.
+template <class F>
+struct TwinHead {
+  const float *h2, *W, *bias;  // h2 (2, B, H); the critic's W3 (2, H, 1), b3 (2, 1)
+  int B, H;
+  float* q;                    // (2, B)
+  F step;
+  const float* dq;             // (2, B), the step's output, where dz2 is given
+  float* dz2;
+  template <int NT>
+  __device__ void run(int r0, int nr) const {
+    extern __shared__ __align__(16) float smem[];
+    const int ld = row_ld(H);
+    float* xs = smem;  // twin z's row r at (z nr + r) ld
+    float* ws = smem + 2 * nr * ld;
+    stage_rows<NT>(xs, ld, h2 + (ll)r0 * H, H, nr, H);
+    stage_rows<NT>(xs + nr * ld, ld, h2 + (ll)(B + r0) * H, H, nr, H);
+    stage_rows<NT>(ws, 0, W, 0, 1, 2 * H);
+    step.template stage<NT>(r0, nr);
+    staged();
+    for (int e = threadIdx.x; e < 2 * nr; e += NT) {
+      const int z = e / nr, r = e % nr;
+      q[(ll)z * B + r0 + r] = row_chain(xs + e * ld, ws + z * H, 1, H) + bias[z];
+    }
+    __syncthreads();
+    for (int r = threadIdx.x; r < nr; r += NT) step(r0 + r);
+    if (!dz2) return;
+    __syncthreads();
+    for (int e = threadIdx.x; e < 2 * nr * H; e += NT) {
+      const int zr = e / H, h = e % H, z = zr / nr;
+      const ll b = (ll)z * B + r0 + zr % nr;
+      dz2[b * H + h] = xs[zr * ld + h] > 0.f ? fmaf(dq[b], ws[z * H + h], 0.f) : 0.f;
+    }
+  }
+};
+
+// The action columns of the updated critic's input gradient, da[z] (B, A) =
+// dz1[z] (B, H) @ W1[z][S:, :]^T; HeadBackward on the rows; then the actor's
+// adz2 (B, H) = (dout (B, 2A) @ W3^T) * (h2 > 0), a 2A-deep chain.
+struct ActionRows {
+  const float *dz1, *W1a;  // dz1 (2, B, H); the critic's W1 from row S, twin stride X H
+  ll w_z;
+  int B, A, H;
+  float* da;               // (2, B, A)
+  HeadBackward back;       // writes dout (B, 2A)
+  const float *h2, *W3;    // the actor's bh2 (B, H) and W3 (H, 2A)
+  float* adz2;
+  template <int NT>
+  __device__ void run(int r0, int nr) const {
+    extern __shared__ __align__(16) float smem[];
+    const int ld = row_ld(H), O = 2 * A;
+    float* xs = smem;               // twin z's dz1 row r at (z nr + r) ld
+    float* ws = xs + 2 * nr * ld;   // twin z's W1 row S + j at (z A + j) ld
+    float* hs = ws + 2 * A * ld;    // h2 row r at r ld
+    float* w3 = hs + nr * ld;       // W3 (H, 2A) transposed: (k, h) at k H + h
+    stage_rows<NT>(xs, ld, dz1 + (ll)r0 * H, H, nr, H);
+    stage_rows<NT>(xs + nr * ld, ld, dz1 + (ll)(B + r0) * H, H, nr, H);
+    stage_rows<NT>(ws, ld, W1a, H, A, H);
+    stage_rows<NT>(ws + A * ld, ld, W1a + w_z, H, A, H);
+    stage_rows<NT>(hs, ld, h2 + (ll)r0 * H, H, nr, H);
+    for (int e = threadIdx.x; e < H * O; e += NT) w3[e] = W3[(ll)(e % H) * O + e / H];
+    staged();
+    for (int e = threadIdx.x; e < 2 * nr * A; e += NT) {
+      const int zr = e / A, j = e % A, z = zr / nr;
+      da[((ll)z * B + r0 + zr % nr) * A + j] = row_chain(xs + zr * ld, ws + (z * A + j) * ld, 1, H);
+    }
+    __syncthreads();
+    for (int r = threadIdx.x; r < nr; r += NT) back(r0 + r);
+    __syncthreads();
+    for (int e = threadIdx.x; e < nr * H; e += NT) {
+      const int r = e / H, h = e % H;
+      const float* d = back.dout + (ll)(r0 + r) * O;
+      float v = 0.f;
+      if (hs[r * ld + h] > 0.f) {
+        for (int k = 0; k < O; ++k) v = fmaf(d[k], w3[k * H + h], v);
+      }
+      adz2[(ll)(r0 + r) * H + h] = v;
+    }
+  }
+};
+
 // ------------------------------------------------------------ the update
 
 struct Hyper {
@@ -616,17 +847,23 @@ inline ll scratch_floats(int B, int S, int A, int H) {
   return sc.used;
 }
 
-// One SAC update in place, as 29 phases:
-//   TD target (actor on s' -> head sample -> target twin -> td), with the
+// One SAC update in place, as 21 phases:
+//   TD target (actor on s' -> head samples -> target twin -> td), with the
 //   actor's forward on s alongside, since the actor is not written before
 //   its own AdamW; critic forward, backward, AdamW + Polyak; the UPDATED
 //   critic's action gradient; the actor backward and AdamW; last the
-//   temperature, which alone advances the three Adam clocks.
+//   temperature, which alone advances the three Adam clocks. The narrow
+//   heads run row-owned with their row steps (phases 3, 6, 9, 15, 17); the
+//   last layers' weight and bias gradients, whose tiles are as deep as the
+//   first layers', share the first layers' weight-gradient phases (11, 19),
+//   which have room in one round. Host and device: gx::PlanExec counts it.
+#pragma nv_exec_check_disable
 template <class Exec>
-__device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int B, int S, int A,
+__host__ __device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int B, int S, int A,
                                   int H, const Hyper& h) {
   const int X = S + A, O = 2 * A;
   const ll BH = (ll)B * H;
+  const int R = head_rows(B, S, A, H);
 
   // ---- actor on s' (TD target) and on s (actor step) -----------------------
   ex.gemm(linear(p.s2, 0, p.aw[0], p.aw[1], f.ah1, B, S, H, true), 1);
@@ -635,11 +872,9 @@ __device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int B, int S
   ex.gemm(linear(f.ah1, 0, p.aw[2], p.aw[3], f.ah2, B, H, H, true), 1);
   ex.gemm(linear(f.bh1, 0, p.aw[2], p.aw[3], f.bh2, B, H, H, true), 1);
   ex.sync();
-  ex.gemm(linear(f.ah2, 0, p.aw[4], p.aw[5], f.ao, B, H, O, false), 1);
-  ex.gemm(linear(f.bh2, 0, p.aw[4], p.aw[5], f.bo, B, H, O, false), 1);
-  ex.sync();
-  ex.rows(B, HeadSample{f.ao, p.eps2, p.s2, p.ab, S, A, f.lp2, f.x2});
-  ex.rows(B, HeadSample{f.bo, p.eps_new, p.s, nullptr, S, A, p.lp_out, f.xn});
+  ex.row_items(B, R, ActorHeads{f.ah2, f.bh2, p.aw[4], p.aw[5], H, O, f.ao, f.bo,
+                                HeadSample{f.ao, p.eps2, p.s2, p.ab, S, A, f.lp2, f.x2},
+                                HeadSample{f.bo, p.eps_new, p.s, nullptr, S, A, p.lp_out, f.xn}});
   ex.sync();
 
   // ---- target twin on [s', a'], TD target ---------------------------------
@@ -647,11 +882,11 @@ __device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int B, int S
   ex.sync();
   ex.gemm(linear(f.th1, BH, p.tw[2], p.tw[3], f.th2, B, H, H, true), 2);
   ex.sync();
-  ex.gemm(linear(f.th2, BH, p.tw[4], p.tw[5], f.tq, B, H, 1, false), 2);
-  ex.sync();
   ex.await_rewards();  // the first phase that reads p.r
-  ex.rows(B, Td{f.tq, p.r, p.term, p.ab, f.lp2, p.la, h.min_alpha, h.discount, p.s, p.a, B, S, A,
-                f.td, f.x});
+  ex.row_items(B, R, TwinHead<Td>{f.th2, p.tw[4], p.tw[5], B, H, f.tq,
+                                  Td{f.tq, p.r, p.term, p.ab, f.lp2, p.la, h.min_alpha,
+                                     h.discount, p.s, p.a, B, S, A, f.td, f.x},
+                                  nullptr, nullptr});
   ex.sync();
 
   // ---- critic forward, backward, AdamW + Polyak ---------------------------
@@ -659,13 +894,9 @@ __device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int B, int S
   ex.sync();
   ex.gemm(linear(f.ch1, BH, p.cw[2], p.cw[3], f.ch2, B, H, H, true), 2);
   ex.sync();
-  ex.gemm(linear(f.ch2, BH, p.cw[4], p.cw[5], f.cq, B, H, 1, false), 2);
-  ex.sync();
-  ex.rows(B, CriticDq{f.cq, f.td, p.w, B, f.dq, p.minq_out});
-  ex.sync();
-  ex.gemm(weight_grad(f.ch2, BH, f.dq, f.gc[4], B, H, 1), 2);
-  ex.cols(2, Colsum{f.dq, B, 1, f.gc[5]});
-  ex.gemm(input_grad(f.dq, p.cw[4], H, f.ch2, f.dz2, H, B, H, 1), 2);
+  ex.row_items(B, R, TwinHead<CriticDq>{f.ch2, p.cw[4], p.cw[5], B, H, f.cq,
+                                        CriticDq{f.cq, f.td, p.w, B, f.dq, p.minq_out},
+                                        f.dq, f.dz2});
   ex.sync();
   ex.gemm(weight_grad(f.ch1, BH, f.dz2, f.gc[2], B, H, H), 2);
   ex.cols(2 * H, Colsum{f.dz2, B, H, f.gc[3]});
@@ -673,6 +904,8 @@ __device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int B, int S
   ex.sync();
   ex.gemm(weight_grad(f.x, 0, f.dz1, f.gc[0], B, X, H), 2);
   ex.cols(2 * H, Colsum{f.dz1, B, H, f.gc[1]});
+  ex.gemm(weight_grad(f.ch2, BH, f.dq, f.gc[4], B, H, 1), 2);
+  ex.cols(2, Colsum{f.dq, B, 1, f.gc[5]});
   ex.sync();
   const ll csz[6] = {2LL * X * H, 2LL * H, 2LL * H * H, 2LL * H, 2LL * H, 2};
 #pragma unroll
@@ -686,31 +919,28 @@ __device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int B, int S
   ex.sync();
   ex.gemm(linear(f.th1, BH, p.cw[2], p.cw[3], f.th2, B, H, H, true), 2);
   ex.sync();
-  ex.gemm(linear(f.th2, BH, p.cw[4], p.cw[5], f.tq, B, H, 1, false), 2);
-  ex.sync();
-  ex.rows(B, SelectDq{f.tq, B, f.dq});
-  ex.sync();
-  ex.gemm(input_grad(f.dq, p.cw[4], H, f.th2, f.dz2, H, B, H, 1), 2);
+  ex.row_items(B, R, TwinHead<SelectDq>{f.th2, p.cw[4], p.cw[5], B, H, f.tq,
+                                        SelectDq{f.tq, B, f.dq}, f.dq, f.dz2});
   ex.sync();
   ex.gemm(input_grad(f.dz2, p.cw[2], (ll)H * H, f.th1, f.dz1, H, B, H, H), 2);
   ex.sync();
-  // only the action columns of dx: dz1 @ W1[S:, :]^T, no mask
-  ex.gemm(input_grad(f.dz1, p.cw[0] + (ll)S * H, (ll)X * H, nullptr, f.da, A, B, A, H), 2);
+  // only the action columns of dx: dz1 @ W1[S:, :]^T, no mask; then the
+  // actor's head backward and its adz2
+  ex.row_items(B, R, ActionRows{f.dz1, p.cw[0] + (ll)S * H, (ll)X * H, B, A, H, f.da,
+                                HeadBackward{f.bo, p.eps_new, f.da, p.w, p.ab, p.la, h.min_alpha,
+                                             B, A, f.dout},
+                                f.bh2, p.aw[4], f.adz2});
   ex.sync();
 
   // ---- actor backward + AdamW ---------------------------------------------
-  ex.rows(B, HeadBackward{f.bo, p.eps_new, f.da, p.w, p.ab, p.la, h.min_alpha, B, A, f.dout});
-  ex.sync();
-  ex.gemm(weight_grad(f.bh2, 0, f.dout, f.ga[4], B, H, O), 1);
-  ex.cols(O, Colsum{f.dout, B, O, f.ga[5]});
-  ex.gemm(input_grad(f.dout, p.aw[4], 0, f.bh2, f.adz2, H, B, H, O), 1);
-  ex.sync();
   ex.gemm(weight_grad(f.bh1, 0, f.adz2, f.ga[2], B, H, H), 1);
   ex.cols(H, Colsum{f.adz2, B, H, f.ga[3]});
   ex.gemm(input_grad(f.adz2, p.aw[2], 0, f.bh1, f.adz1, H, B, H, H), 1);
   ex.sync();
   ex.gemm(weight_grad(p.s, 0, f.adz1, f.ga[0], B, S, H), 1);
   ex.cols(H, Colsum{f.adz1, B, H, f.ga[1]});
+  ex.gemm(weight_grad(f.bh2, 0, f.dout, f.ga[4], B, H, O), 1);
+  ex.cols(O, Colsum{f.dout, B, O, f.ga[5]});
   ex.sync();
   const ll asz[6] = {(ll)S * H, H, (ll)H * H, H, (ll)H * O, O};
 #pragma unroll

@@ -58,7 +58,7 @@ extern "C" long long iltpu_phases_scratch_floats(int B, int S, int A, int H) {
 }
 
 // One timed update on every co-resident block; the pointers and scratch
-// are iltpu_sac_update's, `stamps` holds 30 u64.
+// are iltpu_sac_update's, `stamps` holds 22 u64 (the update's 21 phases).
 extern "C" int iltpu_phases_update(void* const* ptr, int B, int S, int A, int H, float lr, float wd,
                                    float alpha_lr, float discount, float entropy_target,
                                    float polyak, float polyak_c, float min_alpha, void* scratch,
@@ -73,7 +73,7 @@ extern "C" int iltpu_phases_update(void* const* ptr, int B, int S, int A, int H,
   k.B = B; k.S = S; k.A = A; k.H = H;
   const int kmax = sac::gemm_depth(B, S, A, H);
   k.kc = sac::gemm_chunk(kmax);
-  const size_t smem = sac::gemm_smem_bytes(kmax);
+  const size_t smem = sac::step_smem_bytes(B, S, A, H);
   cudaError_t e = cudaFuncSetAttribute(timed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;

@@ -8,16 +8,20 @@
 // 256, depth 2, twin critic) one update is about 0.55 GFLOP of fp32 products
 // (under 10 us at the 67 TFLOP/s fp32 rate without tensor cores) and moves
 // about 6 MB of parameters, moments and target (under 2 us at 3.35 TB/s).
-// Neither sets its time: the update is 29 dependent phases of one wave of
-// small tiles each, so the latency of a phase (one panel copy, one 256-long
-// fmaf chain, one barrier) times 29 does, plus the host's issue of the call.
-// The design against that:
+// Neither sets its time: the update is 21 dependent phases of one wave of
+// small work items each, so the latency of a phase (one copy into shared
+// memory, one 256-long fmaf chain, one barrier) times 21 does, plus the
+// host's issue of the call. The design against that:
 //  - one launch, not one per job: `sac::sac_step` runs under gx::GridExec
 //    (grid_exec.cuh) on every co-resident block (cudaLaunchCooperativeKernel,
 //    512 threads a block, expected 132 blocks), each phase a grid-stride
 //    loop over its work items, phases separated by a barrier over the grid;
 //  - the GEMM tile copies its whole-depth panels into dynamic shared memory
 //    at once (sac_core.cuh), opted in past the 48 KB static limit;
+//  - the narrow heads run row-owned, each item a few batch rows whole with
+//    the row step after the head in the same phase (sac_core.cuh), so an
+//    update crosses 21 barriers, 8 fewer than with tiles;
+//    `iltpu_sac_plan` counts them and the row-owned items at a shape;
 //  - the block size and the temperature phase's logical width are the
 //    K-blocked kernel's (kblock_update.cu), so K of these launches and one
 //    K-blocked launch give the same bits.
@@ -56,12 +60,14 @@ __global__ void __launch_bounds__(THREADS) sac_kernel(const __grid_constant__ SA
 }
 
 // Dynamic shared memory, co-resident blocks per SM, and SMs. Queried once
-// per GEMM depth and cached: a launch then makes no call that a CUDA graph
-// capture refuses (the opt-in and the occupancy query are not stream work).
-cudaError_t config(int kmax, size_t* smem, int* per_sm, int* sms) {
-  static int cached_kmax = -1, cached_per_sm = 0, cached_sms = 0;
-  *smem = sac::gemm_smem_bytes(kmax);
-  if (kmax != cached_kmax) {
+// per shared-memory size and cached: a launch then makes no call that a CUDA
+// graph capture refuses (the opt-in and the occupancy query are not stream
+// work).
+cudaError_t config(int B, int S, int A, int H, size_t* smem, int* per_sm, int* sms) {
+  static size_t cached_smem = 0;
+  static int cached_per_sm = 0, cached_sms = 0;
+  *smem = sac::step_smem_bytes(B, S, A, H);
+  if (*smem != cached_smem) {
     cudaError_t e = cudaFuncSetAttribute(sac_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)*smem);
     if (e != cudaSuccess) return e;
@@ -72,7 +78,7 @@ cudaError_t config(int kmax, size_t* smem, int* per_sm, int* sms) {
     if (e != cudaSuccess) return e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached_per_sm, sac_kernel, THREADS, *smem);
     if (e != cudaSuccess) return e;
-    cached_kmax = kmax;
+    cached_smem = *smem;
   }
   *per_sm = cached_per_sm;
   *sms = cached_sms;
@@ -96,13 +102,25 @@ extern "C" void iltpu_sac_buffers(int B, int S, int A, int H, long long* out) {
   sac::carve(sc, B, S, A, H);
 }
 
+// The plan of one update at a shape, counted by running sac::sac_step on
+// the host (gx::PlanExec): the barriers it crosses and its row-owned items.
+extern "C" void iltpu_sac_plan(int B, int S, int A, int H, int* phases, int* row_items) {
+  gx::PlanExec ex;
+  sac::Scratch sc = {nullptr};
+  const sac::Buffers f = sac::carve(sc, B, S, A, H);
+  const sac::Ptrs p = {};
+  sac::sac_step(ex, p, f, B, S, A, H, sac::Hyper{});
+  *phases = ex.phases;
+  *row_items = ex.row_items_run;
+}
+
 extern "C" const char* iltpu_sac_error(int e) { return cudaGetErrorString((cudaError_t)e); }
 
 // The launch's grid and dynamic shared memory: co-resident blocks per SM,
 // SMs, bytes.
 extern "C" int iltpu_sac_grid(int B, int S, int A, int H, int* per_sm, int* sms, long long* smem) {
   size_t bytes = 0;
-  const cudaError_t e = config(sac::gemm_depth(B, S, A, H), &bytes, per_sm, sms);
+  const cudaError_t e = config(B, S, A, H, &bytes, per_sm, sms);
   *smem = (long long)bytes;
   return (int)e;
 }
@@ -123,7 +141,7 @@ extern "C" int iltpu_sac_update(void* const* ptr, int B, int S, int A, int H, fl
 
   size_t smem = 0;
   int per_sm = 0, sms = 0;
-  cudaError_t e = config(kmax, &smem, &per_sm, &sms);
+  cudaError_t e = config(B, S, A, H, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);

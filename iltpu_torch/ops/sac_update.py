@@ -227,6 +227,8 @@ def _bind(lib):
         lib.iltpu_sac_grid.restype = ctypes.c_int
         lib.iltpu_sac_error.argtypes = [ctypes.c_int]
         lib.iltpu_sac_error.restype = ctypes.c_char_p
+        lib.iltpu_sac_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+        lib.iltpu_sac_plan.restype = None
         lib._typed = True
     return lib
 
@@ -322,6 +324,17 @@ def grid(lib, B: int, S: int, A: int, H: int):
     if rc != 0:
         raise RuntimeError(f"sac_update occupancy query failed: {_error(lib, rc)}")
     return per_sm.value, sms.value, smem.value
+
+
+def plan(lib, B: int, S: int, A: int, H: int) -> Dict[str, int]:
+    """The plan of one update at a shape, as the library counts it by
+    running its update on the host with no data: `phases`, the grid
+    barriers an update crosses (the K-blocked kernel's micro-update crosses
+    as many), and `row_items`, its row-owned work items (the narrow heads
+    with their row steps)."""
+    phases, row_items = ctypes.c_int(0), ctypes.c_int(0)
+    _bind(lib).iltpu_sac_plan(B, S, A, H, ctypes.byref(phases), ctypes.byref(row_items))
+    return {"phases": phases.value, "row_items": row_items.value}
 
 
 def _error(lib, rc: int) -> str:

@@ -8,10 +8,12 @@ phase by phase.
 
 Needs one CUDA card. The SAC mode builds `csrc/sac_phases.cu` (the update of
 `csrc/sac_update.cu` with a timestamp after each phase's barrier), runs a
-full-width update (pointmass: state 5, action 2; batch 256, width 256) five
-times on a fresh state, and prints one JSON line: the median microseconds
-of each of the 29 phases (barrier included) and of the whole kernel, and
-the time of one bare barrier crossing over every block. The GAIL mode
+full-width update (width 256) five times on a fresh state at pointmass's
+(state 5, action 2, batch 256), hopper's (12, 3, 256) and ant's (112, 8,
+1024) shapes, and prints one JSON line a shape: the median microseconds of
+each of the 21 phases (barrier included) and of the whole kernel, the
+update's plan (`sac_update.plan`: barriers and row-owned items), and the
+time of one bare barrier crossing over every block. The GAIL mode
 builds `csrc/gail_phases.cu` (the step of `csrc/gail_update.cu` with a
 barrier and a timestamp after each of its phases: six for a tiled step;
 seven for the wide one's cluster, block 0's clock, where the segments'
@@ -52,14 +54,17 @@ from iltpu_torch.ops import sac_update as su
 from iltpu_torch.rewards import GAILDiscriminator
 from iltpu_torch.updates import SACLearner
 
+# One name a phase of `sac::sac_step`, in order; "rows:" marks a row-owned
+# phase (a narrow product with the row step after it).
 PHASES = (
-    "actor L1 on s' and s", "actor L2", "actor L3", "head samples", "target L1", "target L2",
-    "target L3", "TD target", "critic L1", "critic L2", "critic L3", "critic dq",
-    "critic grad L3, dz2", "critic grad L2, dz1", "critic grad L1", "critic AdamW + Polyak",
-    "updated critic L1", "updated critic L2", "updated critic L3", "select dq", "input grad L3",
-    "input grad L2", "action grad", "head backward", "actor grad L3", "actor grad L2",
-    "actor grad L1", "actor AdamW", "temperature",
+    "actor L1 on s' and s", "actor L2", "rows: actor L3, head samples", "target L1", "target L2",
+    "rows: target L3, TD target", "critic L1", "critic L2", "rows: critic L3, dq, dz2",
+    "critic grad L2, dz1", "critic grad L1 and L3", "critic AdamW + Polyak", "updated critic L1",
+    "updated critic L2", "rows: updated critic L3, select dq, dz2", "input grad L2",
+    "rows: action grad, head backward, adz2", "actor grad L2, adz1", "actor grad L1 and L3",
+    "actor AdamW", "temperature",
 )
+SAC_SHAPES = ((5, 2, 256), (12, 3, 256), (112, 8, 1024))
 GAIL_PHASES = {
     "tiled": ("state and batch to shared memory, sigma", "loss rows", "penalty rows",
               "weight gradients, through sigma, AdamW", "power iteration", "reward rows"),
@@ -98,9 +103,9 @@ def _case(dev, S=5, A=2, B=256, H=256):
     return learner.hyper, learner.init(g), batch, r(B, A), r(B, A)
 
 
-def phases(lib, dev, runs=5):
+def phases(lib, dev, runs=5, S=5, A=2, B=256):
     """Median us of each phase and of the whole update over `runs` updates."""
-    h, st, batch, eps2, eps_new = _case(dev)
+    h, st, batch, eps2, eps_new = _case(dev, S, A, B)
     B, S = batch["states"].shape
     A, H = eps2.shape[1], st["a"][0].shape[1]
     ops = su._operands(st, batch, eps2, eps_new)
@@ -311,13 +316,15 @@ def main(argv=None):
     dev = torch.device("cuda")
     if mode == "sac":
         lib = _bind(build.load("sac_phases"))
-        per_phase, total = phases(lib, dev)
         bar, blocks = barrier_us(lib, dev)
-        print(json.dumps({
-            "update_us": total, "barrier_us": bar, "blocks": blocks,
-            "phases_us": {f"{i + 1:2d} {name}": round(t, 2) for i, (name, t) in
-                          enumerate(zip(PHASES, per_phase))},
-        }))
+        for S, A, B in SAC_SHAPES:
+            per_phase, total = phases(lib, dev, S=S, A=A, B=B)
+            print(json.dumps({
+                "shape": f"B={B} S={S} A={A} H=256", "update_us": total, "barrier_us": bar,
+                "blocks": blocks, "plan": su.plan(build.load("sac_update"), B, S, A, 256),
+                "phases_us": {f"{i + 1:2d} {name}": round(t, 2) for i, (name, t) in
+                              enumerate(zip(PHASES, per_phase))},
+            }))
     elif mode == "pwil":
         lib = _bind_pwil(build.load("pwil_phases"))
         print(json.dumps({"clusters_at_once": {c: lib.iltpu_pwil_active_clusters(c)

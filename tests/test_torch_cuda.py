@@ -3,12 +3,14 @@ one): PWIL's transport kernel and the GAIL step's wide variant against
 their plain versions, the K-blocked kernel with the wide GAIL step against
 per-update calls bit for bit, the wrappers' bound launch tables against
 fresh ones bit for bit, SAC's later chunks on ant's rows against a
-float64 run, and a chunk of the on-device loop replayed
-from CUDA graphs against the same chunk run eagerly. This file imports neither JAX nor iltpu, so it also runs where
+float64 run, the SAC step's bits pinned by digests, and a chunk of the
+on-device loop replayed from CUDA graphs against the same chunk run eagerly. This file imports neither JAX nor iltpu, so it also runs where
 JAX is absent:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
+
+import hashlib
 
 import pytest
 import torch
@@ -200,6 +202,125 @@ def test_sac_ant_chunks_within_float64(cuda, tmp_path):
     _, launched = cs.check_against_cpu(cuda, cs.native_env("ant"), rows=cs.native_rows("ant"),
                                        iterations=1, watched=2, out=str(tmp_path))
     assert launched["sac_update"] == 8 and launched["gail_update"] == 8
+
+
+def _to(st, dev):
+    """A state, batch or noise dict with its tensors on `dev`."""
+    return {k: [t.to(dev) for t in v] if isinstance(v, list) else
+            v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in st.items()}
+
+
+class _KeptEmpty:
+    """The torch module, keeping the tensors its `empty` makes: put in a
+    wrapper's place of torch, it hands over the launch's scratch."""
+
+    def __init__(self):
+        self.made = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def empty(self, *args, **kwargs):
+        self.made.append(torch.empty(*args, **kwargs))
+        return self.made[-1]
+
+
+def _launch_keeping_scratch(module, floats, call):
+    """call() with `module`'s torch.empty kept; the launch's scratch of
+    `floats` floats and call()'s result."""
+    kept = _KeptEmpty()
+    module.torch = kept
+    try:
+        out = call()
+    finally:
+        module.torch = torch
+    return next(t for t in kept.made if t.numel() == floats), out
+
+
+# (state, action, batch, min_alpha) of five SAC updates, or (state, action,
+# K) of one K-blocked launch at batch 256, and the digest of their bits
+SAC_BIT_CASES = {
+    "hopper": (12, 3, 256, 0.0),
+    "ant_1024": (112, 8, 1024, 0.0),  # batch past 512: the GEMM's chunked ring
+    "pointmass": (5, 2, 256, 0.0),
+    "pointmass_min_alpha": (5, 2, 256, 0.05),
+    "kblock4_hopper": (12, 3, 4),
+}
+SAC_BIT_DIGESTS = {
+    "hopper": "9ebcfe50dc4a7757650738a5aa3556ab1f0610117439fd969bde2986c1246d71",
+    "ant_1024": "7bf8fa363dc9db954f56096bd9e8420ebe29357ac2c890f968ad123e37d99dff",
+    "pointmass": "8a0dfff8febcc63c4fea012706cd99c2db4b8782fe6a13b51dd7a75194eb6eea",
+    "pointmass_min_alpha": "d94ae4d55f3316d2c132c898788d90adb7b3920c5b2211f19f4f62a64faaffe3",
+    "kblock4_hopper": "1396bcb855513a02d35bc535f2369a03fbb5e36565a82b49c2d8ea5303e63b6c",
+}
+
+
+def sac_bit_digest(case, dev):
+    """sha256 over the bits of SAC_BIT_CASES[case] on the card: after each
+    of five per-update launches (or the one K-blocked launch) every scratch
+    buffer `iltpu_sac_buffer_names` names, where `iltpu_sac_buffers` puts
+    it, and the aux outputs; then every leaf of the state. The inputs are
+    made on the CPU from fixed seeds, so every build meets the same ones."""
+    import ctypes
+
+    import chip_smoke as cs
+    from iltpu_torch import sac_drift
+    from iltpu_torch.ops import build
+    from iltpu_torch.ops import kblock_update as kb
+    from iltpu_torch.ops import sac_update as su
+
+    cpu, H = torch.device("cpu"), 256
+    lib = build.load("sac_update")
+    lib.iltpu_sac_buffer_names.restype = ctypes.c_char_p
+    lib.iltpu_sac_buffers.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    digest = hashlib.sha256()
+    feed = lambda t: digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+
+    def buffers(scratch, B, S, A):
+        for off, n in sac_drift.layout(lib, B, S, A, H).values():
+            feed(scratch[off:off + n])
+
+    if case.startswith("kblock"):
+        S, A, K = SAC_BIT_CASES[case]
+        sh, gh, sac_st, disc_st, batches, expert, noise = (
+            _to(x, dev) if isinstance(x, dict) else x
+            for x in cs.kblock_case(S, A, K, True, 0.0, cpu))
+        klib = kb._bind(build.load("kblock_update"))
+        floats = klib.iltpu_kblock_scratch_floats(K, 256, S, A, H, disc_st["p"][0].shape[1])
+        scratch, aux = _launch_keeping_scratch(kb, floats, lambda: kb.kblock_update(
+            sh, gh, sac_st, disc_st, batches, expert, noise))
+        buffers(scratch, 256, S, A)
+        for k in sorted(aux):
+            feed(aux[k])
+        states = (sac_st, disc_st)
+    else:
+        S, A, B, min_alpha = SAC_BIT_CASES[case]
+        h, st, steps = cs.sac_case(S, A, B, H, min_alpha, 1 + S + B, cpu)
+        st = _to(st, dev)
+        floats = su._bind(lib).iltpu_sac_scratch_floats(B, S, A, H)
+        for batch, eps2, eps_new in steps:
+            scratch, aux = _launch_keeping_scratch(su, floats, lambda: su.sac_update(
+                h, st, _to(batch, dev), eps2.to(dev), eps_new.to(dev)))
+            buffers(scratch, B, S, A)
+            for k in sorted(aux):
+                feed(aux[k])
+        states = (st,)
+    for st in states:
+        for _, t in cs.leaves(st):
+            feed(t)
+    return digest.hexdigest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SAC_BIT_CASES))
+def test_sac_step_bits_are_pinned(cuda, case):
+    """Five SAC updates at hopper's, ant's (batch 1024) and pointmass's
+    shapes (min_alpha 0 and 0.05), and one K-blocked launch of 4 at
+    hopper's: the state, the aux outputs and every scratch buffer hash to
+    the digests that the same function gave on a build of the kernels
+    before the narrow heads became row-owned (an H100 with torch
+    2.11.0+cu128; another torch may draw other inputs)."""
+    assert sac_bit_digest(case, cuda) == SAC_BIT_DIGESTS[case]
 
 
 SMALL = [

@@ -4,6 +4,9 @@ kernel in interpret mode (`sac_update_pallas`) and its autodiff update
 (`SACLearner.update`), on the fixture of tests/test_pallas_sac.py. The
 noise is iltpu's own draw for the key, handed to the port."""
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -221,3 +224,45 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_binds_nothing():
     for k in want:
         assert torch.equal(got[k], want[k]), k
     assert all(torch.equal(a, b) for a, b in zip(su.state_tensors(st), su.state_tensors(plain)))
+
+
+CORE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "iltpu_torch",
+                    "csrc", "sac_core.cuh")
+BUFFERS = ("x2 x xn ah1 ah2 ao bh1 bh2 bo lp2 td th1 th2 tq ch1 ch2 cq dq dz2 dz1 gc0 gc1 gc2 "
+           "gc3 gc4 gc5 da dout adz2 adz1 ga0 ga1 ga2 ga3 ga4 ga5").split()
+
+
+def _sac_step_source():
+    """The body of `sac::sac_step` in the CUDA source."""
+    with open(CORE) as f:
+        src = f.read()
+    body = src[src.index("void sac_step("):]
+    return body[:body.index("\n}\n")]
+
+
+def test_phase_timer_names_each_phase_of_the_sac_step():
+    """profile_phases.PHASES has one name a phase of the kernel's update:
+    one more than its barriers, counted in the source, the row-owned phases
+    marked as such, and no name twice."""
+    from iltpu_torch import profile_phases
+
+    body = _sac_step_source()
+    phases = profile_phases.PHASES
+    assert len(phases) == body.count("ex.sync();") + 1
+    assert sum(name.startswith("rows:") for name in phases) == body.count("ex.row_items(")
+    assert len(set(phases)) == len(phases)
+
+
+def test_buffer_names_keep_their_order_and_the_plain_trace_holds_each():
+    """`sac::BUFFER_NAMES` keeps its 36 names in carve's order (the drift
+    tool and the card test read the scratch by them), and the plain
+    version's trace records every one of them."""
+    with open(CORE) as f:
+        src = f.read()
+    decl = src[src.index("BUFFER_NAMES ="):]
+    decl = decl[:decl.index(";")]
+    assert "".join(re.findall(r'"([^"]*)"', decl)).split() == BUFFERS
+    tl, st, tb, eps2, eps_new, _ = _bound_operands()
+    trace = {}
+    su.sac_update_plain(tl.hyper, st, tb, eps2, eps_new, trace)
+    assert set(BUFFERS) <= set(trace)
