@@ -944,7 +944,7 @@ def check_kblock(S, A, bce, min_alpha, dev, timed, alpha=1.0):
     import torch
     from iltpu_torch.ops import gail_update as gu
     from iltpu_torch.ops import sac_update as su
-    from iltpu_torch.ops.kblock_update import _batch_operands, kblock_update, kblock_update_plain
+    from iltpu_torch.ops.kblock_update import kblock_update, kblock_update_plain
 
     name = f"kblock S={S} A={A} {'BCE' if bce else f'Mixup alpha {alpha}'} min_alpha={min_alpha}"
     worst, same, out = (0.0, 0.0), {}, None
@@ -984,7 +984,8 @@ def check_kblock(S, A, bce, min_alpha, dev, timed, alpha=1.0):
                                    None if bce else noise["mix"][k], wide) for k in range(K)]
                 flops = K * sac_flops(S, A, 256, 256) + sum(f for f, _ in gail)
                 state = su.state_tensors(sac_st) + gu.state_tensors(disc_st)
-                nbytes = 4 * (2 * numel(state) + numel(_batch_operands(batches, expert, noise))
+                slabs = [*batches.values(), *expert.values(), *noise.values()]
+                nbytes = 4 * (2 * numel(state) + numel(slabs)
                               + 3 * 256 + 2)
                 out = (ms, paced_ms, per_ms, plain_ms,
                        *bound_ms(flops, nbytes, sum(t for _, t in gail)))

@@ -157,12 +157,14 @@ def gail_update_plain(
 # --------------------------------------------------------------- kernel
 
 
+# The C entries' argument types before their own tail, as `entry_args` lays them out.
+ENTRY_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
+
+
 def _bind(lib):
     """Set the C signatures once, so no pointer is cut to 32 bits."""
     if not hasattr(lib, "_typed"):
-        lib.iltpu_gail_update.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
-        )
+        lib.iltpu_gail_update.argtypes = ENTRY_ARGTYPES + [ctypes.c_void_p]
         lib.iltpu_gail_update.restype = ctypes.c_int
         lib.iltpu_gail_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.iltpu_gail_smem_bytes.restype = ctypes.c_longlong
@@ -242,8 +244,22 @@ def check_hyper(h: GAILHyper, mix: Optional[torch.Tensor]) -> None:
         raise ValueError("mix must be given exactly for the Mixup loss")
 
 
-def batch_shapes(B: int, S: int, A: int, mixup: bool) -> List[tuple]:
-    return [(B, S), (B, A), (B,), (B, S), (B, A), (B,), (B,)] + ([(B,)] if mixup else [])
+def batch_shapes(B: int, S: int, A: int, mixup: bool, lead: tuple = ()) -> List[tuple]:
+    """The shapes of `_tail`'s operands, each after the leading dims `lead`
+    (the K-blocked kernel's (K,): its slabs of K micro-updates)."""
+    rows, s, a = (*lead, B), (*lead, B, S), (*lead, B, A)
+    return [s, a, rows, s, a, rows, rows] + ([rows] if mixup else [])
+
+
+def options(h: GAILHyper, st: Dict, mix: Optional[torch.Tensor]) -> tuple:
+    """The C entries' integer options, in order: spectral norm, the BCE
+    loss, the reward function's index."""
+    return int(bool(st["sn"])), int(mix is None), REWARD_FUNCTIONS.index(h.reward_function)
+
+
+def scalars(h: GAILHyper) -> tuple:
+    """The C entries' float arguments, in order."""
+    return h.grad_penalty, h.lr, h.weight_decay, h.entropy_bonus
 
 
 TABLE = operands.Table()  # the kernel's launch table, bound to the last state it launched on
@@ -256,9 +272,10 @@ def _tail(e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix) -> List[torch.Tensor]:
 
 
 def _bind_state(table: operands.Table, st: Dict, state, tail, shapes, S: int, A: int) -> None:
-    """Check every operand as an unbound call would (`shapes` the tail's),
-    then pack the state's pointers into `table`; counted in
+    """Check every operand as an unbound call would (one device; `shapes`
+    the tail's), then pack the state's pointers into `table`; counted in
     `gail_update.binds`."""
+    operands.placement("gail_update", state + tail)
     D, Hd = st["p"][0].shape
     if D != S + A:
         raise ValueError(f"discriminator input {D} != state {S} + action {A}")
@@ -267,20 +284,29 @@ def _bind_state(table: operands.Table, st: Dict, state, tail, shapes, S: int, A:
     gail_update.binds += 1
 
 
-def pack(table: operands.Table, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix, outs):
+def pack(table: operands.Table, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix, outs,
+         shapes: Optional[List[tuple]] = None):
     """The C entries' pointer array for these operands and outputs (loss,
     rewards), in `table`: the state's part checked and packed only when the
     state's leaves are not those `table` last bound, the rest written on
-    every call. Raises the ValueError of an unbound call for an operand
-    that does not fit. `gail_update` does the same on its own `TABLE`,
-    placing the operands first."""
+    every call. `shapes` are the tail's (default `batch_shapes`, one
+    step's). Raises the ValueError of an unbound call for an operand that
+    does not fit or operands on more than one device."""
     state, tail = state_tensors(st), _tail(e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix)
-    B, S = p_s.shape
-    A = p_a.shape[1]
-    shapes = batch_shapes(B, S, A, mix is not None)
+    B, S = p_s.shape[-2:]
+    A = p_a.shape[-1]
+    shapes = shapes or batch_shapes(B, S, A, mix is not None)
     if not table.holds(state, (S, A), tail, shapes):
         _bind_state(table, st, state, tail, shapes, S, A)
     return table.fill(tail[:7] + [mix, *outs])
+
+
+def entry_args(h: GAILHyper, st: Dict, mix: Optional[torch.Tensor], ptrs, B: int, S: int,
+               A: int) -> tuple:
+    """The C entries' arguments before their own tail (the stream; the
+    phase timer's variant, then stamps or the stream): the pointer array
+    (`pack`), the shape, the options, the scalars."""
+    return (ptrs, B, S, A, st["p"][0].shape[1], *options(h, st, mix), *scalars(h))
 
 
 def gail_update(
@@ -292,60 +318,28 @@ def gail_update(
     Mixup. Returns (loss (1,), rewards (B,)).
 
     On the card the state's operands are checked and their pointers packed
-    once (`TABLE`, `gail_update.binds`): a later call on the same leaves
-    checks and packs only the batches and draws."""
+    once (`pack` on `TABLE`, `gail_update.binds`): a later call on the same
+    leaves checks and packs only the batches and draws."""
     check_hyper(h, mix)
-    state, tail = state_tensors(st), _tail(e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix)
+    if p_s.is_cpu:  # raises unless every operand lies on the CPU
+        operands.placement("gail_update",
+                           state_tensors(st) + _tail(e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix))
+        return gail_update_plain(h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix)
     B, S = p_s.shape
     A = p_a.shape[1]
-    shapes = batch_shapes(B, S, A, mix is not None)
-    if not TABLE.holds(state, (S, A), tail, shapes):
-        if operands.placement("gail_update", state + tail) == "cpu":
-            return gail_update_plain(h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix)
-        _bind_state(TABLE, st, state, tail, shapes, S, A)
+    loss, rewards = torch.empty(1, device=p_s.device), torch.empty(B, device=p_s.device)
+    ptrs = pack(TABLE, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix, (loss, rewards))
     D, Hd = st["p"][0].shape
     smem_bytes(B, D, Hd)
-    dev = TABLE.device
-    loss, rewards = torch.empty(1, device=dev), torch.empty(B, device=dev)
-    args = _args(h, TABLE.fill(tail[:7] + [mix, loss, rewards]), B, S, A, Hd,
-                 bool(st["sn"]), mix is None)
-    launch(_bind(build.load("gail_update")), args, (B, D, Hd), operands.stream(dev))
-    gail_update.launches += 1
-    return loss, rewards
-
-
-def _args(h: GAILHyper, ptrs, B: int, S: int, A: int, Hd: int, sn: bool, bce: bool):
-    """The C entries' arguments before the stream: the pointer array, the
-    shape, the options."""
-    return (ptrs, B, S, A, Hd, int(sn), int(bce), REWARD_FUNCTIONS.index(h.reward_function),
-            h.grad_penalty, h.lr, h.weight_decay, h.entropy_bonus)
-
-
-def c_args(h: GAILHyper, st: Dict, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix):
-    """The C entries' arguments before the stream (the pointer array, the
-    shape, the options), with the outputs they write: (args, loss (1,),
-    rewards (B,)), the outputs from torch.empty, the array packed afresh."""
-    B, S = p_s.shape
-    A = p_a.shape[1]
-    Hd = st["p"][0].shape[1]
-    dev = p_s.device
-    loss = torch.empty(1, device=dev)
-    rewards = torch.empty(B, device=dev)
-    ptrs = pack(operands.Table(), st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix, (loss, rewards))
-    return _args(h, ptrs, B, S, A, Hd, bool(st["sn"]), mix is None), loss, rewards
-
-
-def launch(lib, args, shape, stream: int) -> None:
-    """Call the library's C entry with `args` (`_args`) on `stream`;
-    raises if the launch failed. The step needs no scratch (its working set
-    is in shared memory)."""
-    rc = lib.iltpu_gail_update(*args, stream)
+    rc = _bind(build.load("gail_update")).iltpu_gail_update(
+        *entry_args(h, st, mix, ptrs, B, S, A), operands.stream(TABLE.device))
     if rc == ERR_CLUSTER:
-        B, D, Hd = shape
         raise RuntimeError(f"gail_update: the card cannot hold a cluster of {blocks(B, D, Hd)} "
                            f"blocks with {smem_bytes(B, D, Hd)} bytes of shared memory each")
     if rc != 0:
         raise RuntimeError(f"gail_update kernel launch failed with CUDA error {rc}")
+    gail_update.launches += 1
+    return loss, rewards
 
 
 gail_update.launches = 0

@@ -33,7 +33,6 @@ from iltpu_torch.ops import sac_update as su
 
 POLICY_KEYS = ("states", "actions", "next_states", "terminals", "weights", "absorbing")
 EXPERT_KEYS = ("states", "actions", "weights")
-NOISE_KEYS = ("eps_gp", "eps2", "eps_new")
 
 
 @torch.no_grad()
@@ -74,12 +73,41 @@ def _bind(lib):
     return lib
 
 
-def _batch_operands(batches, expert_batches, noise):
+SAC_TABLE, GAIL_TABLE = operands.Table(), operands.Table()  # the kernel's launch tables
+
+
+def pointers(sac_table: operands.Table, gail_table: operands.Table, sac_st: Dict, disc_st: Dict,
+             batches: Dict[str, torch.Tensor], expert_batches: Dict[str, torch.Tensor],
+             noise: Dict[str, torch.Tensor], outs):
+    """The C entry's two pointer arrays: `sac_update.pack`'s in `sac_table`
+    and `gail_update.pack`'s in `gail_table`, with the batch and noise
+    pointers at the K-stacked slabs' bases (checked at those shapes) and
+    the SAC batch's rewards at the GAIL step's rewards output, which each
+    micro-update's GAIL step writes and its SAC step reads. `outs`: loss
+    (1,), rewards, log_probs, Q_values (B,), alpha (1,). As in the
+    per-update wrappers, each state is checked and packed once a table."""
+    loss, rewards, lp, min_q, alpha = outs
+    K, B, S = batches["states"].shape
+    A = batches["actions"].shape[-1]
     mix = noise.get("mix")
-    return (
-        [batches[k] for k in POLICY_KEYS] + [expert_batches[k] for k in EXPERT_KEYS]
-        + [noise[k] for k in NOISE_KEYS] + ([mix] if mix is not None else [])
-    )
+    sac_shapes = su.batch_shapes(S, A, B, (K,))
+    sac_shapes[su.BATCH_KEYS.index("rewards")] = (B,)  # one micro-update's, not a slab
+    sac = su.pack(sac_table, sac_st, {**batches, "rewards": rewards}, noise["eps2"],
+                  noise["eps_new"], [lp, min_q, alpha], sac_shapes)
+    gail = gu.pack(gail_table, disc_st, expert_batches["states"], expert_batches["actions"],
+                   expert_batches["weights"], batches["states"], batches["actions"],
+                   batches["weights"], noise["eps_gp"], mix, (loss, rewards),
+                   gu.batch_shapes(B, S, A, mix is not None, (K,)))
+    return sac, gail
+
+
+def entry_args(sac_hyper: su.SACHyper, gail_hyper: gu.GAILHyper, disc_st: Dict, mix, ptrs, shape,
+               scratch: torch.Tensor) -> tuple:
+    """The C entry's arguments before the stream: the two pointer arrays
+    (`pointers`), the shape (K, B, S, A, H, Hd), the GAIL step's options,
+    the SAC scalars, the GAIL scalars, the scratch."""
+    return (*ptrs, *shape, *gu.options(gail_hyper, disc_st, mix), *su.scalars(sac_hyper),
+            *gu.scalars(gail_hyper), scratch.data_ptr())
 
 
 def kblock_update(
@@ -89,33 +117,31 @@ def kblock_update(
 ) -> Dict[str, torch.Tensor]:
     """K micro-updates in place: one kernel launch on CUDA tensors, the
     plain version on CPU tensors; the K-stacked shapes are checked on
-    both. Returns the last micro-update's aux."""
+    both (`pointers` on `SAC_TABLE` and `GAIL_TABLE`, the states once a
+    table). Returns the last micro-update's aux."""
     mix = noise.get("mix")
     gu.check_hyper(gail_hyper, mix)
-    ops = (su.state_tensors(sac_st) + gu.state_tensors(disc_st)
-           + _batch_operands(batches, expert_batches, noise))
-    device = operands.placement("kblock_update", ops)
     K, B, S = batches["states"].shape
-    A = batches["actions"].shape[-1]
-    H = sac_st["a"][0].shape[1]
-    D, Hd = disc_st["p"][0].shape
-    if D != S + A:
-        raise ValueError(f"discriminator input {D} != state {S} + action {A}")
-    rows, cols = (K, B), (K, B, S)
-    operands.check("kblock_update", ops, (
-        su.state_shapes(S, A, H) + gu.state_shapes(D, Hd, bool(disc_st["sn"]))
-        + [cols, (K, B, A), cols, rows, rows, rows]  # policy
-        + [cols, (K, B, A), rows]  # expert
-        + [rows, (K, B, A), (K, B, A)] + ([rows] if mix is not None else [])  # noise
-    ))
-    if device == "cpu":
+    dev = batches["states"].device
+    outs = [torch.empty(n, device=dev) for n in (1, B, B, B, 1)]
+    ptrs = pointers(SAC_TABLE, GAIL_TABLE, sac_st, disc_st, batches, expert_batches, noise, outs)
+    if dev.type == "cpu":
         return kblock_update_plain(sac_hyper, gail_hyper, sac_st, disc_st, batches,
                                    expert_batches, noise)
-    gu.smem_bytes(B, D, Hd)  # raises where no GAIL variant can take the shape
-    aux = launch(_bind(build.load("kblock_update")), sac_hyper, gail_hyper, sac_st, disc_st,
-                 batches, expert_batches, noise, torch.cuda.current_stream(ops[0].device).cuda_stream)
+    A = batches["actions"].shape[2]
+    H = sac_st["a"][0].shape[1]
+    Hd = disc_st["p"][0].shape[1]
+    gu.smem_bytes(B, S + A, Hd)  # raises where no GAIL variant can take the shape
+    lib = _bind(build.load("kblock_update"))
+    scratch = torch.empty(lib.iltpu_kblock_scratch_floats(K, B, S, A, H, Hd), device=dev)
+    rc = lib.iltpu_kblock_update(
+        *entry_args(sac_hyper, gail_hyper, disc_st, mix, ptrs, (K, B, S, A, H, Hd), scratch),
+        operands.stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"kblock_update kernel launch failed: {_error(lib, rc)}")
     kblock_update.launches += 1
-    return aux
+    loss, rewards, lp, min_q, alpha = outs
+    return {"loss": loss, "rewards": rewards, "log_probs": lp, "Q_values": min_q, "alpha": alpha[0]}
 
 
 def grid(lib, B: int, S: int, A: int, H: int, Hd: int):
@@ -132,46 +158,6 @@ def grid(lib, B: int, S: int, A: int, H: int, Hd: int):
 
 def _error(lib, rc: int) -> str:
     return f"CUDA error {rc} ({lib.iltpu_kblock_error(rc).decode()})"
-
-
-def launch(lib, sac_hyper, gail_hyper, sac_st, disc_st, batches, expert_batches, noise,
-           stream: int):
-    """Pack the two per-update pointer layouts (batch and noise pointers at
-    the slab bases, the SAC rewards at the GAIL rewards output) and call
-    the library's C entry on `stream`; raises if the launch failed or was
-    refused. Outputs and scratch come from torch.empty."""
-    K, B, S = batches["states"].shape
-    A = batches["actions"].shape[2]
-    H = sac_st["a"][0].shape[1]
-    Hd = disc_st["p"][0].shape[1]
-    mix = noise.get("mix")
-    bce = int(mix is None)
-    dev = batches["states"].device
-    loss, alpha = torch.empty(1, device=dev), torch.empty(1, device=dev)
-    rewards, lp, min_q = (torch.empty(B, device=dev) for _ in range(3))
-    scratch = torch.empty(lib.iltpu_kblock_scratch_floats(K, B, S, A, H, Hd), device=dev)
-    tb, eb = batches, expert_batches
-    sac_ptrs = [t.data_ptr() for t in su.state_tensors(sac_st)] + [
-        t.data_ptr() for t in (tb["states"], tb["actions"], rewards, tb["next_states"],
-                               tb["terminals"], tb["weights"], tb["absorbing"], noise["eps2"],
-                               noise["eps_new"], lp, min_q, alpha)
-    ]
-    gail_ptrs = gu.state_pointers(disc_st) + [
-        t.data_ptr() for t in (eb["states"], eb["actions"], eb["weights"], tb["states"],
-                               tb["actions"], tb["weights"], noise["eps_gp"])
-    ] + [0 if mix is None else mix.data_ptr(), loss.data_ptr(), rewards.data_ptr()]
-    h, g = sac_hyper, gail_hyper
-    rc = lib.iltpu_kblock_update(
-        (ctypes.c_void_p * len(sac_ptrs))(*sac_ptrs), (ctypes.c_void_p * len(gail_ptrs))(*gail_ptrs),
-        K, B, S, A, H, Hd, int(bool(disc_st["sn"])), bce,
-        gu.REWARD_FUNCTIONS.index(g.reward_function),
-        h.lr, h.weight_decay, h.alpha_lr, h.discount, h.entropy_target, h.polyak,
-        1.0 - h.polyak, h.min_alpha, g.grad_penalty, g.lr, g.weight_decay, g.entropy_bonus,
-        scratch.data_ptr(), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"kblock_update kernel launch failed: {_error(lib, rc)}")
-    return {"loss": loss, "rewards": rewards, "log_probs": lp, "Q_values": min_q, "alpha": alpha[0]}
 
 
 kblock_update.launches = 0

@@ -103,11 +103,15 @@ def pwil_transport_plain(
     return (rewards, rounds) if count_rounds else rewards
 
 
+# The C entry's argument types before its own tail, as `entry_args` lays them out.
+ENTRY_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+
+
 def _bind(lib):
     """Set the C signatures once, so no pointer is cut to 32 bits."""
     if not hasattr(lib, "_typed"):
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.iltpu_pwil_transport.argtypes = [P] * 6 + [I] * 4 + [F] * 4 + [P]
+        I = ctypes.c_int
+        lib.iltpu_pwil_transport.argtypes = ENTRY_ARGTYPES + [ctypes.c_void_p]
         lib.iltpu_pwil_transport.restype = I
         lib.iltpu_pwil_cluster_size.argtypes = [I, I]
         lib.iltpu_pwil_cluster_size.restype = I
@@ -165,16 +169,26 @@ def pwil_transport(atoms, pools, queries, offsets, reset, *, atom_weight: float,
     return out
 
 
+def entry_args(atoms, pools, queries, offsets, reset, rewards, *, atom_weight, agent_weight,
+               bandwidth, scale) -> tuple:
+    """The C entry's arguments before its own tail (the stream; the phase
+    timer's: the stream, then stamps): the operands' and the rewards'
+    pointers, the atoms in `feature_major` order, then the sizes (P, N, d,
+    R) and the weights."""
+    (N, d), P, R = atoms.shape, pools.shape[0], queries.shape[0]
+    return (feature_major(atoms).data_ptr(), pools.data_ptr(), queries.data_ptr(),
+            offsets.data_ptr(), reset.data_ptr(), rewards.data_ptr(), P, N, d, R, atom_weight,
+            agent_weight, bandwidth, scale)
+
+
 def launch(lib, atoms, pools, queries, offsets, reset, *, atom_weight, agent_weight, bandwidth,
            scale, stream: int) -> torch.Tensor:
     """Call the C entry on checked operands; the rewards come from
     torch.empty."""
-    (N, d), P, R = atoms.shape, pools.shape[0], queries.shape[0]
-    rewards = torch.empty(R, device=atoms.device)
+    rewards = torch.empty(queries.shape[0], device=atoms.device)
     rc = lib.iltpu_pwil_transport(
-        feature_major(atoms).data_ptr(), pools.data_ptr(), queries.data_ptr(), offsets.data_ptr(),
-        reset.data_ptr(), rewards.data_ptr(), P, N, d, R, atom_weight, agent_weight, bandwidth,
-        scale, stream)
+        *entry_args(atoms, pools, queries, offsets, reset, rewards, atom_weight=atom_weight,
+                    agent_weight=agent_weight, bandwidth=bandwidth, scale=scale), stream)
     if rc != 0:
         raise RuntimeError(f"pwil_transport kernel launch failed: CUDA error {rc} "
                            f"({lib.iltpu_pwil_error(rc).decode()})")

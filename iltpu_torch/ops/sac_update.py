@@ -213,13 +213,14 @@ def sac_update_plain(
 # --------------------------------------------------------------- kernel
 
 
+# The C entries' argument types before their own tail, as `entry_args` lays them out.
+ENTRY_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float] * 8 + [ctypes.c_void_p]
+
+
 def _bind(lib):
     """Set the C signatures once, so no pointer is cut to 32 bits."""
     if not hasattr(lib, "_typed"):
-        lib.iltpu_sac_update.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float] * 8
-            + [ctypes.c_void_p, ctypes.c_void_p]
-        )
+        lib.iltpu_sac_update.argtypes = ENTRY_ARGTYPES + [ctypes.c_void_p]
         lib.iltpu_sac_update.restype = ctypes.c_int
         lib.iltpu_sac_scratch_floats.argtypes = [ctypes.c_int] * 4
         lib.iltpu_sac_scratch_floats.restype = ctypes.c_longlong
@@ -246,10 +247,6 @@ def _tail(batch, eps2, eps_new) -> List[torch.Tensor]:
     return [batch[k] for k in BATCH_KEYS] + [eps2, eps_new]
 
 
-def _operands(st, batch, eps2, eps_new) -> List[torch.Tensor]:
-    return state_tensors(st) + _tail(batch, eps2, eps_new)
-
-
 def state_shapes(S: int, A: int, H: int) -> List[tuple]:
     X = S + A
     actor = [(S, H), (H,), (H, H), (H,), (H, 2 * A), (2 * A,)]
@@ -257,35 +254,52 @@ def state_shapes(S: int, A: int, H: int) -> List[tuple]:
     return actor * 3 + critic * 4 + [(1,)] * 6
 
 
-def batch_shapes(S: int, A: int, B: int) -> List[tuple]:
-    return [(B, S), (B, A), (B,), (B, S), (B,), (B,), (B,), (B, A), (B, A)]
+def batch_shapes(S: int, A: int, B: int, lead: tuple = ()) -> List[tuple]:
+    """The shapes of `_tail`'s operands, each after the leading dims `lead`
+    (the K-blocked kernel's (K,): its slabs of K micro-updates)."""
+    rows, s, a = (*lead, B), (*lead, B, S), (*lead, B, A)
+    return [s, a, rows, s, rows, rows, rows, a, a]
+
+
+def scalars(h: SACHyper) -> tuple:
+    """The C entries' float arguments, in order."""
+    return (h.lr, h.weight_decay, h.alpha_lr, h.discount, h.entropy_target, h.polyak,
+            1.0 - h.polyak, h.min_alpha)
 
 
 TABLE = operands.Table()  # the kernel's launch table, bound to the last state it launched on
 OUTPUTS = 3  # log_probs, min Q, alpha: the table's last pointers
 
 
+def outputs(B: int, device) -> List[torch.Tensor]:
+    """The C entry's outputs, from torch.empty: log_probs, min Q (B,), alpha (1,)."""
+    return [torch.empty(B, device=device), torch.empty(B, device=device),
+            torch.empty(1, device=device)]
+
+
 def _bind_state(table: operands.Table, state, tail, shapes, S: int, A: int, H: int) -> None:
-    """Check every operand as an unbound call would (`shapes` the tail's),
-    then pack the state's pointers into `table`; counted in
+    """Check every operand as an unbound call would (one device; `shapes`
+    the tail's), then pack the state's pointers into `table`; counted in
     `sac_update.binds`."""
+    operands.placement("sac_update", state + tail)
     operands.check("sac_update", state + tail, state_shapes(S, A, H) + shapes)
     table.bind(state, [t.data_ptr() for t in state], (S, A), len(state) + len(tail) + OUTPUTS)
     sac_update.binds += 1
 
 
 def pack(table: operands.Table, st: Dict, batch: Dict[str, torch.Tensor], eps2, eps_new,
-         outs: List[torch.Tensor]):
-    """The C entry's pointer array for these operands and outputs, in
+         outs: List[torch.Tensor], shapes: Optional[List[tuple]] = None):
+    """The C entries' pointer array for these operands and outputs, in
     `table`: the state's part checked and packed only when the state's
     leaves are not those `table` last bound, the rest written on every
-    call. Raises operands.check's ValueError for an operand that does not
-    fit. `sac_update` does the same on its own `TABLE`, placing the
-    operands on first."""
+    call. `shapes` are the batch's and the noise's (default
+    `batch_shapes`, one update's). Raises operands.check's ValueError for
+    an operand that does not fit, and operands.placement's for operands
+    on more than one device."""
     state, tail = state_tensors(st), _tail(batch, eps2, eps_new)
-    B, S = tail[0].shape
-    A = eps2.shape[1]
-    shapes = batch_shapes(S, A, B)
+    B, S = tail[0].shape[-2:]
+    A = eps2.shape[-1]
+    shapes = shapes or batch_shapes(S, A, B)
     if not table.holds(state, (S, A), tail, shapes):
         _bind_state(table, state, tail, shapes, S, A, st["a"][0].shape[1])
     return table.fill(tail + outs)
@@ -298,19 +312,19 @@ def sac_update(
     version on CPU tensors. Returns (log_probs, Q_values, alpha).
 
     On the card the state's operands are checked and their pointers packed
-    once (`TABLE`, `sac_update.binds`): a later call on the same leaves
-    checks and packs only the batch and the noise."""
-    state, tail = state_tensors(st), _tail(batch, eps2, eps_new)
-    B, S = tail[0].shape
-    A = eps2.shape[1]
-    H = st["a"][0].shape[1]
-    shapes = batch_shapes(S, A, B)
-    if not TABLE.holds(state, (S, A), tail, shapes):
-        if operands.placement("sac_update", state + tail) == "cpu":
-            return sac_update_plain(h, st, batch, eps2, eps_new)
-        _bind_state(TABLE, state, tail, shapes, S, A, H)
-    aux = launch(_bind(build.load("sac_update")), h, TABLE, tail, (B, S, A, H),
-                 operands.stream(TABLE.device))
+    once (`pack` on `TABLE`, `sac_update.binds`): a later call on the same
+    leaves checks and packs only the batch and the noise."""
+    s = batch["states"]
+    if s.is_cpu:  # raises unless every operand lies on the CPU
+        operands.placement("sac_update", state_tensors(st) + _tail(batch, eps2, eps_new))
+        return sac_update_plain(h, st, batch, eps2, eps_new)
+    B, S = s.shape
+    shape = (B, S, eps2.shape[1], st["a"][0].shape[1])
+    outs = outputs(B, s.device)
+    ptrs = pack(TABLE, st, batch, eps2, eps_new, outs)
+    lib = _bind(build.load("sac_update"))
+    scratch = torch.empty(lib.iltpu_sac_scratch_floats(*shape), device=s.device)
+    aux = launch(lib, h, ptrs, shape, outs, scratch, operands.stream(TABLE.device))
     sac_update.launches += 1
     return aux
 
@@ -341,20 +355,20 @@ def _error(lib, rc: int) -> str:
     return f"CUDA error {rc} ({lib.iltpu_sac_error(rc).decode()})"
 
 
-def launch(lib, h: SACHyper, table: operands.Table, tail: List[torch.Tensor], shape, stream: int):
-    """Call the library's C entry on `stream` with `table`, bound to the
-    state, and the update's own operands `tail`: one cooperative launch;
-    raises if it failed or was refused. Outputs and scratch come from
-    torch.empty."""
-    B, S, A, H = shape
-    dev = table.device
-    outs = [torch.empty(B, device=dev), torch.empty(B, device=dev), torch.empty(1, device=dev)]
-    scratch = torch.empty(lib.iltpu_sac_scratch_floats(B, S, A, H), device=dev)
-    rc = lib.iltpu_sac_update(
-        table.fill(tail + outs), B, S, A, H,
-        h.lr, h.weight_decay, h.alpha_lr, h.discount, h.entropy_target, h.polyak,
-        1.0 - h.polyak, h.min_alpha, scratch.data_ptr(), stream,
-    )
+def entry_args(h: SACHyper, ptrs, shape, scratch: torch.Tensor) -> tuple:
+    """The C entries' arguments before their own tail (the stream; the
+    phase timer's stamps, then the stream): the pointer array (`pack`),
+    the shape (B, S, A, H), the scalars, the scratch."""
+    return (ptrs, *shape, *scalars(h), scratch.data_ptr())
+
+
+def launch(lib, h: SACHyper, ptrs, shape, outs: List[torch.Tensor], scratch: torch.Tensor,
+           stream: int) -> Dict[str, torch.Tensor]:
+    """Call the library's C entry on `stream` with `ptrs` (`pack`, `outs`
+    its outputs) and `scratch` (`iltpu_sac_scratch_floats` floats): one
+    cooperative launch; raises if it failed or was refused. Returns the
+    aux."""
+    rc = lib.iltpu_sac_update(*entry_args(h, ptrs, shape, scratch), stream)
     if rc != 0:
         raise RuntimeError(f"sac_update kernel launch failed: {_error(lib, rc)}")
     lp, min_q, alpha = outs

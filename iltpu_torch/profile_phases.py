@@ -47,7 +47,7 @@ import subprocess
 import torch
 
 from iltpu_torch.models import SoftActor, TwinCritic
-from iltpu_torch.ops import build
+from iltpu_torch.ops import build, operands
 from iltpu_torch.ops import gail_update as gu
 from iltpu_torch.ops import pwil_transport as pt
 from iltpu_torch.ops import sac_update as su
@@ -81,7 +81,7 @@ def _median(xs):
 def _bind(lib):
     if not hasattr(lib, "_typed"):
         P = ctypes.c_void_p
-        lib.iltpu_phases_update.argtypes = [P] + [ctypes.c_int] * 4 + [ctypes.c_float] * 8 + [P] * 3
+        lib.iltpu_phases_update.argtypes = su.ENTRY_ARGTYPES + [P, P]  # stamps, stream
         lib.iltpu_phases_update.restype = ctypes.c_int
         lib.iltpu_phases_scratch_floats.argtypes = [ctypes.c_int] * 4
         lib.iltpu_phases_scratch_floats.restype = ctypes.c_longlong
@@ -106,19 +106,16 @@ def _case(dev, S=5, A=2, B=256, H=256):
 def phases(lib, dev, runs=5, S=5, A=2, B=256):
     """Median us of each phase and of the whole update over `runs` updates."""
     h, st, batch, eps2, eps_new = _case(dev, S, A, B)
-    B, S = batch["states"].shape
-    A, H = eps2.shape[1], st["a"][0].shape[1]
-    ops = su._operands(st, batch, eps2, eps_new)
-    outs = [torch.empty(B, device=dev), torch.empty(B, device=dev), torch.empty(1, device=dev)]
-    ptrs = (ctypes.c_void_p * (len(ops) + 3))(*[t.data_ptr() for t in ops + outs])
-    scratch = torch.empty(lib.iltpu_phases_scratch_floats(B, S, A, H), device=dev)
+    shape = (B, S, A, st["a"][0].shape[1])
+    outs = su.outputs(B, dev)  # held while the kernel writes them
+    ptrs = su.pack(operands.Table(), st, batch, eps2, eps_new, outs)
+    scratch = torch.empty(lib.iltpu_phases_scratch_floats(*shape), device=dev)
+    args = su.entry_args(h, ptrs, shape, scratch)
     stamps = torch.zeros(len(PHASES) + 1, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = operands.stream(scratch.device)
     rows = []
     for _ in range(runs + 1):  # the first run warms up
-        rc = lib.iltpu_phases_update(
-            ptrs, B, S, A, H, h.lr, h.weight_decay, h.alpha_lr, h.discount, h.entropy_target,
-            h.polyak, 1.0 - h.polyak, h.min_alpha, scratch.data_ptr(), stamps.data_ptr(), stream)
+        rc = lib.iltpu_phases_update(*args, stamps.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"profile_phases: launch failed with CUDA error {rc}")
         torch.cuda.synchronize()
@@ -147,10 +144,10 @@ def barrier_us(lib, dev, n=2000):
 
 def _bind_gail(lib):
     if not hasattr(lib, "_typed"):
-        head = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [ctypes.c_int]
-        lib.iltpu_gail_phases_update.argtypes = head + [ctypes.c_void_p] * 2
+        head = gu.ENTRY_ARGTYPES + [ctypes.c_int]  # the variant
+        lib.iltpu_gail_phases_update.argtypes = head + [ctypes.c_void_p] * 2  # stamps, stream
         lib.iltpu_gail_phases_update.restype = ctypes.c_int
-        lib.iltpu_gail_phases_step.argtypes = head + [ctypes.c_void_p]
+        lib.iltpu_gail_phases_step.argtypes = head + [ctypes.c_void_p]  # stream
         lib.iltpu_gail_phases_step.restype = ctypes.c_int
         lib.iltpu_gail_phases_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.iltpu_gail_phases_smem_bytes.restype = ctypes.c_longlong
@@ -171,9 +168,11 @@ def variant_step(variant, h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix=None)
     a shape both take. Returns (loss, rewards); gail_update's launch count
     does not move."""
     lib = _bind_gail(build.load("gail_phases"))
-    args, loss, rewards = gu.c_args(h, st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix)
-    rc = lib.iltpu_gail_phases_step(*args, gu.VARIANTS.index(variant),
-                                    torch.cuda.current_stream(p_s.device).cuda_stream)
+    B, S = p_s.shape
+    loss, rewards = torch.empty(1, device=p_s.device), torch.empty(B, device=p_s.device)
+    ptrs = gu.pack(operands.Table(), st, e_s, e_a, e_w, p_s, p_a, p_w, eps_gp, mix, (loss, rewards))
+    rc = lib.iltpu_gail_phases_step(*gu.entry_args(h, st, mix, ptrs, B, S, p_a.shape[1]),
+                                    gu.VARIANTS.index(variant), operands.stream(p_s.device))
     if rc != 0:
         raise RuntimeError(f"profile_phases: GAIL {variant} step failed with CUDA error {rc}")
     return loss, rewards
@@ -198,19 +197,15 @@ def gail_phases(lib, dev, S, A, B=256, Hd=64, runs=5, variant=None):
     u = lambda n: torch.rand(n, generator=g, device=dev)
     batch = [r(B, S), torch.tanh(r(B, A)), 1 + 0.5 * u(B), r(B, S), torch.tanh(r(B, A)),
              1 + 0.5 * u(B), u(B)]
-    loss, rewards = torch.empty(1, device=dev), torch.empty(B, device=dev)
-    ptrs = gu.state_pointers(st) + [t.data_ptr() for t in batch]
-    ptrs += [0, loss.data_ptr(), rewards.data_ptr()]
-    ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    outs = (torch.empty(1, device=dev), torch.empty(B, device=dev))
+    args = gu.entry_args(h, st, None, gu.pack(operands.Table(), st, *batch, None, outs), B, S, A)
     names = GAIL_PHASES[variant or gu.variant(B, S + A, Hd)]
     stamps = torch.zeros(len(names) + 1, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = operands.stream(stamps.device)
     rows = []
     for _ in range(runs + 1):  # the first run warms up
         rc = lib.iltpu_gail_phases_update(
-            ptrs, B, S, A, Hd, 1, 1, gu.REWARD_FUNCTIONS.index(h.reward_function), h.grad_penalty,
-            h.lr, h.weight_decay, h.entropy_bonus,
-            -1 if variant is None else gu.VARIANTS.index(variant), stamps.data_ptr(), stream)
+            *args, -1 if variant is None else gu.VARIANTS.index(variant), stamps.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"profile_phases: GAIL launch failed with CUDA error {rc}")
         torch.cuda.synchronize()
@@ -226,8 +221,8 @@ PWIL_PHASES = ("row start", "selection pass", "CTA merge", "cluster exchange + m
 
 def _bind_pwil(lib):
     if not hasattr(lib, "_typed"):
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.iltpu_pwil_transport.argtypes = [P] * 6 + [I] * 4 + [F] * 4 + [P, P]
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.iltpu_pwil_transport.argtypes = pt.ENTRY_ARGTYPES + [P, P]  # stream, stamps
         lib.iltpu_pwil_transport.restype = I
         lib.iltpu_pwil_cluster_size.argtypes = [I, I]
         lib.iltpu_pwil_cluster_size.restype = I
@@ -267,10 +262,11 @@ def pwil_phases(lib, dev, P, N, d, R, T, segments):
     if C < 1:
         raise RuntimeError(f"profile_phases: no cluster size for {P} pools (error {C})")
     stamps = torch.zeros(P * C, 8, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (pt.feature_major(atoms).data_ptr(), pools.data_ptr(), queries.data_ptr(),
-            offsets.data_ptr(), reset.data_ptr(), rewards.data_ptr(), P, N, d, R, 1.0 / N,
-            1.0 / T - 1e-6, 5.0 * T / d ** 0.5, 5.0, stream, stamps.data_ptr())
+    # the weights of PWIL's reward at its default scales (`rewards/pwil.py`)
+    weights = dict(atom_weight=1.0 / N, agent_weight=1.0 / T - 1e-6, bandwidth=5.0 * T / d ** 0.5,
+                   scale=5.0)
+    args = (*pt.entry_args(atoms, pools, queries, offsets, reset, rewards, **weights),
+            operands.stream(atoms.device), stamps.data_ptr())
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for timed in (False, True):  # every row resets or ends its segment: both do the same work
         stamps.zero_()

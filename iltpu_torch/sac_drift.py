@@ -105,7 +105,7 @@ def main():
     from iltpu_torch import convert
     from iltpu_torch import trainer as trainer_mod
     from iltpu_torch.config import load_config
-    from iltpu_torch.ops import build
+    from iltpu_torch.ops import build, operands
     from iltpu_torch.ops import sac_update as su
     from iltpu_torch.trainer import Trainer
 
@@ -144,15 +144,10 @@ def main():
         B, S = tb["states"].shape
         A, H = eps2.shape[1], st["a"][0].shape[1]
         before = as_(st, torch.float64)
-        ops = su._operands(st, tb, eps2, eps_new)
-        outs = [torch.empty(B, device=dev), torch.empty(B, device=dev), torch.empty(1, device=dev)]
+        outs = su.outputs(B, dev)
         scratch = torch.zeros(lib.iltpu_sac_scratch_floats(B, S, A, H), device=dev)
-        ptrs = (ctypes.c_void_p * (len(ops) + 3))(*[t.data_ptr() for t in ops + outs])
-        rc = lib.iltpu_sac_update(ptrs, B, S, A, H, h.lr, h.weight_decay, h.alpha_lr, h.discount,
-                                  h.entropy_target, h.polyak, 1.0 - h.polyak, h.min_alpha,
-                                  scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"sac_drift: the SAC launch failed with CUDA error {rc}")
+        ptrs = su.pack(operands.Table(), st, tb, eps2, eps_new, outs)
+        aux = su.launch(lib, h, ptrs, (B, S, A, H), outs, scratch, operands.stream(scratch.device))
         su.sac_update.launches += 1
         card = scratch.cpu().double()
         traced = {}
@@ -177,7 +172,7 @@ def main():
                 rel = lambda x: float((x - want).abs().max()) / scale
             e = stats.setdefault(name, [0.0, 0.0])
             e[0], e[1] = max(e[0], rel(got)), max(e[1], rel(r32[name].double().flatten()))
-        return {"log_probs": outs[0], "Q_values": outs[1], "alpha": outs[2][0]}
+        return aux
 
     g = torch.Generator().manual_seed(11)
     rows = cs.native_rows("ant")

@@ -25,6 +25,7 @@ from iltpu_torch.ops import operands
 from iltpu_torch.ops.gail_update import GAILHyper, gail_update
 from iltpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from test_torch_convert import assert_trees_close, jax_disc_tree, port_disc_state
+from test_torch_sac import bound_argtypes, c_params
 
 torch.set_num_threads(1)
 
@@ -211,12 +212,15 @@ def _bound_operands(spectral_norm=True, mixup=False):
 
 
 def _launch_pointers(st, args, outs):
-    """The array the C entry took before the table: the 17 state pointers
-    (nulls without spectral norm), the batches' and draws', the Mixup
-    draw's (null for BCE), the outputs'."""
+    """The C entry's pointer array, listed here apart from the wrapper (as
+    `gail::unpack` reads it): W1, b1, W2, b2; u1, v1, u2, v2 (nulls
+    without spectral norm); the AdamW moments m and v; the step clock; the
+    batches' and draws', the Mixup draw's (null for BCE), the outputs'."""
     mix = args[7]
-    return (gu.state_pointers(st) + [t.data_ptr() for t in args[:7]]
-            + [0 if mix is None else mix.data_ptr()] + [t.data_ptr() for t in outs])
+    ptrs = lambda ts: [t.data_ptr() for t in ts]
+    state = ptrs(st["p"]) + (ptrs(st["sn"]) if st["sn"] else [0] * 4)
+    state += ptrs(st["m"]) + ptrs(st["v"]) + [st["t"].data_ptr()]
+    return state + ptrs(args[:7]) + [0 if mix is None else mix.data_ptr()] + ptrs(outs)
 
 
 def _as_ints(table):
@@ -298,3 +302,24 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_binds_nothing(mixup):
     assert (gail_update.launches, gail_update.binds, gu.TABLE.key) == (launches, binds, key)
     assert torch.equal(loss, want_loss) and torch.equal(rewards, want_rewards)
     assert all(torch.equal(a, b) for a, b in zip(gu.state_tensors(st), gu.state_tensors(plain)))
+
+
+@pytest.mark.parametrize("spectral_norm,mixup,reward,code", [(True, False, "GAIL", 0),
+                                                             (False, True, "FAIRL", 2)])
+def test_entry_args_keep_the_c_entrys_order(spectral_norm, mixup, reward, code):
+    """`entry_args` lays out the step's arguments as `iltpu_gail_update`
+    declares them, with `options` and `scalars` among them: the listing
+    here, one distinct value a name, is the reference (the reward codes as
+    `gail_core.cuh` reads them: 0 GAIL, 1 AIRL, 2 FAIRL). `_bind` gives the
+    entry the C types."""
+    h = GAILHyper(grad_penalty=0.5, lr=0.25, weight_decay=0.125, reward_function=reward,
+                  loss_function="Mixup" if mixup else "BCE", entropy_bonus=0.0625)
+    _, st, args, _ = _bound_operands(spectral_norm, mixup)
+    want = {"ptr": "ptrs", "B": B, "S": S, "A": A, "Hd": 16, "sn": int(spectral_norm),
+            "bce": int(not mixup), "reward_fn": code, "gp": 0.5, "lr": 0.25, "wd": 0.125,
+            "ent": 0.0625}
+    sig = c_params("gail_update.cu", "iltpu_gail_update")
+    assert list(sig) == [*want, "stream"]
+    assert bound_argtypes(gu._bind, "iltpu_gail_update") == list(sig.values())
+    assert gu.entry_args(h, st, args[7], "ptrs", B, S, A) == tuple(want.values())
+    assert gu.options(h, st, args[7]) + gu.scalars(h) == tuple(want.values())[5:]

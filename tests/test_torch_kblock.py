@@ -25,9 +25,15 @@ from iltpu.ops.pallas_sac import sac_leaves_to_state, sac_state_to_leaves
 from iltpu.rewards.gail import GAILDiscriminator
 from iltpu.updates.sac import SACLearner
 from iltpu_torch import convert
-from iltpu_torch.ops.gail_update import GAILHyper
+from iltpu_torch.ops import kblock_update as kb
+from iltpu_torch.ops import operands
+from iltpu_torch.ops.gail_update import GAILHyper, gail_update
 from iltpu_torch.ops.kblock_update import kblock_update
+from iltpu_torch.ops.sac_update import SACHyper, sac_update
 from test_torch_convert import assert_trees_close, jax_disc_tree, jax_sac_tree, port_disc_state, port_sac_state
+from test_torch_gail import _launch_pointers as gail_pointers
+from test_torch_sac import _launch_pointers as sac_pointers
+from test_torch_sac import bound_argtypes, c_params
 
 torch.set_num_threads(1)
 
@@ -162,6 +168,84 @@ def test_wrapper_refuses_mixed_devices_and_wrong_shapes():
     refused(r"want contiguous float32 \(4, 16\)", n={**noise, "eps_gp": noise["eps_gp"].reshape(K * B)})
     refused("contiguous=False", p={**policy, "weights": policy["weights"].T.contiguous().T})
     refused("Mixup", n={**noise, "mix": noise["eps_gp"]})
+
+
+def _states_and_inputs(name, seed):
+    """The port's SAC and discriminator states of CONFIGS[name] and
+    K-stacked inputs (no Mixup draw for BCE), on the CPU."""
+    cfg = CONFIGS[name]
+    learner, sac, disc, params, opt = _setup(cfg)
+    tl, st = port_sac_state(learner, sac)
+    _, dst = port_disc_state(disc, params, opt)
+    policy, expert, noise = (_torch(d) for d in _inputs(seed))
+    if cfg["loss"] == "BCE":
+        noise.pop("mix")
+    hyper = GAILHyper(cfg["gp"], LR, WD, cfg["reward_function"], cfg["loss"], cfg["ent"])
+    return tl.hyper, hyper, st, dst, policy, expert, noise
+
+
+def _as_ints(table):
+    return [p or 0 for p in table]  # ctypes reads a null c_void_p as None
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_pointers_are_the_per_update_arrays_at_the_slab_bases(name):
+    """The two arrays are the per-update entries' (the SAC and GAIL tests'
+    own listings) with each batch and draw at its K-stacked slab's base and
+    the SAC batch's rewards at the GAIL step's rewards output: BCE with
+    spectral norm, and Mixup without (null u, v)."""
+    _, _, st, dst, policy, expert, noise = _states_and_inputs(name, 5)
+    outs = [torch.empty(n) for n in (1, B, B, B, 1)]
+    loss, rewards, lp, min_q, alpha = outs
+    tables = operands.Table(), operands.Table()
+    sac, gail = kb.pointers(*tables, st, dst, policy, expert, noise, outs)
+    assert _as_ints(sac) == sac_pointers(st, {**policy, "rewards": rewards}, noise["eps2"],
+                                         noise["eps_new"], [lp, min_q, alpha])
+    args = [expert["states"], expert["actions"], expert["weights"], policy["states"],
+            policy["actions"], policy["weights"], noise["eps_gp"], noise.get("mix")]
+    assert _as_ints(gail) == gail_pointers(dst, args, [loss, rewards])
+
+
+def test_wrapper_binds_each_state_once_and_again_for_a_swapped_leaf():
+    """A second call on the same states with new slabs packs no state
+    (`sac_update.binds`, `gail_update.binds` stay); a SAC leaf swapped for
+    a copy binds the SAC table again, a discriminator leaf the GAIL one."""
+    sh, gh, st, dst, policy, expert, noise = _states_and_inputs("mixup_airl", 6)
+    binds = lambda: (sac_update.binds, gail_update.binds)
+    kblock_update(sh, gh, st, dst, policy, expert, noise)
+    before = binds()
+    _, _, _, _, policy, expert, noise = _states_and_inputs("mixup_airl", 7)
+    kblock_update(sh, gh, st, dst, policy, expert, noise)
+    assert binds() == before
+    st["c"][2] = st["c"][2].clone()
+    kblock_update(sh, gh, st, dst, policy, expert, noise)
+    assert binds() == (before[0] + 1, before[1])
+    dst["p"][0] = dst["p"][0].clone()
+    kblock_update(sh, gh, st, dst, policy, expert, noise)
+    assert binds() == (before[0] + 1, before[1] + 1)
+
+
+def test_entry_args_keep_the_c_entrys_order():
+    """`entry_args` lays out the launch's arguments as
+    `iltpu_kblock_update` declares them: the listing here, one distinct
+    value a name, is the reference. `_bind` gives the entry the C types."""
+    sh = SACHyper(lr=0.5, weight_decay=0.25, alpha_lr=0.125, discount=0.96875,
+                  entropy_target=-3.0, polyak=0.75, min_alpha=0.0625)
+    gh = GAILHyper(grad_penalty=1.5, lr=2.5, weight_decay=3.5, reward_function="FAIRL",
+                   loss_function="Mixup", entropy_bonus=4.5)
+    dst = _states_and_inputs("bce_sn", 8)[3]  # spectral norm
+    scratch = torch.empty(4)
+    want = {"sac_ptr": "sac", "gail_ptr": "gail", "K": K, "B": B, "S": S, "A": A, "H": H,
+            "Hd": 64, "sn": 1, "bce": 0, "reward_fn": 2, "lr": 0.5, "wd": 0.25, "alpha_lr": 0.125,
+            "discount": 0.96875, "entropy_target": -3.0, "polyak": 0.75, "polyak_c": 0.25,
+            "min_alpha": 0.0625, "gp": 1.5, "glr": 2.5, "gwd": 3.5, "ent": 4.5,
+            "scratch": scratch.data_ptr()}
+    sig = c_params("kblock_update.cu", "iltpu_kblock_update")
+    assert list(sig) == [*want, "stream"]
+    assert bound_argtypes(kb._bind, "iltpu_kblock_update") == list(sig.values())
+    got = kb.entry_args(sh, gh, dst, torch.empty(K, B), ("sac", "gail"), (K, B, S, A, H, 64),
+                        scratch)
+    assert got == tuple(want.values())
 
 
 def test_cli_kblock_short_run_on_cpu(tmp_path):

@@ -4,8 +4,10 @@ kernel in interpret mode (`sac_update_pallas`) and its autodiff update
 (`SACLearner.update`), on the fixture of tests/test_pallas_sac.py. The
 noise is iltpu's own draw for the key, handed to the port."""
 
+import ctypes
 import os
 import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -137,9 +139,15 @@ def _bound_operands():
 
 
 def _launch_pointers(st, tb, eps2, eps_new, outs):
-    """The array `launch` packed on every call before the table: every
-    operand's pointer in order, then the outputs'."""
-    return [t.data_ptr() for t in su._operands(st, tb, eps2, eps_new) + outs]
+    """The C entry's pointer array, listed here apart from the wrapper (as
+    `sac::unpack` reads it): the actor, its two moments, the twin critic,
+    its two moments and the target critic, six leaves each; the six (1,)
+    scalars; the batch; the noise; the outputs."""
+    state = [t for k in ("a", "am", "av", "c", "cm", "cv", "t") for t in st[k]]
+    state += [st[k] for k in ("la", "lam", "lav", "ta", "tc", "tal")]
+    batch = [tb[k] for k in ("states", "actions", "rewards", "next_states", "terminals",
+                             "weights", "absorbing")]
+    return [t.data_ptr() for t in state + batch + [eps2, eps_new] + outs]
 
 
 def test_pack_binds_the_state_once_and_fills_the_rest_on_each_call():
@@ -205,7 +213,7 @@ def test_pack_refuses_a_bad_batch_operand_as_the_unbound_check_does(fault, opera
     else:
         tb[operand] = BAD_OPERANDS[fault](tb[operand])
     with pytest.raises(ValueError) as want:
-        operands.check("sac_update", su._operands(st, tb, eps2, eps_new),
+        operands.check("sac_update", su.state_tensors(st) + su._tail(tb, eps2, eps_new),
                        su.state_shapes(S, A, 32) + su.batch_shapes(S, A, B))
     with pytest.raises(ValueError) as got:
         su.pack(table, st, tb, eps2, eps_new, outs)
@@ -226,8 +234,56 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_binds_nothing():
     assert all(torch.equal(a, b) for a, b in zip(su.state_tensors(st), su.state_tensors(plain)))
 
 
-CORE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "iltpu_torch",
-                    "csrc", "sac_core.cuh")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "iltpu_torch",
+                    "csrc")
+CORE = os.path.join(CSRC, "sac_core.cuh")
+
+
+def c_params(source, entry):
+    """The parameters of the C entry `entry` as `csrc/<source>` defines
+    it, in order: {name: the ctypes type of a pointer, int or float}."""
+    with open(os.path.join(CSRC, source)) as f:
+        src = f.read()
+    head = src[src.index(f'extern "C" int {entry}(') + len(f'extern "C" int {entry}('):]
+    params = {}
+    for param in head[:head.index(")")].split(","):
+        decl, name = param.strip().rsplit(None, 1)
+        params[name] = ctypes.c_void_p if "*" in decl else {"int": ctypes.c_int,
+                                                             "float": ctypes.c_float}[decl]
+    return params
+
+
+class _Lib:
+    """A library stand-in on which a wrapper's `_bind` sets its C signatures."""
+
+    def __getattr__(self, name):
+        if not name.startswith("iltpu_"):
+            raise AttributeError(name)  # `_typed`: not yet bound
+        setattr(self, name, types.SimpleNamespace())
+        return getattr(self, name)
+
+
+def bound_argtypes(bind, entry):
+    """The argument types `bind` gives the C entry `entry`."""
+    return getattr(bind(_Lib()), entry).argtypes
+
+
+def test_entry_args_keep_the_c_entrys_order():
+    """`entry_args` lays out the update's arguments as `iltpu_sac_update`
+    declares them, and `scalars` the eight floats among them: the listing
+    here, one distinct value a name, is the reference. `_bind` gives the
+    entry the C types."""
+    h = su.SACHyper(lr=0.5, weight_decay=0.25, alpha_lr=0.125, discount=0.96875,
+                    entropy_target=-3.0, polyak=0.75, min_alpha=0.0625)
+    scratch = torch.empty(4)
+    want = {"ptr": "ptrs", "B": 32, "S": 7, "A": 3, "H": 16, "lr": 0.5, "wd": 0.25,
+            "alpha_lr": 0.125, "discount": 0.96875, "entropy_target": -3.0, "polyak": 0.75,
+            "polyak_c": 0.25, "min_alpha": 0.0625, "scratch": scratch.data_ptr()}
+    sig = c_params("sac_update.cu", "iltpu_sac_update")
+    assert list(sig) == [*want, "stream"]
+    assert bound_argtypes(su._bind, "iltpu_sac_update") == list(sig.values())
+    assert su.entry_args(h, "ptrs", (32, 7, 3, 16), scratch) == tuple(want.values())
+    assert su.scalars(h) == tuple(want.values())[5:13]
 BUFFERS = ("x2 x xn ah1 ah2 ao bh1 bh2 bo lp2 td th1 th2 tq ch1 ch2 cq dq dz2 dz1 gc0 gc1 gc2 "
            "gc3 gc4 gc5 da dout adz2 adz1 ga0 ga1 ga2 ga3 ga4 ga5").split()
 
