@@ -895,13 +895,12 @@ def gail_bound_ms(S, A, B, Hd, case, variant=None):
     return bound_ms(flops, 4 * (2 * state + batch + B + 1), tc_flops)
 
 
-def kblock_case(S, A, K, bce, min_alpha, dev, alpha=1.0):
-    """Full-width SAC and GAIL states and K-stacked batches and noise (the
-    Mixup draws Beta(alpha, alpha), uniform at alpha 1)."""
+def kblock_case(S, A, K, bce, min_alpha, dev, alpha=1.0, B=256):
+    """Full-width SAC and GAIL states and K-stacked batches of B rows and
+    noise (the Mixup draws Beta(alpha, alpha), uniform at alpha 1)."""
     import torch
     from iltpu_torch.models.distributions import beta_sample
 
-    B = 256
     sac_hyper, sac_st, _ = sac_case(S, A, B, 256, min_alpha, 1 + S, dev)
     gail_hyper, disc_st, _ = gail_case(S, A, B, bce, 7 + S, dev)
     g = torch.Generator(device=dev).manual_seed(31 + S + K)
@@ -3731,7 +3730,7 @@ def main():
     print(f"kernel sac_update pointmass B=1024 (chunked weight-gradient depth): max_abs_err "
           f"{err[0]:.3g}, max_rel_err {err[1]:.3g}")
     # the tuned GAIL@10 batch on hopper (tuned.yaml: 512) at min_alpha 0.05: 13c's and the
-    # parity run's SAC step, the deepest product still held whole
+    # parity run's SAC step, its weight gradients past the whole-depth panels
     err, _ = check_sac(12, 3, 0.05, dev, B=512, timed=False)
     per_sm, sms, smem = su.grid(build.load("sac_update"), 512, 12, 3, 256)
     print(f"kernel sac_update hopper B=512 min_alpha=0.05 (the tuned GAIL@10 batch): a cooperative "
@@ -4014,7 +4013,15 @@ def main():
             "bound_ms": bound, "bound_by": by, "library_ms": None,
         })
         if name in ("sac_update", "kblock_update"):  # the SAC step's plan (a micro-update's)
-            rows[-1]["sac_plan"] = su.plan(build.load("sac_update"), *SAC_PLAN_SHAPES[key[1]], 256)
+            B, S, A = SAC_PLAN_SHAPES[key[1]]
+            if name == "sac_update":  # every block of its grid
+                per_sm, sms, _ = su.grid(build.load("sac_update"), B, S, A, 256)
+                blocks = per_sm * sms
+            else:  # the blocks GAIL leaves
+                per_sm, sms, _, gail = kb.grid(build.load("kblock_update"), B, S, A, 256, 64)
+                blocks = per_sm * sms - gail
+            plan = su.plan(build.load("sac_update"), B, S, A, 256, blocks)
+            rows[-1]["sac_plan"] = {k: plan[k] for k in ("phases", "row_items", "gemm_rounds")}
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -19,8 +19,9 @@
 //    micro-updates 0..K-1 back to back, and blocks C..G-1 run the SAC steps
 //    0..K-1 under gx::GridExec (grid_exec.cuh), with a barrier over their
 //    own range between phases. A tiled GAIL step runs on block 0 alone (C =
-//    1); a wide one on C blocks, as many as leave the SAC critic's widest
-//    product one wave (C = 4 of 132 at batch and width 256), each running
+//    1); a wide one on C blocks, as many as leave the SAC step's plan
+//    (gx::plan_step: its GEMM phases' rounds and cost) as on all blocks but
+//    one (C = 3 of 132 at batch and width 256), each running
 //    its share of the step's row segments, the segments' partial sums
 //    meeting in global scratch behind a barrier over the C blocks, in the
 //    per-update cluster's segment order. GAIL never reads the SAC state; SAC k reads
@@ -84,6 +85,7 @@ struct KArgs {
   gail::Args ga;  // batch pointers at the slab bases
   float* slab;    // rewards of micro-updates 0..K-2, (K-1, B)
   float* parts;   // a wide step's segment partial sums (segments, psz), then the slices' dots
+  gx::Plan plan;  // the SAC step's picks on the G - C SAC blocks
   unsigned* words;  // SYNC_WORDS
   int K, H, kc;
   int C;          // the blocks that run GAIL (0..C-1); SAC runs on the others
@@ -152,7 +154,8 @@ __device__ __noinline__ void gail_blocks(const KArgs& k) {
 // Blocks C..G-1: the K SAC steps, each waiting for its rewards.
 __device__ __noinline__ void sac_blocks(const KArgs& k) {
   const int B = k.ga.B, S = k.ga.S, A = k.ga.A;
-  gx::GridExec<THREADS> ex{k.kc, k.words, k.C, (int)gridDim.x - k.C, k.words + gx::BARRIER_WORDS};
+  gx::GridExec<THREADS> ex{k.kc, k.words, k.C, (int)gridDim.x - k.C, &k.plan,
+                           k.words + gx::BARRIER_WORDS};
   for (int i = 0; i < k.K; ++i) {
     if (threadIdx.x == 0) {
       const ll bs = (ll)i * B * S, ba = (ll)i * B * A, bb = (ll)i * B;
@@ -211,16 +214,27 @@ cudaError_t config(int B, int S, int A, int H, int Hd, size_t* smem, int* per_sm
 }
 
 // The GAIL blocks of a grid of G: 1 for a tiled step (one block runs it);
-// for a wide one the most, up to its segments, that leave the SAC critic's
-// widest product (2 cdiv(B, 32) cdiv(H, 32) tiles, 128 at batch and width
-// 256) as many waves as all blocks but one would.
-int gail_blocks_of(int B, int D, int H, int Hd, int G) {
-  if (!gail::routes_wide(B, D, Hd)) return 1;
-  const int tiles = 2 * sac::cdiv(B, sac::TILE) * sac::cdiv(H, sac::TILE);
-  const int waves = sac::cdiv(tiles, G - 1), NS = gail::wide_segments(B);
+// for a wide one the most, up to its segments, that leave the SAC step's
+// plan on the other blocks (gx::plan_step) the GEMM rounds and cost it has
+// on all blocks but one. Made once for the last shape and grid asked for.
+int gail_blocks_of(int B, int S, int A, int H, int Hd, int G) {
+  static int key[6] = {-1, -1, -1, -1, -1, -1}, cached = 0;
+  const int now[6] = {B, S, A, H, Hd, G};
+  bool same = true;
+  for (int i = 0; i < 6; ++i) same &= key[i] == now[i];
+  if (same) return cached;
   int c = 1;
-  while (c < NS && G - (c + 1) >= 1 && sac::cdiv(tiles, G - (c + 1)) == waves) ++c;
-  return c;
+  if (gail::routes_wide(B, S + A, Hd)) {
+    const gx::StepPlan one = gx::plan_step<THREADS>(B, S, A, H, G - 1);
+    const int NS = gail::wide_segments(B);
+    while (c < NS && G - (c + 1) >= 1) {
+      const gx::StepPlan more = gx::plan_step<THREADS>(B, S, A, H, G - (c + 1));
+      if (more.gemm_rounds != one.gemm_rounds || more.gemm_cost != one.gemm_cost) break;
+      ++c;
+    }
+  }
+  for (int i = 0; i < 6; ++i) key[i] = now[i];
+  return cached = c;
 }
 
 // Floats of a wide step's exchange in scratch: the segments' partial sums,
@@ -248,7 +262,7 @@ extern "C" int iltpu_kblock_grid(int B, int S, int A, int H, int Hd, int* per_sm
   size_t bytes = 0;
   const cudaError_t e = config(B, S, A, H, Hd, &bytes, per_sm, sms);
   *smem = (long long)bytes;
-  *gail = e == cudaSuccess && *per_sm * *sms > 1 ? gail_blocks_of(B, S + A, H, Hd, *per_sm * *sms) : 0;
+  *gail = e == cudaSuccess && *per_sm * *sms > 1 ? gail_blocks_of(B, S, A, H, Hd, *per_sm * *sms) : 0;
   return (int)e;
 }
 
@@ -279,7 +293,8 @@ extern "C" int iltpu_kblock_update(void* const* sac_ptr, void* const* gail_ptr, 
   cudaError_t e = config(B, S, A, H, Hd, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   if (per_sm * sms < 2) return (int)cudaErrorCooperativeLaunchTooLarge;
-  k.C = gail_blocks_of(B, S + A, H, Hd, per_sm * sms);
+  k.C = gail_blocks_of(B, S, A, H, Hd, per_sm * sms);
+  k.plan = gx::step_plan<THREADS>(B, S, A, H, per_sm * sms - k.C).plan;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   e = cudaMemsetAsync(k.words, 0, sizeof(unsigned) * SYNC_WORDS, s);
   if (e != cudaSuccess) return (int)e;

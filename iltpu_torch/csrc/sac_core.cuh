@@ -10,17 +10,22 @@
 // plus a grid barrier, and an item must not make a dependent trip to L2 per
 // step of k. So a tile copies its whole-depth panels into shared memory at
 // once (one trip, cp.async), then runs the 256-long fmaf chains from shared
-// memory with 4x2 outputs on each of 128 threads, so that shared-memory
-// reads and fmaf issue balance. The five products whose output is only 1 to
+// memory, 4 to 16 outputs on each of 256 threads; a phase's tiles are 32 or
+// 64 on a side, chosen from its shapes and the grid (grid_exec.cuh's plan)
+// so that it takes as few rounds of items over the blocks as its work
+// allows (at batch 1024, one round of 64x64 tiles where 32x32 tiles took
+// four). The
+// five products whose output is only 1 to
 // 2A columns wide (the heads, the action columns of an input gradient) run
 // as row-owned items instead, each with the elementwise row step after it
 // and the rank-1 input gradient from that step's output fused in: 8 fewer
 // phases, and barriers, than running them as tiles.
 //
 // What lives here:
-//  - `gemm_tile<NT>`: one 32x32 output tile of a strided fp32 product, run
-//    by a block of NT >= 128 threads. Every output is one fmaf chain over k
-//    in ascending order, so any instance gives the same bits;
+//  - `gemm_tile<NT, TM, TN, RM, RN>`: one TM x TN output tile of a strided
+//    fp32 product, RM x RN outputs a thread, run by a block of NT threads.
+//    Every output is one fmaf chain over k in ascending order, so any tile
+//    and any instance give the same bits;
 //  - elementwise functors, each `operator()(int i)` for one item (a batch
 //    row, a column, a parameter element), and the single-block temperature
 //    step, whose reduction has a fixed logical width RED whatever the block;
@@ -34,8 +39,8 @@
 //    `await_rewards()` waits, just before the first phase that reads the
 //    rewards, for those of another block's GAIL step where there is one
 //    (grid_exec.cuh). Jobs within a phase are independent of each other.
-//    `gx::PlanExec` runs it on the host with no data, counting the phases
-//    and the row-owned items.
+//    `gx::PlanExec` runs it on the host with no data, recording each
+//    phase's jobs, from which `gx::plan_step` picks the tiles.
 //
 // Nothing reads a tensor through __ldg or `const __restrict__`: another
 // block wrote it in an earlier phase. Panels are copied with .cg (L2) loads.
@@ -49,7 +54,6 @@ namespace sac {
 
 typedef long long ll;
 
-constexpr int TILE = 32;
 constexpr int RED = 256;  // logical width of the temperature reduction
 
 constexpr float B1 = 0.9f;
@@ -76,28 +80,50 @@ struct Gemm {
 
 // ---- the GEMM tile: whole-depth panels in dynamic shared memory ----------
 //
-// A tile's A panel (32 rows x depth) and B panel (depth x 32 columns) are
-// copied into shared memory at once (16-byte cp.async.cg where the source
-// is contiguous and aligned, 4-byte L2 loads elsewhere), then 128 threads
-// run the fmaf chains from shared memory, 4 rows x 2 columns a thread. A
-// depth past KWHOLE goes in KRING-deep chunks through a ring of two stages,
-// the next chunk copied while this one is computed. The k padding of a
-// panel is zero, and fmaf(0, 0, acc) == acc (acc starts at +0 and is never
-// -0), so each output is the same chain over k as without padding.
+// An output tile is TM x TN, each 32 or 64 (`tile_rows`, `tile_cols` of the
+// tile's index, chosen a GEMM job by the executor's plan: grid_exec.cuh).
+// Its A panel (TM rows x depth) and B panel (depth x TN columns) are copied
+// into shared memory at once (16-byte cp.async.cg where the source is
+// contiguous and aligned, 4-byte L2 loads elsewhere) by all the block's
+// threads, then TILE_THREADS of them run the fmaf chains from shared
+// memory, RM x RN outputs each (tile_rm, tile_rn). A depth past KWHOLE goes in
+// KRING-deep chunks through a ring of two stages, the next chunk copied
+// while this one is computed. The k padding of a panel is zero, and
+// fmaf(0, 0, acc) == acc (acc starts at +0 and is never -0), so each output
+// is the same chain over k as without padding, whatever the tile.
 //
-// A panel is stored k-major (element (o, k) at k * TILE + o) when its source
-// is contiguous along the outer index, else outer-major (at o * ld + k, ld =
-// the depth rounded up to 8, plus 4, so the float4 reads of 8 neighbouring
-// rows hit distinct banks).
+// A panel is stored k-major (element (o, k) at k * O + o, O its TM or TN)
+// when its source is contiguous along the outer index, else outer-major (at
+// o * ld + k, ld = the depth rounded up to 8, plus 4). The threads of a warp
+// cover 4 x 8 of the tile's thread grid, and a thread's outputs lie where
+// its loads are widest: along a k-major panel, its RM rows (RN columns)
+// side by side, read as one vector a k; across an outer-major one, a grid's
+// height (width) apart, each read as a float4 along k, the warp's 4 (8)
+// neighbouring rows in distinct banks since ld is 4 mod 8.
 
-constexpr int GEMM_THREADS = 128;  // the threads that compute; all copy
-constexpr int KWHOLE = 512;        // deepest product held whole
-constexpr int KRING = 128;         // chunk depth past KWHOLE
+constexpr int TILE = 32;      // the smaller tile edge
+constexpr int TILE_MAX = 64;  // the larger: a panel's rows in shared memory
+constexpr int TILES = 4;      // 32x32, 64x32, 32x64, 64x64
+constexpr int KWHOLE = 256;   // deepest product held whole (a 64-row panel pair: 133 KB)
+constexpr int KRING = 128;    // chunk depth past KWHOLE
+
+__host__ __device__ constexpr int tile_rows(int t) { return TILE << (t & 1); }
+__host__ __device__ constexpr int tile_cols(int t) { return TILE << (t >> 1); }
+// A thread's outputs in tile t, rows by columns: every tile runs on
+// TILE_THREADS threads, 4, 8, 8 and 16 outputs a thread. The block's
+// shared memory serves one 128-byte wavefront a cycle and a thread reads
+// one float for each row and each column of its outputs at each k, so the
+// fewer outputs a thread, the more reads an fmaf: on all 512 threads (2 to
+// 8 outputs) every tile ran slower on the H100 than on these 256 (at batch
+// 1024 the update took 425 us against 357, at hopper's 180 against 166).
+constexpr int TILE_THREADS = 256;
+__host__ __device__ constexpr int tile_rm(int t) { return t == 1 || t == 3 ? 4 : 2; }
+__host__ __device__ constexpr int tile_rn(int t) { return t < 2 ? 2 : 4; }
 
 __host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
 
-// Floats of one panel of depth kc in either layout.
-__host__ __device__ inline int panel_floats(int kc) { return TILE * (round_up(kc, 8) + 4); }
+// Floats of one panel of depth kc in either layout, at the larger edge.
+__host__ __device__ inline int panel_floats(int kc) { return TILE_MAX * (round_up(kc, 8) + 4); }
 
 // The chunk depth for products up to kmax deep: the whole depth if it fits.
 __host__ __device__ inline int gemm_chunk(int kmax) {
@@ -132,9 +158,9 @@ __device__ __forceinline__ void for_batched(int n, const F& f) {
   }
 }
 
-// Copy rows [o0, o0 + TILE) x depth [k0, k0 + kc) of a source with `no`
-// rows and `nk` deep (strides so, sk) into panel s; zeros outside.
-template <int NT>
+// Copy rows [o0, o0 + O) x depth [k0, k0 + kc) of a source with `no` rows
+// and `nk` deep (strides so, sk) into panel s; zeros outside.
+template <int NT, int O>
 __device__ void load_panel(float* s, const float* src, ll so, ll sk, int o0, int no, int k0, int nk,
                            int kc) {
   const bool om = sk == 1 && so != 1;  // outer-major
@@ -143,7 +169,7 @@ __device__ void load_panel(float* s, const float* src, ll so, ll sk, int o0, int
   if (om) {
     if (aligned && so % 4 == 0) {
       const int q = kc / 4;
-      for (int e = threadIdx.x; e < TILE * q; e += NT) {
+      for (int e = threadIdx.x; e < O * q; e += NT) {
         const int r = e / q, kk = 4 * (e % q);
         const int go = o0 + r, gk = k0 + kk;
         float* d = s + r * ld + kk;
@@ -154,7 +180,7 @@ __device__ void load_panel(float* s, const float* src, ll so, ll sk, int o0, int
         }
       }
     } else {
-      for_batched<NT>(TILE * kc, [&](int e, bool load, float v) {
+      for_batched<NT>(O * kc, [&](int e, bool load, float v) {
         const int r = e / kc, kk = e % kc;
         const int go = o0 + r, gk = k0 + kk;
         if (load) return (go < no && gk < nk) ? __ldcg(src + go * so + gk) : 0.f;
@@ -164,10 +190,10 @@ __device__ void load_panel(float* s, const float* src, ll so, ll sk, int o0, int
     }
   } else {
     if (aligned && so == 1 && sk % 4 == 0) {
-      for (int e = threadIdx.x; e < kc * (TILE / 4); e += NT) {
-        const int kk = e / (TILE / 4), r = 4 * (e % (TILE / 4));
+      for (int e = threadIdx.x; e < kc * (O / 4); e += NT) {
+        const int kk = e / (O / 4), r = 4 * (e % (O / 4));
         const int go = o0 + r, gk = k0 + kk;
-        float* d = s + kk * TILE + r;
+        float* d = s + kk * O + r;
         if (gk < nk && go + 3 < no) {
           cp_async16(d, src + go + gk * sk);
         } else {
@@ -175,72 +201,107 @@ __device__ void load_panel(float* s, const float* src, ll so, ll sk, int o0, int
         }
       }
     } else {
-      for_batched<NT>(kc * TILE, [&](int e, bool load, float v) {
-        const int kk = e / TILE, r = e % TILE;
+      for_batched<NT>(kc * O, [&](int e, bool load, float v) {
+        const int kk = e / O, r = e % O;
         const int go = o0 + r, gk = k0 + kk;
         if (load) return (go < no && gk < nk) ? __ldcg(src + go * so + gk * sk) : 0.f;
-        s[kk * TILE + r] = v;
+        s[kk * O + r] = v;
         return 0.f;
       });
     }
   }
 }
 
-// acc[i][j] += sum over the kc-deep chunk of A(4 ty + i, k) B(k, tx + 16 j),
-// in ascending k; AOM / BOM: the panel is outer-major.
-template <bool AOM, bool BOM>
-__device__ __forceinline__ void chunk_fma(const float* as, const float* bs, int kc, float (&acc)[4][2]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+// R consecutive floats of shared memory, one load (R = 1, 2 or 4).
+template <int R>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[R]) {
+  if constexpr (R == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (R == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    static_assert(R == 1, "one, two or four floats");
+    v[0] = *p;
+  }
+}
+
+// A tile's threads: a GY x GX grid (GY = TM / RM, GX = TN / RN), each
+// thread RM x RN outputs; a warp covers 4 neighbouring ty by 8 neighbouring
+// tx. Thread (ty, tx)'s output row i and column j.
+template <int GX>
+__device__ __forceinline__ int tile_ty() {
+  return (int)(threadIdx.x >> 5) / (GX / 8) * 4 + (int)((threadIdx.x & 31) >> 3);
+}
+template <int GX>
+__device__ __forceinline__ int tile_tx() {
+  return (int)(threadIdx.x >> 5) % (GX / 8) * 8 + (int)(threadIdx.x & 7);
+}
+template <int GY, int RM>
+__device__ __forceinline__ int out_row(bool aom, int ty, int i) { return aom ? ty + GY * i : ty * RM + i; }
+template <int GX, int RN>
+__device__ __forceinline__ int out_col(bool bom, int tx, int j) { return bom ? tx + GX * j : tx * RN + j; }
+
+// acc[i][j] += sum over the kc-deep chunk of A(out_row(i), k) B(k,
+// out_col(j)), in ascending k; AOM / BOM: the panel is outer-major.
+template <bool AOM, bool BOM, int TM, int TN, int RM, int RN>
+__device__ __forceinline__ void chunk_fma(const float* as, const float* bs, int kc,
+                                          float (&acc)[RM][RN], int ty, int tx) {
+  constexpr int GY = TM / RM, GX = TN / RN;
   const int ld = round_up(kc, 8) + 4;
+  const float* ap = AOM ? as + ty * ld : as + ty * RM;
+  const float* bp = BOM ? bs + tx * ld : bs + tx * RN;
   for (int k0 = 0; k0 < kc; k0 += 4) {
-    float a[4][4], b[2][4];
+    float a[RM][4], b[RN][4];
     if (AOM) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 v = *reinterpret_cast<const float4*>(as + (4 * ty + i) * ld + k0);
-        a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
-      }
+      for (int i = 0; i < RM; ++i) load_vec<4>(ap + GY * i * ld + k0, a[i]);
     } else {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(as + (k0 + q) * TILE + 4 * ty);
-        a[0][q] = v.x; a[1][q] = v.y; a[2][q] = v.z; a[3][q] = v.w;
+        float v[RM];
+        load_vec<RM>(ap + (k0 + q) * TM, v);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) a[i][q] = v[i];
       }
     }
     if (BOM) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float4 v = *reinterpret_cast<const float4*>(bs + (tx + 16 * j) * ld + k0);
-        b[j][0] = v.x; b[j][1] = v.y; b[j][2] = v.z; b[j][3] = v.w;
-      }
+      for (int j = 0; j < RN; ++j) load_vec<4>(bp + GX * j * ld + k0, b[j]);
     } else {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        b[0][q] = bs[(k0 + q) * TILE + tx];
-        b[1][q] = bs[(k0 + q) * TILE + tx + 16];
+        float v[RN];
+        load_vec<RN>(bp + (k0 + q) * TN, v);
+#pragma unroll
+        for (int j = 0; j < RN; ++j) b[j][q] = v[j];
       }
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) acc[i][j] = fmaf(a[i][q], b[j][q], acc[i][j]);
+        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i][q], b[j][q], acc[i][j]);
   }
 }
 
-// Output tile (tm, tn) of twin z, by the NT threads of a block; the block's
-// dynamic shared memory holds gemm_smem_bytes(kmax) for a chunk depth kc =
-// gemm_chunk(kmax). It is reached through an extern __shared__ array, not
-// a pointer handed in, so the compiler keeps shared-memory loads (LDS)
-// rather than generic ones, which run the tile at about half speed. Ends
-// with the block synchronised, so the panels can be reused.
-template <int NT>
+// Output tile (tm, tn) of twin z, TM x TN, RM x RN outputs on each of the
+// first TM TN / (RM RN) of the block's NT threads (every thread copies);
+// the block's dynamic shared memory holds gemm_smem_bytes(kmax) for a chunk
+// depth kc = gemm_chunk(kmax). It is reached through an extern __shared__
+// array, not a pointer handed in, so the compiler keeps shared-memory loads
+// (LDS) rather than generic ones, which run the tile at about half speed.
+// Ends with the block synchronised, so the panels can be reused.
+template <int NT, int TM, int TN, int RM, int RN>
 __device__ void gemm_tile(const Gemm& g, int z, int tm, int tn, int kc) {
-  static_assert(NT >= GEMM_THREADS && NT % 32 == 0, "too few threads for the GEMM tile");
+  constexpr int GY = TM / RM, GX = TN / RN, CT = GY * GX;  // CT threads compute
+  static_assert(TM % RM == 0 && TN % RN == 0 && GX % 8 == 0 && GY % 4 == 0 && CT <= NT,
+                "a tile's computing threads are whole warps of 4 x 8");
   extern __shared__ __align__(16) float smem[];
-  const int m0 = tm * TILE;
-  const int n0 = tn * TILE;
+  const int m0 = tm * TM;
+  const int n0 = tn * TN;
   const float* A = g.a + z * g.a_z;
   const float* Bm = g.b + z * g.b_z;
   const bool aom = g.a_k == 1 && g.a_m != 1;
@@ -251,11 +312,12 @@ __device__ void gemm_tile(const Gemm& g, int z, int tm, int tn, int kc) {
   const int stage = 2 * pf;
   auto load = [&](int ch) {
     float* st = smem + (ch & 1) * stage;
-    load_panel<NT>(st, A, g.a_m, g.a_k, m0, g.m, ch * c, g.k, c);
-    load_panel<NT>(st + pf, Bm, g.b_n, g.b_k, n0, g.n, ch * c, g.k, c);
+    load_panel<NT, TM>(st, A, g.a_m, g.a_k, m0, g.m, ch * c, g.k, c);
+    load_panel<NT, TN>(st + pf, Bm, g.b_n, g.b_k, n0, g.n, ch * c, g.k, c);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
-  float acc[4][2] = {};
+  const int ty = tile_ty<GX>(), tx = tile_tx<GX>();
+  float acc[RM][RN] = {};
   load(0);
   for (int ch = 0; ch < nch; ++ch) {
     if (ch + 1 < nch) {
@@ -265,22 +327,21 @@ __device__ void gemm_tile(const Gemm& g, int z, int tm, int tn, int kc) {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
     __syncthreads();
-    if (threadIdx.x < GEMM_THREADS) {
+    if (CT == NT || (int)threadIdx.x < CT) {
       const float* as = smem + (ch & 1) * stage;
       const float* bs = as + pf;
-      if (aom && bom) chunk_fma<true, true>(as, bs, c, acc);
-      else if (aom) chunk_fma<true, false>(as, bs, c, acc);
-      else if (bom) chunk_fma<false, true>(as, bs, c, acc);
-      else chunk_fma<false, false>(as, bs, c, acc);
+      if (aom && bom) chunk_fma<true, true, TM, TN, RM, RN>(as, bs, c, acc, ty, tx);
+      else if (aom) chunk_fma<true, false, TM, TN, RM, RN>(as, bs, c, acc, ty, tx);
+      else if (bom) chunk_fma<false, true, TM, TN, RM, RN>(as, bs, c, acc, ty, tx);
+      else chunk_fma<false, false, TM, TN, RM, RN>(as, bs, c, acc, ty, tx);
     }
     __syncthreads();
   }
-  if (threadIdx.x >= GEMM_THREADS) return;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int i = 0; i < 4; ++i) {
-    for (int j = 0; j < 2; ++j) {
-      const int gm = m0 + 4 * ty + i;
-      const int gn = n0 + tx + 16 * j;
+  if (CT < NT && (int)threadIdx.x >= CT) return;
+  for (int i = 0; i < RM; ++i) {
+    for (int j = 0; j < RN; ++j) {
+      const int gm = m0 + out_row<GY, RM>(aom, ty, i);
+      const int gn = n0 + out_col<GX, RN>(bom, tx, j);
       if (gm >= g.m || gn >= g.n) continue;
       float v = acc[i][j];
       if (g.bias) v += g.bias[z * g.bias_z + gn];
@@ -577,7 +638,7 @@ struct Temperature {
 // is the block's dynamic array, as for the tile.
 
 constexpr int ROW_WAVE = 128;  // items a row-owned phase aims at: one round
-                               // on the K-blocked kernel's 128 SAC blocks
+                               // on the K-blocked kernel's SAC blocks (129)
 
 // Row stride of staged rows of k floats: 16-byte rows that put the rows of
 // neighbouring threads' chains in distinct banks.
@@ -856,7 +917,7 @@ inline ll scratch_floats(int B, int S, int A, int H) {
 //   heads run row-owned with their row steps (phases 3, 6, 9, 15, 17); the
 //   last layers' weight and bias gradients, whose tiles are as deep as the
 //   first layers', share the first layers' weight-gradient phases (11, 19),
-//   which have room in one round. Host and device: gx::PlanExec counts it.
+//   which have room in one round. Host and device: gx::PlanExec records it.
 #pragma nv_exec_check_disable
 template <class Exec>
 __host__ __device__ void sac_step(Exec& ex, const Ptrs& p, const Buffers& f, int B, int S, int A,

@@ -33,6 +33,7 @@ struct PArgs {
   sac::Ptrs p;
   sac::Buffers f;
   sac::Hyper h;
+  gx::Plan plan;
   unsigned* words;
   unsigned long long* stamps;
   int B, S, A, H, kc;
@@ -42,7 +43,7 @@ struct PArgs {
 // by one more barrier).
 __global__ void __launch_bounds__(THREADS) timed_kernel(const __grid_constant__ PArgs k) {
   if (blockIdx.x == 0 && threadIdx.x == 0) k.stamps[0] = now_ns();
-  TimedExec ex{{k.kc, k.words, 0, (int)gridDim.x}, k.stamps, 1};
+  TimedExec ex{{k.kc, k.words, 0, (int)gridDim.x, &k.plan}, k.stamps, 1};
   sac::sac_step(ex, k.p, k.f, k.B, k.S, k.A, k.H, k.h);
   ex.sync();
 }
@@ -83,6 +84,7 @@ extern "C" int iltpu_phases_update(void* const* ptr, int B, int S, int A, int H,
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, timed_kernel, THREADS, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  k.plan = gx::step_plan<THREADS>(B, S, A, H, per_sm * sms).plan;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if ((e = cudaMemsetAsync(k.words, 0, sizeof(unsigned) * gx::BARRIER_WORDS, s)) != cudaSuccess)
     return (int)e;

@@ -17,11 +17,17 @@
 //    512 threads a block, expected 132 blocks), each phase a grid-stride
 //    loop over its work items, phases separated by a barrier over the grid;
 //  - the GEMM tile copies its whole-depth panels into dynamic shared memory
-//    at once (sac_core.cuh), opted in past the 48 KB static limit;
+//    at once (sac_core.cuh), opted in past the 48 KB static limit, and runs
+//    on 256 threads; each phase's tiles (32 or 64 on a side) are
+//    picked on the host from the shapes and the grid for the fewest rounds
+//    of items over the blocks (gx::plan_step), cached for the shape, and
+//    handed to the kernel, so a phase at batch 1024 runs one round of 64x64
+//    tiles, not four of 32x32;
 //  - the narrow heads run row-owned, each item a few batch rows whole with
 //    the row step after the head in the same phase (sac_core.cuh), so an
 //    update crosses 21 barriers, 8 fewer than with tiles;
-//    `iltpu_sac_plan` counts them and the row-owned items at a shape;
+//    `iltpu_sac_plan` counts them, the row-owned items and the GEMM
+//    phases' rounds at a shape and a grid;
 //  - the block size and the temperature phase's logical width are the
 //    K-blocked kernel's (kblock_update.cu), so K of these launches and one
 //    K-blocked launch give the same bits.
@@ -48,6 +54,7 @@ struct SArgs {
   sac::Ptrs p;
   sac::Buffers f;
   sac::Hyper h;
+  gx::Plan plan;
   unsigned* words;
   int B, S, A, H, kc;
 };
@@ -55,7 +62,7 @@ struct SArgs {
 // __grid_constant__: sac_step reads the arguments where they are, with no
 // copy in each thread's local memory.
 __global__ void __launch_bounds__(THREADS) sac_kernel(const __grid_constant__ SArgs k) {
-  gx::GridExec<THREADS> ex{k.kc, k.words, 0, (int)gridDim.x};
+  gx::GridExec<THREADS> ex{k.kc, k.words, 0, (int)gridDim.x, &k.plan};
   sac::sac_step(ex, k.p, k.f, k.B, k.S, k.A, k.H, k.h);
 }
 
@@ -102,16 +109,23 @@ extern "C" void iltpu_sac_buffers(int B, int S, int A, int H, long long* out) {
   sac::carve(sc, B, S, A, H);
 }
 
-// The plan of one update at a shape, counted by running sac::sac_step on
-// the host (gx::PlanExec): the barriers it crosses and its row-owned items.
-extern "C" void iltpu_sac_plan(int B, int S, int A, int H, int* phases, int* row_items) {
-  gx::PlanExec ex;
-  sac::Scratch sc = {nullptr};
-  const sac::Buffers f = sac::carve(sc, B, S, A, H);
-  const sac::Ptrs p = {};
-  sac::sac_step(ex, p, f, B, S, A, H, sac::Hyper{});
-  *phases = ex.phases;
-  *row_items = ex.row_items_run;
+// The plan of one update at a shape on `blocks` blocks, made by running
+// sac::sac_step on the host (gx::plan_step), as a launch on that grid runs
+// it: the barriers it crosses, its row-owned items, and the GEMM phases'
+// rounds of items over the blocks; and, phase by phase (gx::MAX_PHASES ints
+// each, the first `phases` written), the items, the rounds and the picks
+// (gx::StepPlan::tiles).
+extern "C" void iltpu_sac_plan(int B, int S, int A, int H, int blocks, int* phases, int* row_items,
+                               int* gemm_rounds, int* items, int* rounds, int* tiles) {
+  const gx::StepPlan sp = gx::plan_step<THREADS>(B, S, A, H, blocks);
+  *phases = sp.phases;
+  *row_items = sp.row_items;
+  *gemm_rounds = sp.gemm_rounds;
+  for (int i = 0; i < sp.phases; ++i) {
+    items[i] = sp.items[i];
+    rounds[i] = sp.rounds[i];
+    tiles[i] = sp.tiles[i];
+  }
 }
 
 extern "C" const char* iltpu_sac_error(int e) { return cudaGetErrorString((cudaError_t)e); }
@@ -144,6 +158,7 @@ extern "C" int iltpu_sac_update(void* const* ptr, int B, int S, int A, int H, fl
   cudaError_t e = config(B, S, A, H, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  k.plan = gx::step_plan<THREADS>(B, S, A, H, per_sm * sms).plan;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   e = cudaMemsetAsync(k.words, 0, sizeof(unsigned) * gx::BARRIER_WORDS, s);
   if (e != cudaSuccess) return (int)e;

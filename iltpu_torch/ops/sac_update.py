@@ -228,7 +228,7 @@ def _bind(lib):
         lib.iltpu_sac_grid.restype = ctypes.c_int
         lib.iltpu_sac_error.argtypes = [ctypes.c_int]
         lib.iltpu_sac_error.restype = ctypes.c_char_p
-        lib.iltpu_sac_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+        lib.iltpu_sac_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
         lib.iltpu_sac_plan.restype = None
         lib._typed = True
     return lib
@@ -340,15 +340,33 @@ def grid(lib, B: int, S: int, A: int, H: int):
     return per_sm.value, sms.value, smem.value
 
 
-def plan(lib, B: int, S: int, A: int, H: int) -> Dict[str, int]:
-    """The plan of one update at a shape, as the library counts it by
-    running its update on the host with no data: `phases`, the grid
-    barriers an update crosses (the K-blocked kernel's micro-update crosses
-    as many), and `row_items`, its row-owned work items (the narrow heads
-    with their row steps)."""
-    phases, row_items = ctypes.c_int(0), ctypes.c_int(0)
-    _bind(lib).iltpu_sac_plan(B, S, A, H, ctypes.byref(phases), ctypes.byref(row_items))
-    return {"phases": phases.value, "row_items": row_items.value}
+MAX_PHASES = 32  # gx::MAX_PHASES: the per-phase arrays of `iltpu_sac_plan`
+PICKS = ("32x32", "64x32", "32x64", "64x64", "cols", "cols/block")  # gx::StepPlan::tiles' digits - 1
+
+
+def plan(lib, B: int, S: int, A: int, H: int, blocks: int) -> Dict:
+    """The plan of one update at a shape on `blocks` blocks (a launch's
+    grid: `grid`; the K-blocked kernel's SAC blocks), as the library makes
+    it by running its update on the host with no data and as a launch on
+    that grid runs it: `phases`, the grid barriers an update crosses (the
+    K-blocked kernel's micro-update crosses as many); `row_items`, its
+    row-owned work items (the narrow heads with their row steps);
+    `gemm_rounds`, over the phases with a GEMM job, the rounds of their
+    items over the blocks; and for each phase its `items`, `rounds` and
+    `picks` (each GEMM job's tile, each column sum's item width: "cols" of
+    64 threads, "cols/block")."""
+    phases, row_items, rounds = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    items, phase_rounds, tiles = ((ctypes.c_int * MAX_PHASES)() for _ in range(3))
+    _bind(lib).iltpu_sac_plan(B, S, A, H, blocks, ctypes.byref(phases), ctypes.byref(row_items),
+                              ctypes.byref(rounds), items, phase_rounds, tiles)
+    picks = []
+    for code in tiles[:phases.value]:
+        picks.append([])
+        while code:
+            picks[-1].append(PICKS[code % 8 - 1])
+            code //= 8
+    return {"phases": phases.value, "row_items": row_items.value, "gemm_rounds": rounds.value,
+            "items": items[:phases.value], "rounds": phase_rounds[:phases.value], "picks": picks}
 
 
 def _error(lib, rc: int) -> str:

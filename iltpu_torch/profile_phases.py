@@ -10,10 +10,12 @@ Needs one CUDA card. The SAC mode builds `csrc/sac_phases.cu` (the update of
 `csrc/sac_update.cu` with a timestamp after each phase's barrier), runs a
 full-width update (width 256) five times on a fresh state at pointmass's
 (state 5, action 2, batch 256), hopper's (12, 3, 256) and ant's (112, 8,
-1024) shapes, and prints one JSON line a shape: the median microseconds of
-each of the 21 phases (barrier included) and of the whole kernel, the
-update's plan (`sac_update.plan`: barriers and row-owned items), and the
-time of one bare barrier crossing over every block. The GAIL mode
+1024) shapes, and prints one JSON line a shape: for each of the 21 phases
+its median microseconds (barrier included) beside its items, its rounds of
+items over the grid it runs on and its picks (each GEMM job's tile, each
+column sum's width), the whole kernel's median microseconds, the update's
+plan (`sac_update.plan`: barriers, row-owned items, the GEMM phases'
+rounds), and the time of one bare barrier crossing over every block. The GAIL mode
 builds `csrc/gail_phases.cu` (the step of `csrc/gail_update.cu` with a
 barrier and a timestamp after each of its phases: six for a tiled step;
 seven for the wide one's cluster, block 0's clock, where the segments'
@@ -315,11 +317,14 @@ def main(argv=None):
         bar, blocks = barrier_us(lib, dev)
         for S, A, B in SAC_SHAPES:
             per_phase, total = phases(lib, dev, S=S, A=A, B=B)
+            plan = su.plan(build.load("sac_update"), B, S, A, 256, blocks)
             print(json.dumps({
                 "shape": f"B={B} S={S} A={A} H=256", "update_us": total, "barrier_us": bar,
-                "blocks": blocks, "plan": su.plan(build.load("sac_update"), B, S, A, 256),
-                "phases_us": {f"{i + 1:2d} {name}": round(t, 2) for i, (name, t) in
-                              enumerate(zip(PHASES, per_phase))},
+                "blocks": blocks, "plan": {k: plan[k] for k in ("phases", "row_items", "gemm_rounds")},
+                "phases": {f"{i + 1:2d} {name}": {"us": round(t, 2), "items": n, "rounds": r,
+                                                   "picks": " ".join(p)}
+                           for i, (name, t, n, r, p) in enumerate(zip(
+                               PHASES, per_phase, plan["items"], plan["rounds"], plan["picks"]))},
             }))
     elif mode == "pwil":
         lib = _bind_pwil(build.load("pwil_phases"))

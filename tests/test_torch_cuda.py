@@ -3,7 +3,8 @@ one): PWIL's transport kernel and the GAIL step's wide variant against
 their plain versions, the K-blocked kernel with the wide GAIL step against
 per-update calls bit for bit, the wrappers' bound launch tables against
 fresh ones bit for bit, SAC's later chunks on ant's rows against a
-float64 run, the SAC step's bits pinned by digests, and a chunk of the
+float64 run, the SAC step's bits pinned by digests, its plan's GEMM rounds
+pinned, and a chunk of the
 on-device loop replayed from CUDA graphs against the same chunk run eagerly. This file imports neither JAX nor iltpu, so it also runs where
 JAX is absent:
 
@@ -238,13 +239,15 @@ def _launch_keeping_scratch(module, floats, call):
 
 
 # (state, action, batch, min_alpha) of five SAC updates, or (state, action,
-# K) of one K-blocked launch at batch 256, and the digest of their bits
+# K, batch) of one K-blocked launch, and the digest of their bits
 SAC_BIT_CASES = {
     "hopper": (12, 3, 256, 0.0),
-    "ant_1024": (112, 8, 1024, 0.0),  # batch past 512: the GEMM's chunked ring
+    "ant_1024": (112, 8, 1024, 0.0),  # batch past 256: the GEMM's chunked ring
     "pointmass": (5, 2, 256, 0.0),
     "pointmass_min_alpha": (5, 2, 256, 0.05),
-    "kblock4_hopper": (12, 3, 4),
+    "kblock4_hopper": (12, 3, 4, 256),
+    "kblock16_hopper": (12, 3, 16, 256),
+    "kblock4_ant_1024": (112, 8, 4, 1024),
 }
 SAC_BIT_DIGESTS = {
     "hopper": "9ebcfe50dc4a7757650738a5aa3556ab1f0610117439fd969bde2986c1246d71",
@@ -252,6 +255,8 @@ SAC_BIT_DIGESTS = {
     "pointmass": "8a0dfff8febcc63c4fea012706cd99c2db4b8782fe6a13b51dd7a75194eb6eea",
     "pointmass_min_alpha": "d94ae4d55f3316d2c132c898788d90adb7b3920c5b2211f19f4f62a64faaffe3",
     "kblock4_hopper": "1396bcb855513a02d35bc535f2369a03fbb5e36565a82b49c2d8ea5303e63b6c",
+    "kblock16_hopper": "05987df49bf35e7392e9fdc3af653a60ef86a5994f6a24471ff493fe449e23ac",
+    "kblock4_ant_1024": "b9e2b51185ad74f46f7ad0b8ea74e8a51f042f63c0f63a391198a3a62aee051e",
 }
 
 
@@ -281,15 +286,15 @@ def sac_bit_digest(case, dev):
             feed(scratch[off:off + n])
 
     if case.startswith("kblock"):
-        S, A, K = SAC_BIT_CASES[case]
+        S, A, K, B = SAC_BIT_CASES[case]
         sh, gh, sac_st, disc_st, batches, expert, noise = (
             _to(x, dev) if isinstance(x, dict) else x
-            for x in cs.kblock_case(S, A, K, True, 0.0, cpu))
+            for x in cs.kblock_case(S, A, K, True, 0.0, cpu, B=B))
         klib = kb._bind(build.load("kblock_update"))
-        floats = klib.iltpu_kblock_scratch_floats(K, 256, S, A, H, disc_st["p"][0].shape[1])
+        floats = klib.iltpu_kblock_scratch_floats(K, B, S, A, H, disc_st["p"][0].shape[1])
         scratch, aux = _launch_keeping_scratch(kb, floats, lambda: kb.kblock_update(
             sh, gh, sac_st, disc_st, batches, expert, noise))
-        buffers(scratch, 256, S, A)
+        buffers(scratch, B, S, A)
         for k in sorted(aux):
             feed(aux[k])
         states = (sac_st, disc_st)
@@ -315,12 +320,40 @@ def sac_bit_digest(case, dev):
 @pytest.mark.parametrize("case", list(SAC_BIT_CASES))
 def test_sac_step_bits_are_pinned(cuda, case):
     """Five SAC updates at hopper's, ant's (batch 1024) and pointmass's
-    shapes (min_alpha 0 and 0.05), and one K-blocked launch of 4 at
-    hopper's: the state, the aux outputs and every scratch buffer hash to
-    the digests that the same function gave on a build of the kernels
-    before the narrow heads became row-owned (an H100 with torch
-    2.11.0+cu128; another torch may draw other inputs)."""
+    shapes (min_alpha 0 and 0.05), and one K-blocked launch of 4 and one of
+    16 at hopper's and one of 4 at ant's batch 1024: the state, the aux
+    outputs and every scratch buffer hash to the digests that the same
+    function gave on a build of the kernels before the narrow heads became
+    row-owned (the last two: before the GEMM phases' tiles followed their
+    shapes; an H100 with torch 2.11.0+cu128; another torch may draw other
+    inputs)."""
     assert sac_bit_digest(case, cuda) == SAC_BIT_DIGESTS[case]
+
+
+# (batch, state, action, blocks) and the GEMM phases' rounds of items over
+# the blocks that the SAC step's plan reads there
+SAC_PLAN_ROUNDS = {
+    "hopper_132": ((256, 12, 3, 132), 13),
+    "hopper_128": ((256, 12, 3, 128), 13),  # as many blocks as a K-blocked launch once gave SAC
+    "ant_1024_132": ((1024, 112, 8, 132), 14),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SAC_PLAN_ROUNDS))
+def test_sac_plan_rounds_are_pinned(cuda, case):
+    """`sac_update.plan` reads 13 GEMM rounds at hopper's shapes on 132
+    blocks and on 128, and 14 at ant's batch 1024 on 132, where one 32x32
+    tile a block's item took 14, 16 and 46; the 21 phases and 640 row-owned
+    items are as before."""
+    from iltpu_torch.ops import build
+    from iltpu_torch.ops import sac_update as su
+
+    (B, S, A, blocks), rounds = SAC_PLAN_ROUNDS[case]
+    plan = su.plan(build.load("sac_update"), B, S, A, 256, blocks)
+    assert (plan["phases"], plan["row_items"], plan["gemm_rounds"]) == (21, 640, rounds)
+    assert sum(r for r, p in zip(plan["rounds"], plan["picks"])
+               if any(x[0].isdigit() for x in p)) == rounds
 
 
 SMALL = [

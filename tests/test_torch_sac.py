@@ -244,7 +244,7 @@ def c_params(source, entry):
     it, in order: {name: the ctypes type of a pointer, int or float}."""
     with open(os.path.join(CSRC, source)) as f:
         src = f.read()
-    head = src[src.index(f'extern "C" int {entry}(') + len(f'extern "C" int {entry}('):]
+    head = src[re.search(rf'extern "C" \w+ {entry}\(', src).end():]
     params = {}
     for param in head[:head.index(")")].split(","):
         decl, name = param.strip().rsplit(None, 1)
@@ -284,6 +284,47 @@ def test_entry_args_keep_the_c_entrys_order():
     assert bound_argtypes(su._bind, "iltpu_sac_update") == list(sig.values())
     assert su.entry_args(h, "ptrs", (32, 7, 3, 16), scratch) == tuple(want.values())
     assert su.scalars(h) == tuple(want.values())[5:13]
+
+
+def test_plan_entry_takes_the_blocks_and_gives_the_gemm_rounds():
+    """`iltpu_sac_plan` takes the shape and the block count, then the
+    places of the phases, row-owned items and GEMM rounds it counts and of
+    its per-phase items, rounds and picks: the listing here is the
+    reference, and `_bind` gives the entry those C types."""
+    I, P = ctypes.c_int, ctypes.c_void_p
+    want = {"B": I, "S": I, "A": I, "H": I, "blocks": I, "phases": P, "row_items": P,
+            "gemm_rounds": P, "items": P, "rounds": P, "tiles": P}
+    sig = c_params("sac_update.cu", "iltpu_sac_plan")
+    assert list(sig.items()) == list(want.items())
+    assert bound_argtypes(su._bind, "iltpu_sac_plan") == list(sig.values())
+
+
+class _PlanEntry:
+    """A stand-in for `iltpu_sac_plan` that writes a plan of three phases:
+    two 32x32 GEMM jobs; a row-owned phase; a 64x64 GEMM job, a column sum
+    of the block's threads and a 64x32 GEMM job."""
+
+    def __call__(self, B, S, A, H, blocks, phases, row_items, gemm_rounds, items, rounds, tiles):
+        self.args = (B, S, A, H, blocks)
+        phases._obj.value, row_items._obj.value, gemm_rounds._obj.value = 3, 128, 3
+        for i, (n, r, code) in enumerate(((128, 1, 1 + 8 * 1), (128, 1, 0),
+                                          (193, 2, 4 + 8 * 6 + 64 * 2))):
+            items[i], rounds[i], tiles[i] = n, r, code
+
+
+def test_plan_reads_each_phase_of_the_entry():
+    """`plan` hands the entry the shape and the block count, and reads its
+    counts and each phase's items, rounds and picks (a base-8 digit a
+    GEMM or column-sum job, the lowest first)."""
+    lib = _Lib()
+    lib.iltpu_sac_plan = entry = _PlanEntry()
+    got = su.plan(lib, 256, 12, 3, 256, 129)
+    assert entry.args == (256, 12, 3, 256, 129)
+    assert got == {"phases": 3, "row_items": 128, "gemm_rounds": 3, "items": [128, 128, 193],
+                   "rounds": [1, 1, 2],
+                   "picks": [["32x32", "32x32"], [], ["64x64", "cols/block", "64x32"]]}
+
+
 BUFFERS = ("x2 x xn ah1 ah2 ao bh1 bh2 bo lp2 td th1 th2 tq ch1 ch2 cq dq dz2 dz1 gc0 gc1 gc2 "
            "gc3 gc4 gc5 da dout adz2 adz1 ga0 ga1 ga2 ga3 ga4 ga5").split()
 
